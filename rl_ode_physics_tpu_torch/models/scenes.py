@@ -1,8 +1,9 @@
-"""Scene builders: the reference arena and the bench workload's world.
+"""Scene builders: the reference arena, the bench workload's world and the
+trimesh-conformance scene.
 
-The port of ``rl_ode_physics_tpu/models/scenes.py:30-122``. Scenes are
-drawn from the repo's own ``RandStream`` on the host, so they are bitwise
-the JAX package's.
+The port of ``rl_ode_physics_tpu/models/scenes.py:30-122`` and
+``:158-203``. Scenes are drawn from the repo's own ``RandStream`` on the
+host, so they are bitwise the JAX package's.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import BodyType, WorldState
 from rl_ode_physics_tpu_torch.models.builder import WorldBuilder
+from rl_ode_physics_tpu_torch.ops.trimesh import TriMesh, build_trimesh
 from rl_ode_physics_tpu_torch.utils.prng import RandStream
 
 # raylib color constants used by the reference arena
@@ -64,3 +66,47 @@ def bench_world(config: EngineConfig, num_bodies: int = 60, seed: int = 42,
                                color=rng.color())
                 n += 1
     return b.finish(device)
+
+
+def ridge_mesh_geometry():
+    """Analytic twin-ridge heightfield (48 triangles): piecewise-linear
+    ridges at x=±1.4, a valley at the center; rich enough for the face,
+    vertex and edge trimesh feature classes."""
+    xs = np.linspace(-3.0, 3.0, 7)
+    zs = np.linspace(-2.0, 2.0, 5)
+
+    def height(x):
+        return (0.5 * max(0.0, 1.0 - abs(x - 1.4))
+                + 0.5 * max(0.0, 1.0 - abs(x + 1.4)))
+
+    verts = np.array([[x, height(x), z] for z in zs for x in xs], np.float64)
+    tris = []
+    nx = len(xs)
+    for r in range(len(zs) - 1):
+        for c in range(nx - 1):
+            i = r * nx + c
+            tris.append([i, i + 1, i + nx])
+            tris.append([i + 1, i + nx + 1, i + nx])
+    return verts, np.array(tris, np.int64)
+
+
+def ridge_mesh_scene(config: EngineConfig,
+                     device="cuda") -> tuple[WorldState, TriMesh]:
+    """(state, mesh): a sphere, a box and a capsule dropped into the valley
+    of the twin-ridge heightfield, the mesh padded to one 128-triangle
+    tile."""
+    b = WorldBuilder(config, 0)
+    mesh_slot = b.add_body_map((0.0, 0.0, 0.0), (0.0, 0.0, 0.0),
+                               (0.0, 0.0, 0.0))
+    b.body_type[mesh_slot] = int(BodyType.TRIMESH)
+    b.add_body(BodyType.SPHERE, (-0.6, 1.6, 0.4), (0.3, 0.0, 0.0))
+    b.add_body(BodyType.BOX, (0.0, 1.2, -0.5), (0.5, 0.5, 0.5))
+    s = float(np.sin(np.pi / 4))
+    b.add_body(BodyType.CAPSULE, (0.6, 2.0, 0.2), (0.2, 0.8, 0.0),
+               quat=(s, 0.0, s, 0.0))
+    state = b.finish(device)
+
+    verts, tris = ridge_mesh_geometry()
+    mesh = build_trimesh(verts, tris, slot=mesh_slot, dtype=state.pos.dtype,
+                         pad_to_multiple=128, device=device)
+    return state, mesh

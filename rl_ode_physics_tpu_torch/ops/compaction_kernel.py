@@ -3,9 +3,7 @@
 ``csrc/compact_rows.cu`` replaces the Pallas TPU kernel
 ``rl_ode_physics_tpu/ops/compaction_pallas.py:compact_rows_t_pallas``. It is
 built with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use, into ``build/kernels/`` at the root of the
-checkout, and loaded with ``ctypes``. No PyTorch header is compiled, so the
-build takes seconds.
+interface at first use and loaded with ``ctypes`` (``ops/kernel_build.py``).
 
 ``compact_rows_t`` launches the kernel for CUDA tensors. For CPU tensors,
 and only for those, it runs the kernel's plain version,
@@ -18,62 +16,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-from rl_ode_physics_tpu_torch.ops import compaction
+from rl_ode_physics_tpu_torch.ops import compaction, kernel_build
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "compact_rows.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # the (D, k) output tile lives in static-size dynamic shared memory
 _MAX_TILE_BYTES = 48 * 1024
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the compaction kernel is built "
-                           "with the CUDA toolkit's nvcc")
-    return str(path)
-
-
-def build() -> Path:
+def build():
     """Compile the kernel library (once per source version) and return its
     path."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libcompact_rows_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return kernel_build.build("compact_rows.cu")
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    fn = lib.compact_rows_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    return kernel_build.load(build(), {
+        "compact_rows_launch":
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]})
 
 
 def compact_rows_t(mask: torch.Tensor, payload_t: torch.Tensor, k: int,

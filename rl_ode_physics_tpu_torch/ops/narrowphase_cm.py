@@ -9,8 +9,9 @@ two libraries' elementwise operations do.
 
 The pipeline per substep: pair eligibility, one compacted candidate list
 per pair type, the type's pair kernel at its manifold size (box-box folds
-8 slots to 4), slot-major emission into a ``(B, 10, M)`` payload, and the
-contact compaction into ``(B, 10, C)`` rows. On a CUDA tensor the
+8 slots to 4), slot-major emission into a ``(B, 10, M)`` payload with any
+mesh rows (``extra``) appended, and the contact compaction into
+``(B, 10, C)`` rows. On a CUDA tensor the
 compaction is the hand-written kernel (``ops/compaction_kernel.py``),
 whatever ``pallas_compaction`` says; on a CPU tensor it is its plain
 version (``ops/compaction.py``).
@@ -523,13 +524,14 @@ def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
                          extra=None, exclude=None):
     """Contacts of every world, and the number of pairs tested per world.
 
+    ``extra``: rows of another manifold source, the trimesh narrowphase's
+    ``(points (B, R, 3), normals, depths (B, R), a (B, R), b (B, R),
+    valid (B, R))``, appended after the bucket rows before the compaction.
     The port runs the dense pair phase only (``sap_window=0``) and takes no
-    mesh rows (``extra``) and no joint exclusions (``exclude``).
+    joint exclusions (``exclude``).
     """
     if config.sap_window:
         raise NotImplementedError("sap_window is not ported (dense pairs only)")
-    if extra is not None:
-        raise NotImplementedError("mesh contact rows (extra) are not ported")
     if exclude is not None:
         raise NotImplementedError("joint pair exclusion is not ported")
     if not supports_cm(config):
@@ -631,6 +633,17 @@ def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
     packed_t = torch.stack([torch.cat(parts, dim=1) for parts in row_parts],
                            dim=1)                             # (B, 10, M)
     flat_valid = torch.cat(valid_parts, dim=1)                # (B, M)
+
+    if extra is not None:
+        # mesh rows: slot −1 → key −1, excluded from warm-start matching
+        e_pts, e_nrm, e_dep, e_a, e_b, e_val = extra
+        e_packed_t = torch.cat([
+            e_pts.transpose(1, 2), e_nrm.transpose(1, 2), e_dep[:, None],
+            e_a.to(f)[:, None], e_b.to(f)[:, None],
+            torch.full_like(e_dep, -1.0)[:, None],
+        ], dim=1)                                             # (B, 10, R)
+        packed_t = torch.cat([packed_t, e_packed_t], dim=2)
+        flat_valid = torch.cat([flat_valid, e_val], dim=1)
 
     c_sel = torch.bfloat16 if sel_bf16 else None
     rows_t, cvalid, count, overflow = compaction_kernel.compact_rows_t(

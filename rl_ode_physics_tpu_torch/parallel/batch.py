@@ -38,14 +38,16 @@ def replicate(state: WorldState, num_worlds: int, reseed: bool = True,
 
 
 def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
-                         chunk: int = 0, device="cuda"):
+                         chunk: int = 0, device="cuda", trimesh=None):
     """A function batch → batch that runs ``substeps`` substeps.
 
     ``chunk``: step the batch in world-chunks of this size, one after the
     other, to bound peak device memory. The batch must lie on ``device``:
-    the function raises rather than step it anywhere else.
+    the function raises rather than step it anywhere else. ``trimesh``: an
+    optional static ``ops.trimesh.TriMesh`` on the same device, shared by
+    every world.
     """
-    step_fn = make_step_fn(config, substeps)
+    step_fn = make_step_fn(config, substeps, trimesh=trimesh)
     want = torch.device(device)
 
     def fn(batch: WorldState) -> WorldState:

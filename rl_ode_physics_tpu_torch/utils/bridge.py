@@ -6,7 +6,8 @@ dataclass, and back. This is how state built or stepped by one side is
 carried to the other: the "weights" of this system.
 
 Arrays may come with or without the leading world axis; a single world
-gains an axis of length 1. uint32 fields (``category``, ``collide``,
+gains an axis of length 1. A ``TriMesh`` has no world axis: one mesh is
+shared by every world. uint32 fields (``category``, ``collide``,
 ``rng_state``) travel as int64 in the port and return as uint32.
 """
 
@@ -20,6 +21,7 @@ import torch
 
 from rl_ode_physics_tpu_torch.core.state import WorldState
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
+from rl_ode_physics_tpu_torch.ops.trimesh import TriMesh
 
 _U32_FIELDS = ("category", "collide", "rng_state")
 
@@ -80,3 +82,23 @@ def contacts_from_numpy(arrays: Mapping[str, np.ndarray],
 def contacts_to_numpy(contacts: Contacts,
                       world: Optional[int] = None) -> dict:
     return _to_numpy(contacts, world)
+
+
+def trimesh_from_numpy(arrays: Mapping[str, np.ndarray],
+                       device="cuda") -> TriMesh:
+    """The port's ``TriMesh`` from numpy arrays of the JAX ``TriMesh``
+    fields (``v0``, ``e1``, ``e2``, ``normal`` (T, 3) and ``slot`` ())."""
+    def tensor(name):
+        return torch.from_numpy(np.array(arrays[name], order="C",
+                                         copy=True)).to(device)
+
+    return TriMesh(v0=tensor("v0"), e1=tensor("e1"), e2=tensor("e2"),
+                   normal=tensor("normal"), slot=int(arrays["slot"]))
+
+
+def trimesh_to_numpy(mesh: TriMesh) -> dict:
+    """numpy arrays with the JAX ``TriMesh``'s fields and dtypes."""
+    out = {name: getattr(mesh, name).detach().cpu().numpy()
+           for name in ("v0", "e1", "e2", "normal")}
+    out["slot"] = np.asarray(mesh.slot, np.int32)
+    return out

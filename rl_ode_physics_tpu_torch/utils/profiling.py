@@ -3,14 +3,20 @@
 Run on a machine with a CUDA card, from the root of the checkout::
 
     python3 -m rl_ode_physics_tpu_torch.utils.profiling [--worlds 8192]
+    python3 -m rl_ode_physics_tpu_torch.utils.profiling --mesh [--worlds 1024]
 
-It builds the bench world (``bench_config(64)``, 60 dynamic bodies) in
-``--worlds`` worlds, settles it ``--settle`` substeps, then prints one JSON
-object with:
+The default builds the bench world (``bench_config(64)``, 60 dynamic
+bodies); ``--mesh`` builds the trimesh workload of ``chip_smoke.py``
+(``benchmarks/teapot_bench.py``'s 15 spheres above the 9,216-triangle
+heightfield that stands in for the teapot, taken from that script).
+Either is replicated into ``--worlds`` worlds and settled ``--settle``
+substeps; then one JSON object is printed with:
 
 * ``phases``: each stage of the substep run alone on the settled state:
   host wall time (launch to synchronize) and the CUDA-event span on the
-  stream, which includes the gaps where the card waits for the host;
+  stream, which includes the gaps where the card waits for the host; with
+  ``--mesh`` the mesh narrowphase, and its tile sweep kernel, are stages of
+  their own;
 * ``substep``: one whole substep under ``torch.profiler``: the wall time,
   the summed device time of its kernels, the device's idle share of the
   wall time, the number of kernel launches, and the kernels with the most
@@ -25,7 +31,9 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 import time
+from pathlib import Path
 
 
 def _timed(fn, repeats: int):
@@ -46,14 +54,30 @@ def _timed(fn, repeats: int):
     return host_ms, start.elapsed_time(end) / repeats
 
 
-def profile(worlds: int, settle: int, repeats: int, top: int) -> dict:
+def _mesh_workload():
+    """(config, one world, mesh): the workload of ``chip_smoke.py``'s
+    trimesh phases, whose stand-in mesh lives in that script (a fixture,
+    not a feature of the package)."""
+    root = str(Path(__file__).resolve().parents[2])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import mesh_config, mesh_world, standin_mesh
+
+    config = mesh_config()
+    world, mesh = mesh_world(config, *standin_mesh(), device="cuda")
+    return config, world, mesh
+
+
+def profile(worlds: int, settle: int, repeats: int, top: int,
+            mesh_path: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity
 
     from rl_ode_physics_tpu_torch.core import world as world_m
     from rl_ode_physics_tpu_torch.core.config import bench_config
     from rl_ode_physics_tpu_torch.models.scenes import bench_world
-    from rl_ode_physics_tpu_torch.ops import integrator, narrowphase_cm, solver
+    from rl_ode_physics_tpu_torch.ops import (
+        integrator, mesh_kernels, narrowphase_cm, solver, trimesh)
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
 
@@ -64,25 +88,40 @@ def profile(worlds: int, settle: int, repeats: int, top: int) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    config = bench_config(64)
-    batch = replicate(bench_world(config, device="cuda"), worlds,
-                      device="cuda")
-    batch = make_batched_step_fn(config, substeps=settle)(batch)
+    if mesh_path:
+        config, world, mesh = _mesh_workload()
+    else:
+        config, mesh = bench_config(64), None
+        world = bench_world(config, device="cuda")
+    batch = replicate(world, worlds, device="cuda")
+    batch = make_batched_step_fn(config, substeps=settle,
+                                 trimesh=mesh)(batch)
     torch.cuda.synchronize()
 
-    contacts, _ = narrowphase_cm.narrowphase_typed_cm(batch, config)
+    phases = {}
+    extra = None
+    if mesh is not None:
+        extra = trimesh.mesh_narrowphase(batch, mesh, config)
+        probes = trimesh.mesh_probes(batch, config).reshape(-1, 3)
+        tris = mesh.transposed()
+        phases["mesh_narrowphase (probes, tile sweep, candidates, box and "
+               "sphere contacts, dedup)"] = (
+            lambda: trimesh.mesh_narrowphase(batch, mesh, config))
+        phases["sphere_mesh_d2_tiles kernel alone"] = (
+            lambda: mesh_kernels.sphere_mesh_d2_tiles(probes, *tris))
+    contacts, _ = narrowphase_cm.narrowphase_typed_cm(batch, config, extra)
     forced = integrator.apply_external_forces(batch, config)
     solved = solver.solve(forced, contacts, config)
-    phases = {
+    phases.update({
         "narrowphase (eligibility, pair kernels, compaction)":
-            lambda: narrowphase_cm.narrowphase_typed_cm(batch, config),
+            lambda: narrowphase_cm.narrowphase_typed_cm(batch, config, extra),
         "apply_external_forces":
             lambda: integrator.apply_external_forces(batch, config),
         "solve_jacobi": lambda: solver.solve(forced, contacts, config),
         "integrate_positions":
             lambda: integrator.integrate_positions(solved, config),
-        "whole substep": lambda: world_m.step(batch, config),
-    }
+        "whole substep": lambda: world_m.step(batch, config, mesh),
+    })
     phase_ms = {}
     for name, fn in phases.items():
         host_ms, span_ms = _timed(fn, repeats)
@@ -91,7 +130,7 @@ def profile(worlds: int, settle: int, repeats: int, top: int) -> dict:
     with torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        world_m.step(batch, config)
+        world_m.step(batch, config, mesh)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -103,8 +142,10 @@ def profile(worlds: int, settle: int, repeats: int, top: int) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "card": card,
+        "workload": "trimesh" if mesh is not None else "bench",
         "worlds": worlds,
         "settle_substeps": settle,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "phases": phase_ms,
         "substep": {
             "wall_ms_profiled": wall_ms,
@@ -118,13 +159,17 @@ def profile(worlds: int, settle: int, repeats: int, top: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--worlds", type=int, default=8192)
+    ap.add_argument("--mesh", action="store_true",
+                    help="the trimesh workload instead of the bench's")
+    ap.add_argument("--worlds", type=int, default=None,
+                    help="default 8192, or 1024 with --mesh")
     ap.add_argument("--settle", type=int, default=96)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
-    print(json.dumps(profile(args.worlds, args.settle, args.repeats,
-                             args.top), indent=1))
+    worlds = args.worlds or (1024 if args.mesh else 8192)
+    print(json.dumps(profile(worlds, args.settle, args.repeats, args.top,
+                             args.mesh), indent=1))
 
 
 if __name__ == "__main__":
