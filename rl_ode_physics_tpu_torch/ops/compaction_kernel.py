@@ -21,8 +21,9 @@ import torch
 
 from rl_ode_physics_tpu_torch.ops import compaction, kernel_build
 
-# the (D, k) output tile lives in static-size dynamic shared memory
-_MAX_TILE_BYTES = 48 * 1024
+# a block keeps k column indices for each of its 8 worlds in 48 KB of
+# shared memory
+_MAX_K = 48 * 1024 // (8 * 4)
 
 
 def build():
@@ -31,11 +32,15 @@ def build():
     return kernel_build.build("compact_rows.cu")
 
 
+# the library's C interface: launcher → argtypes
+FUNCTIONS = {
+    "compact_rows_launch":
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    return kernel_build.load(build(), {
-        "compact_rows_launch":
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]})
+    return kernel_build.load(build(), FUNCTIONS)
 
 
 def compact_rows_t(mask: torch.Tensor, payload_t: torch.Tensor, k: int,
@@ -62,11 +67,10 @@ def compact_rows_t(mask: torch.Tensor, payload_t: torch.Tensor, k: int,
     if sel_dtype not in (None, torch.float32, torch.bfloat16):
         raise TypeError(f"sel_dtype {sel_dtype}: None, float32 or bfloat16")
     b, d, m = payload_t.shape
-    if k < 1 or d * k * 4 > _MAX_TILE_BYTES:
-        raise ValueError(f"k={k}, D={d}: the (D, k) f32 tile must fit in "
-                         f"{_MAX_TILE_BYTES} bytes of shared memory")
-    if b == 0:
-        raise ValueError("no worlds to compact")
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"k={k}: the kernel keeps 1 to {_MAX_K} columns")
+    if b == 0 or d == 0:
+        raise ValueError("no worlds or no payload rows to compact")
 
     rows_t = torch.empty((b, d, k), dtype=torch.float32, device=mask.device)
     valid = torch.empty((b, k), dtype=torch.bool, device=mask.device)

@@ -20,7 +20,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA toolkit's compiler."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -34,7 +35,7 @@ def _nvcc() -> str:
 
 def build(source: str, flags=()) -> Path:
     """Compile ``csrc/<source>`` (once per source and flag version) and
-    return the library's path."""
+    return the library's path. An absolute ``source`` is taken as it is."""
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
@@ -43,7 +44,7 @@ def build(source: str, flags=()) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+    cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
            str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

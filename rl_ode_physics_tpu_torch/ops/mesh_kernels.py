@@ -4,13 +4,17 @@
 ``rl_ode_physics_tpu/ops/pallas_kernels.py``: ``sphere_mesh_d2_tiles``
 (phase 1 of ``ops/trimesh.mesh_narrowphase``, once per substep) and
 ``sphere_mesh_d2`` (``ops/trimesh.sphere_mesh_contacts``). The library is
-built with ``nvcc -fmad=false`` at first use (``ops/kernel_build.py``), so
-the kernels equal their plain versions bit for bit.
+built with ``nvcc`` at first use (``ops/kernel_build.py``).
 
 Each wrapper launches its kernel for CUDA tensors. For CPU tensors, and
 only for those, it runs the kernel's plain version in ``ops/trimesh.py``,
-which ``chip_smoke.py`` also holds the kernel to on the card. The
-``launches`` attribute of each wrapper counts its kernel's launches.
+which ``chip_smoke.py`` also holds the kernel to on the card, at rtol
+``D2_RTOL``, atol ``D2_ATOL``: the kernels fuse multiply-adds and take
+their reciprocals once per triangle, so they round otherwise than the
+plain versions, and the tile minima feed only the cull of
+``ops/trimesh.mesh_narrowphase``, which recomputes every contact from the
+candidate triangles. The ``launches`` attribute of each wrapper counts its
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -24,20 +28,27 @@ from rl_ode_physics_tpu_torch.ops import kernel_build, trimesh
 
 MESH_TILE = trimesh.MESH_TILE
 _MAX_TILES = 65535                  # the tile kernel's grid.y
+# how closely the kernels match their plain versions
+D2_RTOL, D2_ATOL = 1e-5, 1e-6
 
 
 def build():
     """Compile the kernel library (once per source version) and return its
     path."""
-    return kernel_build.build("sphere_mesh_d2.cu", ("-fmad=false",))
+    return kernel_build.build("sphere_mesh_d2.cu")
+
+
+# the library's C interface: launcher → argtypes
+FUNCTIONS = {
+    "sphere_mesh_d2_tiles_launch":
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "sphere_mesh_d2_launch":
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]}
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return kernel_build.load(build(), {
-        "sphere_mesh_d2_tiles_launch": [ptr] * 5 + [i32, i32, ptr],
-        "sphere_mesh_d2_launch": [ptr] * 5 + [i32, ptr]})
+    return kernel_build.load(build(), FUNCTIONS)
 
 
 def _all_cpu(*tensors) -> bool:

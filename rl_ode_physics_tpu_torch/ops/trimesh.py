@@ -215,6 +215,74 @@ def _d2_pallas_order(p, v0, e1, e2):
     return dx * dx + dy * dy + dz * dz
 
 
+def _d2_kernel_order(p, v0, e1, e2):
+    """The same squared distance in the operation order of
+    ``csrc/sphere_mesh_d2.cu``, for the tests, which hold it to
+    ``_d2_pallas_order`` at rtol 1e-5, atol 1e-6.
+
+    The kernel works from what belongs to the triangle alone: ``a = e1·e1``,
+    ``b = e1·e2``, ``c = e2·e2``. With ``s = d1`` and ``t = d2``:
+    ``d3 = s − a``, ``d4 = t − b``, ``d5 = s − b``, ``d6 = t − c``,
+    ``vb = c·s − b·t``, ``vc = a·t − b·s``, and every denominator of
+    ``_tri_vw`` is a constant of the triangle (``d1 − d3 = a``,
+    ``d2 − d6 = c``, ``(d4 − d3) + (d5 − d6) = (a − b) + (c − b)``,
+    ``va + vb + vc = a·c − b² = det``), so its guarded reciprocal is taken
+    once per triangle and a pair divides nowhere. The interior's
+    ``v = vb/det`` and ``w = vc/det`` come straight from ``a/det``,
+    ``b/det``, ``c/det``; they carry the signs of ``vb`` and ``vc``, and
+    ``va <= 0`` is ``v + w >= 1`` (``>= det`` where the guard replaced
+    ``1/det`` by 1). A vertex region's (v, w) is what the clipped formula
+    of an edge through that vertex gives, so the six regions fold into
+    three selections, in ``_tri_vw``'s priority; what is left outside the
+    triangle after the two edges through A is the region of edge BC, so
+    ``va <= 0`` alone selects it."""
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+    a = e1x * e1x + e1y * e1y + e1z * e1z
+    b = e1x * e2x + e1y * e2y + e1z * e2z
+    c = e2x * e2x + e2y * e2y + e2z * e2z
+
+    def guarded_reciprocal(x, otherwise):
+        ok = torch.abs(x) > _EPS
+        return torch.where(ok, 1.0 / torch.where(ok, x, 1.0), otherwise)
+
+    inv_a = guarded_reciprocal(a, 0.0)
+    inv_c = guarded_reciprocal(c, 0.0)
+    inv_bc = guarded_reciprocal((a - b) + (c - b), 1.0)
+    det = a * c - b * b
+    inv_det = guarded_reciprocal(det, 1.0)
+    an, bn, cn, one = a * inv_det, b * inv_det, c * inv_det, det * inv_det
+
+    apx, apy, apz = vsub(p, v0)
+    s = e1x * apx + e1y * apy + e1z * apz
+    t = e2x * apx + e2y * apy + e2z * apz
+    d3, d4, d5, d6 = s - a, t - b, s - b, t - c
+    d43 = d4 - d3
+    v_in = cn * s - bn * t
+    w_in = an * t - bn * s
+
+    in_a = (s <= 0) & (t <= 0)
+    in_b = (d3 >= 0) & (d43 <= 0)
+    in_c = (d6 >= 0) & (d5 <= d6)
+    on_ab = (w_in <= 0) & (s >= 0) & (d3 <= 0)
+    on_ac = (v_in <= 0) & (t >= 0) & (d6 <= 0)
+    on_bc = (v_in + w_in) >= one
+    use_ab = in_a | in_b | (on_ab & ~in_c)
+    use_ac = in_c | on_ac
+
+    u = _clip01(d43 * inv_bc)
+    v = torch.where(on_bc, 1.0 - u, v_in)
+    w = torch.where(on_bc, u, w_in)
+    v = torch.where(use_ac, 0.0, v)
+    w = torch.where(use_ac, _clip01(t * inv_c), w)
+    v = torch.where(use_ab, _clip01(s * inv_a), v)
+    w = torch.where(use_ab, 0.0, w)
+    dx = apx - v * e1x - w * e2x
+    dy = apy - v * e1y - w * e2y
+    dz = apz - v * e1z - w * e2z
+    return dx * dx + dy * dy + dz * dz
+
+
 def sphere_mesh_d2_tiles_plain(probes, v0t, e1t, e2t, chunk: int = 2048):
     """The plain version of ``mesh_kernels.sphere_mesh_d2_tiles``: (P, 3)
     probes against (3, T) triangle planes → (P, T/128) per-tile minimum

@@ -76,6 +76,61 @@ def test_kernel_equals_plain_version_on_card(sel):
             assert torch.equal(r, g.cpu())
 
 
+# shapes off the kernel's fast path: (B, D, M, k)
+OFF_PATH_SHAPES = {
+    "M_not_multiple_of_16": (3, 10, 100, 64),
+    "M_over_512": (3, 10, 1000, 64),
+    "M_over_512_unaligned": (2, 4, 1037, 96),
+    "k_not_multiple_of_32": (3, 10, 384, 50),
+    "k_over_M": (2, 10, 48, 64),
+    "D_not_10": (3, 7, 384, 64),
+    "one_row": (5, 1, 384, 32),
+    "one_world": (1, 10, 384, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sel", list(SEL))
+@pytest.mark.parametrize("shape", list(OFF_PATH_SHAPES))
+def test_kernel_equals_plain_version_off_the_fast_path(shape, sel):
+    """Mask rows that are not whole 16-byte words, rows longer than one
+    512-byte chunk, k off the warp's width, D off the unrolled 10, a single
+    world: still exactly the plain version, overflow included."""
+    _require_card()
+    b, d, m, k = OFF_PATH_SHAPES[shape]
+    rng = np.random.default_rng(17)
+    for density in DENSITIES:
+        mask = torch.from_numpy(rng.uniform(size=(b, m)) < density)
+        payload = torch.from_numpy(
+            rng.normal(size=(b, d, m)).astype(np.float32))
+        got = compaction_kernel.compact_rows_t(mask.cuda(), payload.cuda(),
+                                               k, SEL[sel])
+        ref = compaction.compact_rows_t(mask, payload, k, SEL[sel])
+        torch.cuda.synchronize()
+        for name, r, g in zip(("rows_t", "valid", "count", "overflow"), ref,
+                              got):
+            assert torch.equal(r, g.cpu()), (name, density)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_a_mask_that_is_not_16_byte_aligned():
+    """A mask that starts off a 16-byte boundary (a row view of a larger
+    tensor made contiguous keeps its alignment; a byte offset does not)."""
+    _require_card()
+    rng = np.random.default_rng(19)
+    mask = torch.from_numpy(rng.uniform(size=(B, M)) < 0.3)
+    payload = torch.from_numpy(rng.normal(size=(B, D, M)).astype(np.float32))
+    shifted = torch.zeros(B * M + 1, dtype=torch.bool, device="cuda")[1:]
+    shifted = shifted.view(B, M)
+    shifted.copy_(mask)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    got = compaction_kernel.compact_rows_t(shifted, payload.cuda(), K, None)
+    ref = compaction.compact_rows_t(mask, payload, K, None)
+    torch.cuda.synchronize()
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g.cpu())
+
+
 @pytest.mark.cuda
 def test_card_step_matches_cpu_step():
     """The bench configuration in 2 worlds, settled 40 substeps on the CPU,
@@ -107,12 +162,17 @@ def _bumpy_mesh(device, n=12, size=6.0):
 
 
 @pytest.mark.cuda
-def test_mesh_kernels_equal_plain_versions_on_card():
-    """Both distance kernels equal their plain versions bit for bit (the
-    library is built with -fmad=false), one launch each per call."""
+def test_mesh_kernels_match_plain_versions_on_card():
+    """Both distance kernels match their plain versions within the stated
+    tolerance (they fuse multiply-adds and take their reciprocals once per
+    triangle, so they round otherwise), one launch each per call; the 8
+    nearest tiles of every probe are the plain version's as a set; a NaN
+    probe gives a NaN row."""
     _require_card()
     from rl_ode_physics_tpu_torch.ops import mesh_kernels, trimesh
-    _, mesh = _bumpy_mesh("cuda")
+    rtol, atol = mesh_kernels.D2_RTOL, mesh_kernels.D2_ATOL
+    assert (rtol, atol) == (1e-5, 1e-6)
+    _, mesh = _bumpy_mesh("cuda", n=24)     # 1,152 triangles, 9 tiles
     tris = mesh.transposed()
     rng = np.random.default_rng(3)
     probes = torch.from_numpy(rng.uniform(
@@ -121,12 +181,25 @@ def test_mesh_kernels_equal_plain_versions_on_card():
     before = mesh_kernels.sphere_mesh_d2_tiles.launches
     got = mesh_kernels.sphere_mesh_d2_tiles(probes, *tris)
     assert mesh_kernels.sphere_mesh_d2_tiles.launches == before + 1
-    assert torch.equal(got, trimesh.sphere_mesh_d2_tiles_plain(probes, *tris))
+    ref = trimesh.sphere_mesh_d2_tiles_plain(probes, *tris)
+    assert torch.allclose(got, ref, rtol=rtol, atol=atol)
+    near = [trimesh._top_k_smallest(x, trimesh.CAND_TILES).sort(-1).values
+            for x in (got, ref)]
+    assert torch.equal(*near)
     for c in probes[:16]:
         before = mesh_kernels.sphere_mesh_d2.launches
         got = mesh_kernels.sphere_mesh_d2(c.contiguous(), *tris)
         assert mesh_kernels.sphere_mesh_d2.launches == before + 1
-        assert torch.equal(got, trimesh.sphere_mesh_d2_plain(c, *tris))
+        assert torch.allclose(got, trimesh.sphere_mesh_d2_plain(c, *tris),
+                              rtol=rtol, atol=atol)
+    bad = probes[:3].clone()
+    bad[1, 2] = float("nan")
+    got = mesh_kernels.sphere_mesh_d2_tiles(bad, *tris)
+    ref = trimesh.sphere_mesh_d2_tiles_plain(bad, *tris)
+    assert bool(torch.isnan(got[1]).all()) and bool(torch.isnan(ref[1]).all())
+    assert torch.allclose(got, ref, rtol=rtol, atol=atol, equal_nan=True)
+    assert bool(torch.isnan(
+        mesh_kernels.sphere_mesh_d2(bad[1].contiguous(), *tris)).all())
     torch.cuda.synchronize()
 
 

@@ -250,6 +250,104 @@ def test_d2_plain_matches_pallas_body():
 
 
 # ---------------------------------------------------------------------------
+# The CUDA kernel's operation order against the plain version's
+# ---------------------------------------------------------------------------
+
+D2_RTOL, D2_ATOL = 1e-5, 1e-6    # what the card holds the kernels to
+
+
+def _kernel_order_mesh():
+    """A bumpy grid of 1,058 triangles padded to 2,048: tiles 0..7 real,
+    tile 8 mixed, tiles 9..15 padding only."""
+    verts, tris = bumpy_grid(n=23)
+    mesh = tm.build_trimesh(verts, tris, pad_to_multiple=1024, device="cpu")
+    return mesh, len(tris)
+
+
+def _kernel_order_probes(case, mesh, real):
+    """(P, 3) f32 probes of one case, from a seed."""
+    rng = np.random.default_rng(31)
+    pick = rng.integers(0, real, size=96)
+    v0, e1, e2 = (x[pick].numpy().astype(np.float64)
+                  for x in (mesh.v0, mesh.e1, mesh.e2))
+    box = rng.uniform([-3.5, -0.5, -3.5], [3.5, 1.5, 3.5], size=(96, 3))
+    u = rng.uniform(0.0, 1.0, size=(96, 1))
+    if case == "random":
+        p = box
+    elif case == "vertices":
+        p = np.concatenate([v0, v0 + e1, v0 + e2])
+    elif case == "edges":
+        p = np.concatenate([v0 + u * e1, v0 + u * e2,
+                            v0 + e1 + u * (e2 - e1), v0 + 0.5 * e1])
+    elif case == "surface":
+        w = rng.uniform(0.0, 1.0, size=(96, 1)) * (1.0 - u)
+        p = v0 + u * e1 + w * e2
+    elif case == "plane_outside":
+        vw = rng.uniform(-2.0, 3.0, size=(400, 2))
+        vw = vw[(vw.min(1) < 0) | (vw.sum(1) > 1)][:96]
+        p = v0 + vw[:, :1] * e1 + vw[:, 1:] * e2
+    elif case == "far":
+        p = box + [0.0, 100.0, 0.0]
+    elif case == "padded":
+        p = np.concatenate([box, [[1e9, 1e9, 1e9]]])
+    elif case == "nan":
+        p = box[:6].copy()
+        p[[0, 1, 2], [0, 1, 2]] = np.nan
+        p[3] = np.nan
+    return torch.from_numpy(p.astype(np.float32))
+
+
+def _pair_d2(fn, probes, mesh):
+    """(P, T) squared distances of every probe to every triangle."""
+    p = tuple(probes[:, c:c + 1] for c in range(3))
+    tris = [tuple(x[:, c][None, :] for c in range(3))
+            for x in (mesh.v0, mesh.e1, mesh.e2)]
+    return fn(p, *tris)
+
+
+KERNEL_ORDER_CASES = ["random", "vertices", "edges", "surface",
+                      "plane_outside", "far", "padded", "nan"]
+
+
+@pytest.mark.parametrize("case", KERNEL_ORDER_CASES)
+def test_d2_kernel_order_matches_plain_order(case):
+    """The CUDA kernel's arithmetic (per-triangle a, b, c and reciprocals,
+    folded regions) against the plain version's, pair by pair, padded
+    triangles included. They round differently, and a probe on a region
+    border may take another region's formula: the squared distance is
+    continuous there, so rtol 1e-5, atol 1e-6."""
+    mesh, real = _kernel_order_mesh()
+    probes = _kernel_order_probes(case, mesh, real)
+    ref = _pair_d2(tm._d2_pallas_order, probes, mesh)
+    got = _pair_d2(tm._d2_kernel_order, probes, mesh)
+    assert got.shape == ref.shape == (probes.shape[0], mesh.num_tris)
+    if case == "padded":
+        ref, got = ref[:, real:], got[:, real:]
+        assert float(got[-1].max()) == 0.0       # the probe at the far point
+    if case == "nan":
+        assert bool(torch.isnan(got[:4]).all())
+        assert bool(torch.isnan(ref[:4]).all())
+        assert bool(torch.isfinite(got[4:]).all())
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=D2_RTOL,
+                               atol=D2_ATOL, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", KERNEL_ORDER_CASES[:-1])
+def test_d2_kernel_order_keeps_the_nearest_tiles(case):
+    """``mesh_narrowphase`` keeps the 8 nearest tiles of each probe: both
+    operation orders choose the same 8, as a set."""
+    mesh, real = _kernel_order_mesh()
+    probes = _kernel_order_probes(case, mesh, real)
+    nt = mesh.num_tris // tm.MESH_TILE
+    sets = []
+    for fn in (tm._d2_pallas_order, tm._d2_kernel_order):
+        tiles = _pair_d2(fn, probes, mesh).reshape(-1, nt, tm.MESH_TILE)
+        near = tm._top_k_smallest(tiles.amin(-1), tm.CAND_TILES)
+        sets.append(torch.sort(near, dim=-1).values)
+    assert torch.equal(sets[0], sets[1])
+
+
+# ---------------------------------------------------------------------------
 # Contacts
 # ---------------------------------------------------------------------------
 
