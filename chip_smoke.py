@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    limit of the card.
 1. build: compiles every hand-written kernel of the main paths from the
    checkout's sources with ``nvcc`` (one ``nvcc`` per source, all started
-   together) and prints the build time.
+   together) and prints the build time; then ``launch_floor_ms``, what an
+   empty kernel reads under the timer of every kernel time below.
 2. ``compact_rows_t`` against its plain version on the card, at the bench
    path's shapes: B=8192 worlds, D=10, M=384, k=64, mask densities 0,
    0.15, 0.5 and 1 (overflow), both selector dtypes, held exactly equal.
@@ -26,7 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    before this phase and read just after. Then one more substep is run
    with ``compact_rows_t`` wrapped to catch the mask and payload that the
    settled main path hands it; the kernel is held to its plain version
-   and timed on them, with both floors for that mask.
+   and timed on them, with both floors for that mask. The same is done
+   after phases 6, 9 and 10 (there also for ``sphere_mesh_d2_tiles``), so
+   that each kernel is held to its plain version on every path's own
+   tensors: the compaction at k=128 on the trimesh path and at k=80 on
+   the rollout.
 5. the card's mesh step against the port's CPU step: 4 worlds of the
    trimesh scene below, settled 96 substeps on the CPU, then 8 substeps on
    each device; and 4 worlds of a sphere and a box on the twin-ridge mesh
@@ -37,30 +42,54 @@ Phases, in order; any failure raises and the script exits non-zero:
    workload (the mesh in slot 0, 15 spheres of radius 0.25 from
    ``RandStream(3)``) on a stand-in for the teapot of the same padded size
    (9,216 triangles), 1,024 worlds, one warm-up launch of 96 substeps and 3
-   timed launches of 48; then ``sphere_mesh_contacts`` of world 0's
-   spheres, the entry point of the one-probe kernel. Zero overflow, finite
-   state, tick 240; prints body-steps/s, ms/substep and peak memory.
-   Launch counts are set to 0 just before this phase and read just after:
+   timed launches of 48; then ``sphere_mesh_contacts``, the entry point of
+   the per-triangle kernel, as one query of world 0's 15 spheres and as
+   one query of all 1,024 x 15 settled spheres, whose first 15 answers
+   must be the small query's. Zero overflow, finite state, tick 240;
+   prints body-steps/s, ms/substep and peak memory. Launch counts are set
+   to 0 just before this phase and read just after:
    ``sphere_mesh_d2_tiles`` and ``compact_rows_t`` once per substep,
-   ``sphere_mesh_d2`` once per sphere.
+   ``sphere_mesh_d2`` once per query.
 7. the mesh kernels against their plain versions on the card at rtol 1e-5,
    atol 1e-6 (the kernels fuse multiply-adds and take their reciprocals
    once per triangle, so they round otherwise than the plain versions; the
    measured errors are printed): the tile kernel on all of the settled
-   main path's own probes and on random probes, the one-probe kernel on 64
-   centres against the 9,216-triangle mesh. The 8 nearest tiles of every
+   main path's own probes and on random probes; the per-triangle kernel on
+   queries of 1 (the (3,) form), 15, 64, 77, 4,000 and all 15,360 of the
+   main path's sphere centres against the 9,216-triangle mesh, one launch
+   each, a NaN centre giving a NaN row. The 8 nearest tiles of every
    main-path probe, which is all that ``mesh_narrowphase`` takes from the
    tile kernel, must be the plain version's as a set. Times each kernel and
-   its plain version with CUDA events.
-8. prints one JSON line of every kernel the run launched, then the last
-   line ``{"ok": true, "device": {...}}``.
+   its plain version with CUDA events; the per-triangle kernel at 1, 15
+   and 15,360 centres, each with the bound of the whole query.
+8. the card's rollout against the port's CPU rollout: 4 worlds of the
+   rollout scene, settled 40 substeps on the CPU, then 4 control steps of
+   ``PhysicsEnv`` with seeded actions and 16 lidar rays on each device;
+   pos/quat/linvel/angvel, observations and lidar at atol 1e-4, tick and
+   overflow exact.
+9. the rollout main path at full width: ``benchmarks/rl_rollout_bench.py``'s
+   workload at its defaults (``rollout_config(64)``, the bench world, 8192
+   worlds, actor slots 4 and 5 observed alone, 16 horizontal lidar rays, 2
+   substeps a control step, horizon 16, actions 0.5 x standard normal from
+   a seed): one warm-up ``rollout`` and 4 timed ones, 160 substeps. Zero
+   overflow, finite state and observations, tick 160, lidar in [0, 1] with
+   hits and misses; prints env-steps/s, body-steps/s, ms per control step
+   and peak memory. Launch counts set to 0 before and read after:
+   ``compact_rows_t`` once per substep.
+10. ``PhysicsEnv`` with ``trimesh=``: 64 settled worlds of phase 6 for 2
+    control steps with seeded actions on two spheres; finite, overflow 0,
+    the tile kernel and the compaction once per substep.
+11. prints one JSON line of every kernel the run launched, then the last
+    line ``{"ok": true, "device": {...}}``.
 
 The bench configuration is ``core.config.bench_config(64)``: the values
 ``bench.bench_config(64)`` resolves to at its defaults, with the contact
 compaction run by the kernel. The trimesh configuration is
 ``EngineConfig.throughput(max_bodies=16, max_pair_candidates=64,
 max_contacts=128, enable_planes=False, enable_capsules=False,
-pallas_compaction=True)``, three probes per body.
+pallas_compaction=True)``, three probes per body. The rollout configuration
+is ``core.config.rollout_config(64)``: what ``rl_rollout_bench.py`` builds,
+the bench's buckets with 256 pair candidates and 80 contact rows.
 """
 
 from __future__ import annotations
@@ -91,6 +120,12 @@ MESH_WARMUP_SUBSTEPS = 96
 MESH_SUBSTEPS_PER_LAUNCH = 48
 MESH_TIMED_LAUNCHES = 3
 MESH_CELLS = 67              # 2·67² = 8,978 triangles, padded to 9,216
+# the rollout path: rl_rollout_bench.py's defaults
+ROLLOUT_ACTORS = [4, 5]
+ROLLOUT_RAYS = 16
+ROLLOUT_SUBSTEPS = 2
+ROLLOUT_HORIZON = 16
+ROLLOUT_TIMED = 4
 # FP32 operations per (probe, triangle) pair, counted from the reference
 # arithmetic (rl_ode_physics_tpu/ops/pallas_kernels.py:89-105 with
 # trimesh._tri_vw), not from what csrc/sphere_mesh_d2.cu executes: 78 for the
@@ -119,13 +154,20 @@ def phase_device():
 
 
 def phase_build():
-    from rl_ode_physics_tpu_torch.ops import compaction_kernel, mesh_kernels
-    builds = [compaction_kernel.build, mesh_kernels.build]
+    from rl_ode_physics_tpu_torch.ops import (
+        compaction_kernel, kernel_build, mesh_kernels)
+    from rl_ode_physics_tpu_torch.utils.timing import launch_floor_ms
+    builds = [compaction_kernel.build, mesh_kernels.build,
+              lambda: kernel_build.build("launch_floor.cu")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         libs = [f.result() for f in [pool.submit(b) for b in builds]]
     log(f"build: {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s: {[p.name for p in libs]}")
+    floor_ms = launch_floor_ms()
+    log(f"launch_floor_ms={floor_ms:.5f} (an empty kernel under "
+        f"utils/timing.cuda_ms)")
+    return floor_ms
 
 
 def compaction_floors(mask, d: int, k: int) -> dict:
@@ -316,48 +358,128 @@ def phase_main_path(config, card):
     return {"compact_rows_t": launches}, batch
 
 
-def phase_compaction_on_main_path(config, batch):
-    """``compact_rows_t`` on the mask and payload that a substep of the
-    settled bench main path hands it: caught by a wrapper set around the
-    kernel's wrapper for one substep, then held to the plain version and
-    timed alone."""
+def caught_calls(module, name, drive):
+    """Run ``drive()`` with the kernel wrapper ``module.<name>`` wrapped once
+    more, so that the arguments of every call it gets are kept; return them,
+    one tuple of all the wrapper's parameters per call."""
+    import inspect
     import torch
-    from rl_ode_physics_tpu_torch.ops import compaction_kernel
-    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
-    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
-
-    wrapped = compaction_kernel.compact_rows_t
+    wrapped = getattr(module, name)
+    signature = inspect.signature(wrapped)
     caught = []
 
-    def catching(mask, payload_t, k, sel_dtype=None):
-        caught.append((mask, payload_t, k, sel_dtype))
-        return wrapped(mask, payload_t, k, sel_dtype)
+    def catching(*args, **kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        caught.append(tuple(bound.arguments.values()))
+        return wrapped(*args, **kwargs)
 
-    # the wrapper counts its launches on the module's name for it
+    # a wrapper counts its launches on the module's name for it
     catching.launches = wrapped.launches
-    compaction_kernel.compact_rows_t = catching
+    setattr(module, name, catching)
     try:
-        make_batched_step_fn(config, substeps=1, device="cuda")(batch)
+        drive()
         torch.cuda.synchronize()
     finally:
-        compaction_kernel.compact_rows_t = wrapped
+        setattr(module, name, wrapped)
         wrapped.launches = catching.launches
-    if len(caught) != 1:
-        raise AssertionError(f"one substep called compact_rows_t "
-                             f"{len(caught)} times")
-    mask, payload, k, sel = caught[0]
+    return caught
+
+
+def compaction_on_path_data(drive, path, calls):
+    """``compact_rows_t`` on the mask and payload that a settled main path
+    hands it: ``drive()`` runs the path on (``calls`` substeps) with the
+    kernel's wrapper caught; the last call's tensors are then held to the
+    plain version, exactly, and both are timed on them alone."""
+    from rl_ode_physics_tpu_torch.ops import compaction, compaction_kernel
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    caught = caught_calls(compaction_kernel, "compact_rows_t", drive)
+    if len(caught) != calls:
+        raise AssertionError(f"{path}: {calls} substeps called "
+                             f"compact_rows_t {len(caught)} times")
+    mask, payload, k, sel = caught[-1]
     b, d, m = payload.shape
-    compaction_equals_plain(mask, payload, k, sel, "the main path's data")
+    compaction_equals_plain(mask, payload, k, sel, f"the {path} path's data")
     kernel_ms = cuda_ms(
         lambda: compaction_kernel.compact_rows_t(mask, payload, k, sel))
+    plain_ms = cuda_ms(
+        lambda: compaction.compact_rows_t(mask, payload, k, sel))
     floors = compaction_floors(mask, d, k)
-    log(f"compact_rows_t on the bench main path's own data (B={b} D={d} "
+    log(f"compact_rows_t on the {path} path's own data (B={b} D={d} "
         f"M={m} k={k}, sel {sel}, mask density {floors['density']:.5f}, "
         f"kept {floors['kept']}): exact; kernel_ms={kernel_ms:.5f} "
-        f"bound_ms={floors['bound_ms']:.5f} sector_floor_ms="
-        f"{floors['sector_floor_ms']:.5f} floor_64b_ms="
+        f"plain_ms={plain_ms:.5f} bound_ms={floors['bound_ms']:.5f} "
+        f"sector_floor_ms={floors['sector_floor_ms']:.5f} floor_64b_ms="
         f"{floors['floor_64b_ms']:.5f}")
-    return dict(floors, ms=kernel_ms, shape=[b, d, m, k])
+    return dict(floors, ms=kernel_ms, plain_ms=plain_ms, max_abs_err=0.0,
+                shape=[b, d, m, k])
+
+
+def d2_errors(got, ref, what):
+    """Raise unless a mesh kernel's ``got`` matches its plain version's
+    ``ref`` within (D2_RTOL, D2_ATOL); return the largest absolute and
+    relative error."""
+    import torch
+    from rl_ode_physics_tpu_torch.ops.mesh_kernels import D2_ATOL, D2_RTOL
+    err = (got - ref).abs()
+    worst = float(err.max()), float((err / ref.abs().clamp_min(D2_ATOL))
+                                    .max())
+    if not torch.allclose(got, ref, rtol=D2_RTOL, atol=D2_ATOL,
+                          equal_nan=True):
+        raise AssertionError(
+            f"{what} differs from its plain version beyond rtol {D2_RTOL}, "
+            f"atol {D2_ATOL}: max abs err {worst[0]}, max rel err "
+            f"{worst[1]}")
+    return worst
+
+
+def tiles_bound(p: int, t: int) -> dict:
+    """The least time of ``sphere_mesh_d2_tiles`` on P probes and T
+    triangles: 79 operations a pair, against the probes and triangles read
+    and one minimum per (probe, tile) written."""
+    ops_ms = p * t * (D2_OPS_PER_PAIR + 1) / FP32_OPS_PER_S * 1e3
+    bytes_ms = (12 * p + 36 * t + 4 * p * (t // 128)) / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                bytes_ms=bytes_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def tiles_on_path_data(drive, path, calls):
+    """``sphere_mesh_d2_tiles`` on the probes that a settled path hands it,
+    caught as in ``compaction_on_path_data``: held to the plain version at
+    rtol 1e-5, atol 1e-6, and both timed on them alone."""
+    import torch
+    from rl_ode_physics_tpu_torch.ops import mesh_kernels
+    from rl_ode_physics_tpu_torch.ops import trimesh as tm
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    caught = caught_calls(mesh_kernels, "sphere_mesh_d2_tiles", drive)
+    if len(caught) != calls:
+        raise AssertionError(f"{path}: {calls} substeps called "
+                             f"sphere_mesh_d2_tiles {len(caught)} times")
+    probes, *tris = caught[-1]
+    p, t = probes.shape[0], tris[0].shape[1]
+    got = mesh_kernels.sphere_mesh_d2_tiles(probes, *tris)
+    ref = tm.sphere_mesh_d2_tiles_plain(probes, *tris)
+    torch.cuda.synchronize()
+    abs_err, rel_err = d2_errors(
+        got, ref, f"sphere_mesh_d2_tiles on the {path} path's probes")
+    kernel_ms = cuda_ms(
+        lambda: mesh_kernels.sphere_mesh_d2_tiles(probes, *tris))
+    plain_ms = cuda_ms(
+        lambda: tm.sphere_mesh_d2_tiles_plain(probes, *tris), iters=3)
+    bound = tiles_bound(p, t)
+    log(f"sphere_mesh_d2_tiles on the {path} path's own probes (P={p} x "
+        f"T={t}): within rtol {mesh_kernels.D2_RTOL}, atol "
+        f"{mesh_kernels.D2_ATOL} of the plain version (max abs err "
+        f"{abs_err:.3e}, max rel err {rel_err:.3e}); kernel_ms="
+        f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} bound_ms="
+        f"{bound['bound_ms']:.5f} (operations {bound['ops_ms']:.5f}, bytes "
+        f"{bound['bytes_ms']:.5f})")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=abs_err,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                shape=[p, t])
 
 
 def standin_mesh():
@@ -465,13 +587,19 @@ def phase_mesh_main_path(config, verts, tris, card):
         batch = step(batch)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    # the one-probe entry point on the settled spheres of world 0
-    spheres = (world.body_type[0] == int(BodyType.SPHERE)).nonzero()[:, 0]
-    contacts = [sphere_mesh_contacts(batch.pos[0, i].contiguous(), 0.25,
-                                     mesh, k=4) for i in spheres.tolist()]
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the per-triangle kernel's entry point on the settled spheres: world
+    # 0's as one query, then every world's as one query
+    spheres = (world.body_type[0] == int(BodyType.SPHERE)).nonzero()[:, 0]
+    centers = batch.pos[:, spheres].reshape(-1, 3).contiguous()
+    contacts = sphere_mesh_contacts(centers[:MESH_SPHERES], 0.25, mesh, k=4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    every = sphere_mesh_contacts(centers, 0.25, mesh, k=4)
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    query_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {fn.__name__: fn.launches for fn in counters}
 
     timed_substeps = MESH_SUBSTEPS_PER_LAUNCH * MESH_TIMED_LAUNCHES
     total_substeps = MESH_WARMUP_SUBSTEPS + timed_substeps
@@ -489,12 +617,18 @@ def phase_mesh_main_path(config, verts, tris, card):
     if low < float(verts[:, 1].min()) - 0.5:
         raise AssertionError(f"trimesh path: a sphere fell through the "
                              f"mesh (y={low})")
-    touching = 0
-    for pts, nrm, dep, val in contacts:
-        for x in (pts, nrm, dep):
-            if not bool(torch.isfinite(x).all()):
-                raise AssertionError("sphere_mesh_contacts: non-finite")
-        touching += int(val.any())
+    for name, few, all_ in zip(("points", "normals", "depths", "valid"),
+                               contacts, every):
+        if not bool(torch.isfinite(all_).all()):
+            raise AssertionError(f"sphere_mesh_contacts: non-finite {name}")
+        if tuple(all_.shape[:2]) != (centers.shape[0], 4):
+            raise AssertionError(f"sphere_mesh_contacts: {name} of shape "
+                                 f"{tuple(all_.shape)}")
+        if not torch.equal(few, all_[:MESH_SPHERES]):
+            raise AssertionError(f"sphere_mesh_contacts: world 0's {name} "
+                                 f"differ between the two queries")
+    touching = int(contacts[3].any(1).sum())
+    touching_all = int(every[3].any(1).sum())
     if not touching:
         raise AssertionError("sphere_mesh_contacts: no settled sphere of "
                              "world 0 touches the mesh")
@@ -506,18 +640,20 @@ def phase_mesh_main_path(config, verts, tris, card):
         f"{MESH_WARMUP_SUBSTEPS} substeps {warm_s:.3f} s): {rate:.1f} "
         f"body-steps/s on {card}; overflow 0, tick {total_substeps}, peak "
         f"memory {peak_gb:.3f} GB; sphere_mesh_contacts: {touching} of "
-        f"{len(contacts)} world-0 spheres touch the mesh; launches "
+        f"{MESH_SPHERES} world-0 spheres touch the mesh in one query, "
+        f"{touching_all} of {centers.shape[0]} in one query of every world "
+        f"({query_s * 1e3:.3f} ms, peak memory {query_gb:.3f} GB); launches "
         f"{launches}")
     want = {"compact_rows_t": total_substeps,
             "sphere_mesh_d2_tiles": total_substeps,
-            "sphere_mesh_d2": len(contacts)}
+            "sphere_mesh_d2": 2}
     if launches != want:
         raise AssertionError(f"trimesh path launches {launches}, expected "
                              f"{want}")
-    return launches, batch, mesh
+    return launches, batch, mesh, centers
 
 
-def phase_mesh_kernels(batch, config, mesh):
+def phase_mesh_kernels(batch, config, mesh, sphere_centers, floor_ms):
     """Both mesh kernels against their plain versions on the card."""
     import torch
     from rl_ode_physics_tpu_torch.ops import mesh_kernels
@@ -536,27 +672,14 @@ def phase_mesh_kernels(batch, config, mesh):
                                        device="cuda")
     rtol, atol = mesh_kernels.D2_RTOL, mesh_kernels.D2_ATOL
 
-    def errors(got, ref, what):
-        """Raise unless got matches ref within (rtol, atol); return the
-        largest absolute and relative error."""
-        err = (got - ref).abs()
-        worst = float(err.max()), float((err / ref.abs().clamp_min(atol))
-                                        .max())
-        if not torch.allclose(got, ref, rtol=rtol, atol=atol,
-                              equal_nan=True):
-            raise AssertionError(
-                f"{what} differs from its plain version beyond rtol {rtol}, "
-                f"atol {atol}: max abs err {worst[0]}, max rel err "
-                f"{worst[1]}")
-        return worst
-
     max_err = 0.0
     for name, sample in (("main-path probes", probes), ("random probes",
                                                         rand)):
         got = mesh_kernels.sphere_mesh_d2_tiles(sample.contiguous(), *tris)
         ref = tm.sphere_mesh_d2_tiles_plain(sample, *tris)
         torch.cuda.synchronize()
-        abs_err, rel_err = errors(got, ref, f"sphere_mesh_d2_tiles on {name}")
+        abs_err, rel_err = d2_errors(got, ref,
+                                     f"sphere_mesh_d2_tiles on {name}")
         max_err = max(max_err, abs_err)
         # what mesh_narrowphase takes from the kernel: the 8 nearest tiles
         near_got = tm._top_k_smallest(got, tm.CAND_TILES)
@@ -587,80 +710,309 @@ def phase_mesh_kernels(batch, config, mesh):
         probes, *tris))
     plain_ms = cuda_ms(lambda: tm.sphere_mesh_d2_tiles_plain(probes, *tris),
                        iters=3)
-    pairs = p * t
-    ops_ms = pairs * (D2_OPS_PER_PAIR + 1) / FP32_OPS_PER_S * 1e3
-    bytes_ms = (12 * p + 36 * t + 4 * p * nt) / HBM_BYTES_PER_S * 1e3
+    bound = tiles_bound(p, t)
     tiles = dict(name="sphere_mesh_d2_tiles", route="cuda",
                  source="rl_ode_physics_tpu_torch/csrc/sphere_mesh_d2.cu",
                  replaces="rl_ode_physics_tpu/ops/pallas_kernels.py:108",
                  launches=None, max_abs_err=max_err, ms=kernel_ms,
-                 plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
-                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                 library_ms=None)
+                 plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                 bound_by=bound["bound_by"], library_ms=None)
     log(f"sphere_mesh_d2_tiles at P={p} probes x T={t} triangles "
-        f"({pairs} pairs): kernel_ms={kernel_ms:.5f} plain_ms="
-        f"{plain_ms:.5f} bound_ms={tiles['bound_ms']:.5f} (operations "
-        f"{ops_ms:.5f}, bytes {bytes_ms:.5f}) library_ms=null")
+        f"({p * t} pairs): kernel_ms={kernel_ms:.5f} plain_ms="
+        f"{plain_ms:.5f} bound_ms={bound['bound_ms']:.5f} (operations "
+        f"{bound['ops_ms']:.5f}, bytes {bound['bytes_ms']:.5f}) "
+        f"library_ms=null")
 
-    centers = torch.cat([probes[::p // 60][:60], rand[:4]])[:64]
+    # the per-triangle kernel: one launch per query, whatever its width
     max_err = max_rel = 0.0
-    for c in centers:
-        c = c.contiguous()
-        got = mesh_kernels.sphere_mesh_d2(c, *tris)
-        ref = tm.sphere_mesh_d2_plain(c, *tris)
-        abs_err, rel_err = errors(got, ref, "sphere_mesh_d2")
+    for count in (1, 15, 64, 77, 4000, sphere_centers.shape[0]):
+        query = sphere_centers[:count].clone()
+        if count > 1:
+            query[count // 2, 1] = float("nan")
+        else:
+            query = query[0]                     # the (3,) form
+        before = mesh_kernels.sphere_mesh_d2.launches
+        got = mesh_kernels.sphere_mesh_d2(query, *tris)
+        if mesh_kernels.sphere_mesh_d2.launches != before + 1:
+            raise AssertionError(f"sphere_mesh_d2: a query of {count} "
+                                 f"centres was not one launch")
+        ref = tm.sphere_mesh_d2_plain(query, *tris)
+        torch.cuda.synchronize()
+        want = (nt, tm.MESH_TILE) if count == 1 else (count, nt,
+                                                      tm.MESH_TILE)
+        if tuple(got.shape) != want:
+            raise AssertionError(f"sphere_mesh_d2: shape {tuple(got.shape)}")
+        nan_rows = torch.isnan(got).reshape(count, -1)
+        if count > 1 and not (bool(nan_rows[count // 2].all())
+                              and int(nan_rows.any(1).sum()) == 1):
+            raise AssertionError(f"sphere_mesh_d2, {count} centres: the NaN "
+                                 f"centre's row is not the one NaN row")
+        keep = ~nan_rows.any(1)
+        abs_err, rel_err = d2_errors(
+            got.reshape(count, -1)[keep], ref.reshape(count, -1)[keep],
+            f"sphere_mesh_d2 on {count} centres")
         max_err, max_rel = max(max_err, abs_err), max(max_rel, rel_err)
-    log(f"sphere_mesh_d2 on {centers.shape[0]} centres x {t} triangles: "
-        f"within rtol {rtol}, atol {atol} of the plain version (max abs err "
-        f"{max_err:.3e}, max rel err {max_rel:.3e})")
+        log(f"sphere_mesh_d2 on {count} centres x {t} triangles, one launch: "
+            f"within rtol {rtol}, atol {atol} of the plain version (max abs "
+            f"err {abs_err:.3e}, max rel err {rel_err:.3e})")
 
-    cols = [c.contiguous() for c in centers]
-
-    def each_center(fn):
-        return lambda: [fn(c, *tris) for c in cols]
-
-    kernel_ms = cuda_ms(each_center(mesh_kernels.sphere_mesh_d2),
-                        iters=5) / len(cols)
-    plain_ms = cuda_ms(each_center(tm.sphere_mesh_d2_plain),
-                       iters=5) / len(cols)
-    ops_ms = t * D2_OPS_PER_PAIR / FP32_OPS_PER_S * 1e3
-    bytes_ms = (12 + 36 * t + 4 * t) / HBM_BYTES_PER_S * 1e3
+    queries = {}
+    for count in (1, MESH_SPHERES, sphere_centers.shape[0]):
+        query = sphere_centers[:count].contiguous()
+        kernel_ms = cuda_ms(lambda: mesh_kernels.sphere_mesh_d2(query, *tris))
+        plain_ms = cuda_ms(lambda: tm.sphere_mesh_d2_plain(query, *tris),
+                           iters=3)
+        ops_ms = count * t * D2_OPS_PER_PAIR / FP32_OPS_PER_S * 1e3
+        bytes_ms = ((12 * count + 36 * t + 4 * count * t)
+                    / HBM_BYTES_PER_S * 1e3)
+        bound_ms = max(ops_ms, bytes_ms)
+        queries[f"C={count}"] = dict(
+            ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            judged_against=("bound" if bound_ms >= floor_ms
+                            else "launch floor"))
+        log(f"sphere_mesh_d2, one query of C={count} centres x T={t} "
+            f"triangles: kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+            f"bound_ms={bound_ms:.6f} (operations {ops_ms:.6f}, bytes "
+            f"{bytes_ms:.6f}) launch_floor_ms={floor_ms:.5f} library_ms=null")
+    # the line's own numbers are the widest query's, where the work and not
+    # the launch is what is timed
+    wide = queries[f"C={sphere_centers.shape[0]}"]
     one = dict(name="sphere_mesh_d2", route="cuda",
                source="rl_ode_physics_tpu_torch/csrc/sphere_mesh_d2.cu",
                replaces="rl_ode_physics_tpu/ops/pallas_kernels.py:136",
-               launches=None, max_abs_err=max_err, ms=kernel_ms,
-               plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-               library_ms=None)
-    log(f"sphere_mesh_d2 per centre, T={t} triangles: kernel_ms="
-        f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} bound_ms="
-        f"{one['bound_ms']:.6f} (operations {ops_ms:.6f}, bytes "
-        f"{bytes_ms:.6f}) library_ms=null")
+               launches=None, max_abs_err=max_err, ms=wide["ms"],
+               plain_ms=wide["plain_ms"], bound_ms=wide["bound_ms"],
+               bound_by=wide["bound_by"], library_ms=None,
+               launch_floor_ms=floor_ms, queries=queries)
     return [tiles, one]
+
+
+def rollout_env(config, worlds, device):
+    """``rl_rollout_bench.py``'s environment: the bench world, actor slots
+    4 and 5 (the first box and the first sphere) observed alone, a
+    horizontal fan of 16 lidar rays on each."""
+    import numpy as np
+    from rl_ode_physics_tpu_torch.models.env import PhysicsEnv
+    from rl_ode_physics_tpu_torch.models.scenes import bench_world
+
+    ang = np.linspace(0, 2 * np.pi, ROLLOUT_RAYS, endpoint=False)
+    fan = np.stack([np.cos(ang), np.zeros_like(ang), np.sin(ang)], -1)
+    return PhysicsEnv(
+        config,
+        lambda cfg, seed: bench_world(cfg, num_bodies=BODIES, seed=seed,
+                                      device=device),
+        actor_slots=ROLLOUT_ACTORS, num_worlds=worlds,
+        substeps=ROLLOUT_SUBSTEPS, lidar_dirs=fan, obs_slots=ROLLOUT_ACTORS,
+        device=device)
+
+
+def seeded_actions(shape, seed, device):
+    """0.5 x standard normal forces and torques, from numpy so that every
+    device gets the same ones."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(0.5 * np.random.default_rng(seed).standard_normal(
+        shape, dtype=np.float32)).to(device)
+
+
+def phase_rollout_card_vs_cpu(config):
+    """4 worlds settled 40 substeps on the CPU, then 4 control steps of the
+    env on each device under the same actions."""
+    import torch
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+
+    steps = 4
+    envs = {d: rollout_env(config, 4, d) for d in ("cpu", "cuda")}
+    start, _ = envs["cpu"].reset(seed=42)
+    start = make_batched_step_fn(config, substeps=40, device="cpu")(start)
+    actions = seeded_actions((steps, 4, len(ROLLOUT_ACTORS), 6), 1, "cpu")
+    state = {"cpu": start, "cuda": _to(start, "cuda")}
+    worst = {"obs": 0.0, "lidar": 0.0}
+    for i in range(steps):
+        seen = {}
+        for d, env in envs.items():
+            state[d], seen[d] = env.step(state[d], actions[i].to(d))
+        for name, card, cpu in zip(("obs", "lidar"), seen["cuda"],
+                                   seen["cpu"]):
+            worst[name] = max(worst[name],
+                              float((card.cpu() - cpu).abs().max()))
+    torch.cuda.synchronize()
+    for name in ("pos", "quat", "linvel", "angvel"):
+        worst[name] = float((getattr(state["cuda"], name).cpu()
+                             - getattr(state["cpu"], name)).abs().max())
+    for name, diff in worst.items():
+        if not diff <= 1e-4:
+            raise AssertionError(f"rollout: the card's {name} differs from "
+                                 f"the CPU's: {diff} > 1e-4")
+    for name in ("tick", "overflow"):
+        if not torch.equal(getattr(state["cuda"], name).cpu(),
+                           getattr(state["cpu"], name)):
+            raise AssertionError(f"rollout: the card's {name} differs from "
+                                 f"the CPU's")
+    log(f"rollout scene: card env vs CPU env (4 worlds, 40 settling substeps "
+        f"+ {steps} control steps of {ROLLOUT_SUBSTEPS} substeps, "
+        f"{ROLLOUT_RAYS} lidar rays): max abs diff {worst}, tick "
+        f"{state['cpu'].tick.tolist()}, overflow "
+        f"{state['cpu'].overflow.tolist()}")
+
+
+def phase_rollout_main_path(config, card):
+    import torch
+    from rl_ode_physics_tpu_torch.ops import compaction_kernel
+
+    env = rollout_env(config, WORLDS, "cuda")
+    state, _ = env.reset(seed=42)
+    actions = seeded_actions(
+        (ROLLOUT_HORIZON, WORLDS, env.num_actors, 6), 0, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    compaction_kernel.compact_rows_t.launches = 0
+    t0 = time.perf_counter()
+    state, _ = env.rollout(state, actions)               # warm-up rollout
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(ROLLOUT_TIMED):
+        state, (obs, lidar) = env.rollout(state, actions)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = compaction_kernel.compact_rows_t.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    control_steps = ROLLOUT_HORIZON * ROLLOUT_TIMED
+    total_substeps = ROLLOUT_SUBSTEPS * ROLLOUT_HORIZON * (ROLLOUT_TIMED + 1)
+    overflow = int(state.overflow.sum())
+    if overflow:
+        raise RuntimeError(
+            f"contact capacity overflow in the rollout: {overflow} dropped "
+            f"rows, at most {int(state.overflow.max())} in one world "
+            f"({config.max_contacts} contact rows)")
+    for name in ("pos", "quat", "linvel", "angvel"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"rollout: non-finite {name}")
+    if tuple(obs.shape) != (ROLLOUT_HORIZON, WORLDS, env.num_obs_slots, 13):
+        raise AssertionError(f"rollout: obs of shape {tuple(obs.shape)}")
+    if tuple(lidar.shape) != (ROLLOUT_HORIZON, WORLDS, env.num_actors,
+                              ROLLOUT_RAYS):
+        raise AssertionError(f"rollout: lidar of shape {tuple(lidar.shape)}")
+    if not bool(torch.isfinite(obs).all()):
+        raise AssertionError("rollout: non-finite observations")
+    if not bool(((lidar >= 0.0) & (lidar <= 1.0)).all()):
+        raise AssertionError("rollout: lidar outside [0, 1]")
+    hits = float((lidar < 1.0).float().mean())
+    if not 0.0 < hits < 1.0:
+        raise AssertionError(f"rollout: lidar hit share {hits}: expected "
+                             f"hits and misses")
+    if not bool((state.tick == total_substeps).all()):
+        raise AssertionError(f"rollout: tick {state.tick.unique().tolist()} "
+                             f"!= {total_substeps}")
+    env_rate = WORLDS * control_steps / secs
+    log(f"rollout main path: {WORLDS} worlds x {BODIES} dynamic bodies (of "
+        f"{config.max_bodies} slots), {env.num_actors} actors, "
+        f"{ROLLOUT_RAYS} lidar rays, {ROLLOUT_TIMED} rollouts of "
+        f"{ROLLOUT_HORIZON} control steps x {ROLLOUT_SUBSTEPS} substeps in "
+        f"{secs:.3f} s ({secs / control_steps * 1e3:.3f} ms/control step; "
+        f"warm-up rollout {warm_s:.3f} s): {env_rate:.1f} env-steps/s, "
+        f"{env_rate * ROLLOUT_SUBSTEPS * BODIES:.1f} body-steps/s on {card}; "
+        f"overflow 0, tick {total_substeps}, lidar hit share {hits:.4f}, "
+        f"peak memory {peak_gb:.3f} GB, compact_rows_t launches {launches}")
+    if launches != total_substeps:
+        raise AssertionError(f"compact_rows_t launched {launches} times in "
+                             f"{total_substeps} substeps")
+    return ({"compact_rows_t": launches},
+            lambda: env.step(state, actions[0]))
+
+
+def phase_env_on_mesh(config, verts, tris, batch, mesh):
+    """``PhysicsEnv(trimesh=mesh)`` on 64 settled worlds of the trimesh
+    main path: 2 control steps under seeded actions on two spheres."""
+    import torch
+    from rl_ode_physics_tpu_torch.models.env import PhysicsEnv
+    from rl_ode_physics_tpu_torch.ops import compaction_kernel, mesh_kernels
+    from rl_ode_physics_tpu_torch.parallel.batch import take_worlds
+
+    worlds, steps = 64, 2
+    env = PhysicsEnv(
+        config, lambda cfg, seed: mesh_world(cfg, verts, tris, "cuda")[0],
+        actor_slots=[1, 2], num_worlds=worlds, substeps=ROLLOUT_SUBSTEPS,
+        trimesh=mesh, device="cuda")
+    state = take_worlds(batch, 0, worlds)
+    tick0 = int(state.tick[0])
+    actions = seeded_actions((steps, worlds, env.num_actors, 6), 2, "cuda")
+    counters = (compaction_kernel.compact_rows_t,
+                mesh_kernels.sphere_mesh_d2_tiles)
+    for fn in counters:
+        fn.launches = 0
+    for i in range(steps):
+        state, obs = env.step(state, actions[i])
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    substeps = steps * ROLLOUT_SUBSTEPS
+    if int(state.overflow.sum()):
+        raise AssertionError(f"env on a mesh: capacity overflow "
+                             f"{int(state.overflow.sum())}")
+    if not (bool(torch.isfinite(obs).all())
+            and bool(torch.isfinite(state.pos).all())):
+        raise AssertionError("env on a mesh: non-finite state")
+    if not bool((state.tick == tick0 + substeps).all()):
+        raise AssertionError(f"env on a mesh: tick "
+                             f"{state.tick.unique().tolist()}")
+    if launches != dict.fromkeys(launches, substeps):
+        raise AssertionError(f"env on a mesh: launches {launches} in "
+                             f"{substeps} substeps")
+    log(f"env on a mesh: {worlds} worlds x {steps} control steps of "
+        f"{ROLLOUT_SUBSTEPS} substeps on {mesh.num_tris} triangles: obs "
+        f"{tuple(obs.shape)} finite, overflow 0, launches {launches}")
+    return launches, lambda: env.step(state, actions[0])
 
 
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, str(ROOT))
     import torch
-    from rl_ode_physics_tpu_torch.core.config import bench_config
+    from rl_ode_physics_tpu_torch.core.config import (
+        bench_config, rollout_config)
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
 
     config = bench_config(64)
-    phase_build()
+    floor_ms = phase_build()
     kernels = [phase_kernels()]
+    compaction = kernels[0]
     phase_card_vs_cpu(config)
     bench_launches, batch = phase_main_path(config, card)
     by_path = {"bench": bench_launches}
-    kernels[0]["on_main_path_data"] = phase_compaction_on_main_path(config,
-                                                                    batch)
+    # each path's own tensors: one more substep (or control step) of the
+    # settled path with the kernel's wrapper caught, after the counts are read
+    compaction["on_main_path_data"] = compaction_on_path_data(
+        lambda: make_batched_step_fn(config, substeps=1,
+                                     device="cuda")(batch), "bench", 1)
     del batch
 
     mcfg = mesh_config()
     verts, tris = standin_mesh()
     phase_mesh_card_vs_cpu(mcfg, verts, tris)
-    by_path["trimesh"], batch, mesh = phase_mesh_main_path(mcfg, verts, tris,
-                                                           card)
-    kernels += phase_mesh_kernels(batch, mcfg, mesh)
+    by_path["trimesh"], batch, mesh, centers = phase_mesh_main_path(
+        mcfg, verts, tris, card)
+    compaction["on_trimesh_path_data"] = compaction_on_path_data(
+        lambda: make_batched_step_fn(mcfg, substeps=1, device="cuda",
+                                     trimesh=mesh)(batch), "trimesh", 1)
+    tiles, per_triangle = phase_mesh_kernels(batch, mcfg, mesh, centers,
+                                             floor_ms)
+    kernels += [tiles, per_triangle]
+
+    rcfg = rollout_config(64)
+    phase_rollout_card_vs_cpu(rcfg)
+    by_path["rollout"], control_step = phase_rollout_main_path(rcfg, card)
+    compaction["on_rollout_path_data"] = compaction_on_path_data(
+        control_step, "rollout", ROLLOUT_SUBSTEPS)
+    by_path["env_on_mesh"], control_step = phase_env_on_mesh(
+        mcfg, verts, tris, batch, mesh)
+    compaction["on_env_on_mesh_data"] = compaction_on_path_data(
+        control_step, "env-on-a-mesh", ROLLOUT_SUBSTEPS)
+    tiles["on_env_on_mesh_data"] = tiles_on_path_data(
+        control_step, "env-on-a-mesh", ROLLOUT_SUBSTEPS)
+    del batch, control_step
     for entry in kernels:
         counts = {path: got[entry["name"]] for path, got in by_path.items()
                   if entry["name"] in got}

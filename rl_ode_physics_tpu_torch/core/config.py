@@ -406,3 +406,24 @@ def bench_config(num_bodies: int = 64) -> EngineConfig:
         solver_cm=False,
         sap_window=0,
     )
+
+
+def rollout_config(num_bodies: int = 64) -> EngineConfig:
+    """The configuration ``benchmarks/rl_rollout_bench.py`` builds at its
+    defaults (that script imports JAX, so the port keeps its own copy): the
+    throughput policy with the bench's bucket capacities, spheres and boxes
+    only, and 80 contact rows where the raw bench has 64, because the
+    force-driven actors push the peak above the resting scene's; with
+    ``pallas_compaction=True``, whose contact compaction runs through the
+    kernel (the same numbers as the default path). Only ``num_bodies=64``
+    has been run; another width copies that script's ``2 * num_bodies``
+    contact rows, unmeasured."""
+    return EngineConfig.throughput(
+        max_bodies=num_bodies,
+        max_pair_candidates=4 * num_bodies,
+        max_contacts=80 if num_bodies == 64 else 2 * num_bodies,
+        enable_capsules=False,
+        enable_planes=False,
+        bucket_caps=((1, 1, 96), (1, 2, 96), (2, 2, 48)),
+        pallas_compaction=True,
+    )

@@ -5,8 +5,10 @@
 //     triangles; per pair the squared distance to Ericson's closest point
 //     on the triangle, reduced to its minimum over each 128-triangle tile:
 //     out (P, T/128);
-//   sphere_mesh_d2 (_d2_kernel): one probe against T triangles, the squared
-//     distance per triangle: out (T/128, 128).
+//   sphere_mesh_d2 (_d2_kernel): one centre against T triangles, the squared
+//     distance per triangle: out (T/128, 128). Here C centres go in one
+//     launch, out (C, T/128, 128): the explicit batch axis that jax.vmap
+//     over the Pallas call adds as a grid axis.
 // Triangle data comes component-major, v0/e1/e2 each (3, T), as on the TPU.
 //
 // Bound: arithmetic. The reference arithmetic (pallas_kernels.py:89-105
@@ -67,6 +69,40 @@
 // The kernel retires nearly one operation per scheduler and clock, so only
 // a shorter sequence would make it faster.
 //
+// The per-triangle kernel (d2_kernel) writes 4 bytes per pair, so at a wide
+// query its bound is the output: C = 15,360 centres (1,024 worlds x 15
+// spheres) x 9,216 triangles is 566 MB, 0.169 ms at 3.35 TB/s, beside
+// 0.165 ms for its 78 operations per pair. At a narrow query (C = 1, 15)
+// both bounds are far shorter than a launch takes to start and retire, so
+// all a design can do there is to be one launch. One thread per triangle
+// stages its Tri in registers (the reciprocals are paid once per triangle
+// and group, not per pair) and loops over a group of centres, which the
+// block holds in shared memory and every thread reads as a broadcast; each
+// store is a warp's 32 consecutive floats of one centre's row, so the
+// output goes out in full lines, with a streaming store (__stcs): nothing
+// of a wide query's output is read before it has left L2. One block per
+// (group of centres, 128-triangle tile). The launcher sizes the group from
+// C: a narrow query gives every centre its own blocks (72 tiles alone
+// cannot fill 132 SMs), a wide one grows the group up to kMaxGroup so that
+// staging the triangle is amortised. As for the tile kernel, tensor cores,
+// TMA and clusters have no use: no matrix product, and a block reads 4.6 KB.
+//
+// Measured like the tile kernel (utils/kernel_ab.py, NVIDIA H100 80GB HBM3 at
+// 700 W, T = 9,216, old and new in one process; an empty kernel reads
+// 0.0017 ms under the same timer). One query of C = 1: 0.0027 ms (the
+// kernel before it: 0.0027); C = 15: 0.0034 ms in one launch against
+// 0.037 ms in fifteen; C = 15,360: 0.298 ms, 1.8x the 0.169 ms bound,
+// against 60-116 ms in 15,360 launches (two runs), the host's launch rate. At
+// that width the kernel issues like the tile kernel (which takes 0.285 ms
+// for as many pairs), so what was left to tune was the loop: groups of at
+// most 8, 16, 32, 64, 128 centres read 0.416, 0.369, 0.346, 0.335, 0.332 ms
+// with the loop unrolled 4 times; unrolled 1, 4, 8, 16 times at 64 and 128
+// centres 0.334, 0.335, 0.322, 0.298 ms (48 registers, no spills). A plain
+// store in place of __stcs read the same (0.335). Blocks of 32, 64 or 256
+// threads, or a group that grows four times sooner, moved C = 1, 15 and 64
+// by less than 0.0004 ms: the narrow queries are the launch and one
+// dependent chain of loads, reciprocals and a store, whatever the grid.
+//
 // The kernels match their plain versions (ops/trimesh.py) within rtol 1e-5,
 // atol 1e-6, not bit for bit: fused multiply-adds, d1 - e1.e1 and the
 // reciprocals round differently, and a probe on a region border may take
@@ -85,6 +121,11 @@ constexpr int kThreads = 128;         // threads per block of the tile kernel
 constexpr int kPerThread = 6;         // probes a thread carries
 constexpr int kProbes = kThreads * kPerThread;   // probes per block
 constexpr float kEps = 1e-9f;         // ops/trimesh.py _EPS
+constexpr int kMaxGroup = 128;        // centres a block of d2_kernel loops over
+static_assert(kMaxGroup <= kTile, "one thread stages one centre");
+// d2_kernel's launcher grows the group only once the grid has this many
+// blocks: 132 SMs x 16 resident blocks of 128 threads
+constexpr int kFillBlocks = 132 * 16;
 
 // A triangle as the pair function reads it, five 16-byte words, with
 // det = a c - b^2 and every reciprocal guarded:
@@ -210,25 +251,37 @@ d2_tiles_kernel(const float* __restrict__ probes,    // (P, 3)
 }
 
 __global__ void __launch_bounds__(kTile)
-d2_kernel(const float* __restrict__ center,          // (3,)
+d2_kernel(const float* __restrict__ centers,         // (C, 3)
           const float* __restrict__ v0t,             // (3, T)
           const float* __restrict__ e1t,
           const float* __restrict__ e2t,
-          float* __restrict__ out,                   // (T / kTile, kTile)
-          int T) {
-  const int t = blockIdx.x * kTile + threadIdx.x;
-  if (t >= T) return;
+          float* __restrict__ out,                   // (C, T / kTile, kTile)
+          int C, int T, int group) {
+  __shared__ float4 cs[kMaxGroup];
+  const int first = blockIdx.x * group;
+  const int n = min(group, C - first);
+  if (threadIdx.x < n) {
+    const float* c = centers + (size_t)(first + threadIdx.x) * 3;
+    cs[threadIdx.x] = make_float4(c[0], c[1], c[2], 0.0f);
+  }
+  const size_t t = (size_t)blockIdx.y * kTile + threadIdx.x;
   const Tri tri = make_tri(v0t[t], v0t[T + t], v0t[2 * (size_t)T + t],
                            e1t[t], e1t[T + t], e1t[2 * (size_t)T + t],
                            e2t[t], e2t[T + t], e2t[2 * (size_t)T + t]);
-  out[t] = pair_d2(center[0], center[1], center[2], tri);
+  __syncthreads();
+  float* row = out + (size_t)first * T + t;
+#pragma unroll 16
+  for (int j = 0; j < n; ++j) {
+    const float4 c = cs[j];
+    __stcs(row + (size_t)j * T, pair_d2(c.x, c.y, c.z, tri));
+  }
 }
 
 }  // namespace
 
 // Each launcher enqueues its kernel on `stream` and returns the launch's
 // cudaError_t (0 on success). Pointers are device pointers; T is a
-// multiple of 128 and P >= 1.
+// multiple of 128 with at most 65,535 tiles, and P >= 1.
 extern "C" int sphere_mesh_d2_tiles_launch(const void* probes, const void* v0t,
                                            const void* e1t, const void* e2t,
                                            void* out, int P, int T,
@@ -240,11 +293,19 @@ extern "C" int sphere_mesh_d2_tiles_launch(const void* probes, const void* v0t,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sphere_mesh_d2_launch(const void* center, const void* v0t,
-                                     const void* e1t, const void* e2t,
-                                     void* out, int T, void* stream) {
-  d2_kernel<<<T / kTile, kTile, 0, (cudaStream_t)stream>>>(
-      (const float*)center, (const float*)v0t, (const float*)e1t,
-      (const float*)e2t, (float*)out, T);
+// C >= 1 centres in one launch, whatever C is.
+extern "C" int sphere_mesh_d2_batch_launch(const void* centers,
+                                           const void* v0t,
+                                           const void* e1t, const void* e2t,
+                                           void* out, int C, int T,
+                                           void* stream) {
+  const int tiles = T / kTile;
+  const long long alone = (long long)C * tiles;      // blocks at group 1
+  const long long wanted = (alone + kFillBlocks - 1) / kFillBlocks;
+  const int group = wanted < kMaxGroup ? (int)wanted : kMaxGroup;
+  const dim3 grid((C + group - 1) / group, tiles);
+  d2_kernel<<<grid, kTile, 0, (cudaStream_t)stream>>>(
+      (const float*)centers, (const float*)v0t, (const float*)e1t,
+      (const float*)e2t, (float*)out, C, T, group);
   return (int)cudaGetLastError();
 }

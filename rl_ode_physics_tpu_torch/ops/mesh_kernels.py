@@ -3,8 +3,10 @@
 ``csrc/sphere_mesh_d2.cu`` replaces the Pallas TPU kernels of
 ``rl_ode_physics_tpu/ops/pallas_kernels.py``: ``sphere_mesh_d2_tiles``
 (phase 1 of ``ops/trimesh.mesh_narrowphase``, once per substep) and
-``sphere_mesh_d2`` (``ops/trimesh.sphere_mesh_contacts``). The library is
-built with ``nvcc`` at first use (``ops/kernel_build.py``).
+``sphere_mesh_d2`` (``ops/trimesh.sphere_mesh_contacts``), which takes the
+centres of a whole query in one launch: the batch axis that ``jax.vmap``
+over the Pallas call adds. The library is built with ``nvcc`` at first use
+(``ops/kernel_build.py``).
 
 Each wrapper launches its kernel for CUDA tensors. For CPU tensors, and
 only for those, it runs the kernel's plain version in ``ops/trimesh.py``,
@@ -27,7 +29,7 @@ import torch
 from rl_ode_physics_tpu_torch.ops import kernel_build, trimesh
 
 MESH_TILE = trimesh.MESH_TILE
-_MAX_TILES = 65535                  # the tile kernel's grid.y
+_MAX_TILES = 65535                  # both kernels' grid.y
 # how closely the kernels match their plain versions
 D2_RTOL, D2_ATOL = 1e-5, 1e-6
 
@@ -42,8 +44,8 @@ def build():
 FUNCTIONS = {
     "sphere_mesh_d2_tiles_launch":
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    "sphere_mesh_d2_launch":
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]}
+    "sphere_mesh_d2_batch_launch":
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
 @functools.lru_cache(maxsize=1)
@@ -106,25 +108,32 @@ def sphere_mesh_d2_tiles(probes: torch.Tensor, v0t: torch.Tensor,
     return out
 
 
-def sphere_mesh_d2(center: torch.Tensor, v0t: torch.Tensor, e1t: torch.Tensor,
-                   e2t: torch.Tensor) -> torch.Tensor:
-    """(3,) center, (3, T) triangle planes → (T/128, 128) squared
-    distances, one per triangle."""
-    if _all_cpu(center, v0t, e1t, e2t):
-        return trimesh.sphere_mesh_d2_plain(center, v0t, e1t, e2t)
-    t = _check(center, (v0t, e1t, e2t))
-    if center.shape != (3,):
-        raise ValueError(f"center {tuple(center.shape)}: expected (3,)")
-    out = torch.empty((t // MESH_TILE, MESH_TILE), dtype=torch.float32,
-                      device=center.device)
-    with torch.cuda.device(center.device):
+def sphere_mesh_d2(centers: torch.Tensor, v0t: torch.Tensor,
+                   e1t: torch.Tensor, e2t: torch.Tensor) -> torch.Tensor:
+    """(C, 3) centres, (3, T) triangle planes → (C, T/128, 128) squared
+    distances, one per centre and triangle, in one launch whatever C is; a
+    (3,) centre → (T/128, 128)."""
+    if _all_cpu(centers, v0t, e1t, e2t):
+        return trimesh.sphere_mesh_d2_plain(centers, v0t, e1t, e2t)
+    t = _check(centers, (v0t, e1t, e2t))
+    single = centers.dim() == 1
+    if (centers.dim() > 2 or centers.shape[-1] != 3
+            or (not single and centers.shape[0] == 0)):
+        raise ValueError(f"centers {tuple(centers.shape)}: expected (3,) or "
+                         f"(C, 3), C >= 1")
+    if t // MESH_TILE > _MAX_TILES:
+        raise ValueError(f"{t // MESH_TILE} tiles: at most {_MAX_TILES}")
+    c = 1 if single else centers.shape[0]
+    out = torch.empty((c, t // MESH_TILE, MESH_TILE), dtype=torch.float32,
+                      device=centers.device)
+    with torch.cuda.device(centers.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().sphere_mesh_d2_launch(
-            center.data_ptr(), v0t.data_ptr(), e1t.data_ptr(),
-            e2t.data_ptr(), out.data_ptr(), t, stream)
+        err = _library().sphere_mesh_d2_batch_launch(
+            centers.data_ptr(), v0t.data_ptr(), e1t.data_ptr(),
+            e2t.data_ptr(), out.data_ptr(), c, t, stream)
     _raise_on(err, "sphere_mesh_d2")
     sphere_mesh_d2.launches += 1
-    return out
+    return out[0] if single else out
 
 
 sphere_mesh_d2_tiles.launches = 0

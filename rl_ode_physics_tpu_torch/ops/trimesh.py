@@ -300,13 +300,22 @@ def sphere_mesh_d2_tiles_plain(probes, v0t, e1t, e2t, chunk: int = 2048):
     return torch.cat(out)
 
 
-def sphere_mesh_d2_plain(center, v0t, e1t, e2t):
-    """The plain version of ``mesh_kernels.sphere_mesh_d2``: (3,) center
-    against (3, T) triangle planes → (T/128, 128) squared distances."""
+def sphere_mesh_d2_plain(centers, v0t, e1t, e2t, chunk: int = 2048):
+    """The plain version of ``mesh_kernels.sphere_mesh_d2``: (C, 3) centres
+    against (3, T) triangle planes → (C, T/128, 128) squared distances, one
+    per centre and triangle; a (3,) centre → (T/128, 128). Centres go
+    ``chunk`` at a time, like ``sphere_mesh_d2_tiles_plain``'s probes."""
     t = v0t.shape[1]
-    p = (center[0], center[1], center[2])
-    dd = _d2_pallas_order(p, tuple(v0t), tuple(e1t), tuple(e2t))
-    return dd.reshape(t // MESH_TILE, MESH_TILE)
+    if centers.dim() == 1:
+        return sphere_mesh_d2_plain(centers[None], v0t, e1t, e2t)[0]
+    tris = [tuple(x[c][None, :] for c in range(3)) for x in (v0t, e1t, e2t)]
+    out = []
+    for s in range(0, centers.shape[0], chunk):
+        cc = centers[s:s + chunk]
+        p = tuple(cc[:, c:c + 1] for c in range(3))
+        dd = _d2_pallas_order(p, *tris)                       # (chunk, T)
+        out.append(dd.reshape(-1, t // MESH_TILE, MESH_TILE))
+    return torch.cat(out)
 
 
 def _top_k_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -327,45 +336,57 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def sphere_mesh_contacts(center: torch.Tensor, radius, mesh: TriMesh, k: int):
-    """Deepest-k contacts of one probe sphere against the whole mesh.
+    """Deepest-k contacts of probe spheres against the whole mesh: (C, 3)
+    centres with a scalar or (C,) radius, the port's form of ``jax.vmap``
+    over the one-sphere function, or one (3,) centre.
 
-    1. squared distance to every triangle, tiled (T/128, 128): the
-       ``sphere_mesh_d2`` kernel on a CUDA tensor, its plain version on a
-       CPU tensor;
-    2. per-tile minimum → the k deepest tiles;
+    1. squared distance to every triangle, tiled (C, T/128, 128): the
+       ``sphere_mesh_d2`` kernel on CUDA tensors, one launch for the whole
+       query; its plain version on CPU tensors;
+    2. per-tile minimum → the k deepest tiles of each centre;
     3. exact contact points recomputed for those k tiles only.
 
-    Returns (points (k, 3), normals (k, 3) sphere → mesh, depths (k,),
-    valid (k,)). Ties go to the lower tile and triangle index.
+    Returns (points (C, k, 3), normals (C, k, 3) sphere → mesh, depths
+    (C, k), valid (C, k)), without the leading axis for a (3,) centre. Ties
+    go to the lower tile and triangle index.
     """
     from rl_ode_physics_tpu_torch.ops import mesh_kernels
 
+    if center.dim() == 1:
+        return tuple(x[0] for x in sphere_mesh_contacts(
+            center[None], radius, mesh, k))
+    n_c = center.shape[0]
     nt = mesh.num_tris // MESH_TILE
+    radius = torch.as_tensor(radius, dtype=center.dtype,
+                             device=center.device)
+    if radius.dim() == 1:
+        radius = radius[:, None]
     d2_t = mesh_kernels.sphere_mesh_d2(center, *mesh.transposed())
-    tile_d2 = d2_t.amin(1)                                       # (nt,)
+    tile_d2 = d2_t.amin(2)                                       # (C, nt)
     depth = radius - torch.sqrt(torch.clamp_min(tile_d2, 0.0))
     keys = torch.where(depth > 0, depth, -torch.inf)
     if k > nt:  # tiny meshes: fewer tiles than requested contacts
-        keys = torch.cat([keys, keys.new_full((k - nt,), -torch.inf)])
-    top_d, top_i = torch.sort(keys, descending=True, stable=True)
-    top_d, top_i = top_d[:k], top_i[:k]
+        keys = torch.cat([keys, keys.new_full((n_c, k - nt), -torch.inf)], 1)
+    top_d, top_i = torch.sort(keys, dim=1, descending=True, stable=True)
+    top_d, top_i = top_d[:, :k], top_i[:, :k]
 
     # the k winning tiles' triangles; a padding key selects a zero triangle
     real = top_i < nt
     idx = torch.clamp_max(top_i, nt - 1)
 
     def tiles(x):
-        got = x.reshape(nt, MESH_TILE, 3)[idx]                  # (k, 128, 3)
-        return torch.where(real[:, None, None], got, 0.0)
+        got = x.reshape(nt, MESH_TILE, 3)[idx]               # (C, k, 128, 3)
+        return torch.where(real[:, :, None, None], got, 0.0)
 
-    closest_k = closest_point_triangle(center, tiles(mesh.v0),
-                                       tiles(mesh.e1), tiles(mesh.e2))
-    d2_k = vnormsq(_comps(closest_k - center))                  # (k, 128)
-    best = torch.argmin(d2_k, dim=1)
-    pts = _take(closest_k, best[:, None])[:, 0]                 # (k, 3)
+    at = center[:, None, None, :]
+    closest_k = closest_point_triangle(at, tiles(mesh.v0), tiles(mesh.e1),
+                                       tiles(mesh.e2))
+    d2_k = vnormsq(_comps(closest_k - at))                      # (C, k, 128)
+    best = torch.argmin(d2_k, dim=2)
+    pts = _take(closest_k, best[:, :, None])[:, :, 0]           # (C, k, 3)
 
-    n_dir = pts - center                                        # sphere → mesh
-    n_len = torch.sqrt(vnormsq(_comps(n_dir)))[:, None]
+    n_dir = pts - center[:, None, :]                            # sphere → mesh
+    n_len = torch.sqrt(vnormsq(_comps(n_dir)))[..., None]
     up = torch.tensor([0.0, 1.0, 0.0], dtype=center.dtype,
                       device=center.device)
     # center exactly on a surface point: deterministic up fallback

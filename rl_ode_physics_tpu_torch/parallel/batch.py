@@ -37,6 +37,19 @@ def replicate(state: WorldState, num_worlds: int, reseed: bool = True,
     return batch
 
 
+def take_worlds(batch: WorldState, start: int, stop: int) -> WorldState:
+    """Worlds ``start..stop-1`` of a batch, as views."""
+    return WorldState(**{f.name: getattr(batch, f.name)[start:stop]
+                         for f in dataclasses.fields(WorldState)})
+
+
+def concat_worlds(parts) -> WorldState:
+    """Batches joined along the world axis."""
+    return WorldState(**{
+        f.name: torch.cat([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(WorldState)})
+
+
 def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
                          chunk: int = 0, device="cuda", trimesh=None):
     """A function batch → batch that runs ``substeps`` substeps.
@@ -59,14 +72,8 @@ def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
         b_total = batch.num_worlds
         if b_total % chunk:
             raise ValueError(f"batch {b_total} not divisible by chunk {chunk}")
-        parts = []
-        for start in range(0, b_total, chunk):
-            part = WorldState(**{
-                f.name: getattr(batch, f.name)[start:start + chunk]
-                for f in dataclasses.fields(WorldState)})
-            parts.append(step_fn(part))
-        return WorldState(**{
-            f.name: torch.cat([getattr(p, f.name) for p in parts])
-            for f in dataclasses.fields(WorldState)})
+        return concat_worlds([
+            step_fn(take_worlds(batch, start, start + chunk))
+            for start in range(0, b_total, chunk)])
 
     return fn

@@ -25,8 +25,12 @@ name and power limit.
 ``cuobjdump -sass`` listing to ``DIR/<kernel>_<label>.sass``.
 
 Shapes: the tile kernel on 1,024 x 16 x 3 = 49,152 random probes within 1 m
-above the 9,216-triangle mesh of ``chip_smoke.py``, the one-probe kernel on
-the first 64 of them, one launch each; the compaction at B = 8,192 and
+above the 9,216-triangle mesh of ``chip_smoke.py``; the per-triangle kernel
+on queries of the first 1, 15, 64 and 15,360 of them (``query_ms``), one
+launch a query, with ``launch_floor_ms``, an empty kernel under the same
+timer, beside them (a ``--mesh`` variant whose flags hold the word
+``one-centre`` is a source from before the centres had a batch axis, and a
+query through it is one launch a centre); the compaction at B = 8,192 and
 B = 1,024 worlds, D = 10, M = 384, k = 64, a random mask of density 0.15,
 bf16 rounding.
 """
@@ -34,12 +38,25 @@ bf16 rounding.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import functools
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
+# sphere_mesh_d2 queries that are timed, in centres: one, a world's spheres,
+# and every sphere of the trimesh main path (1,024 worlds x 15)
+QUERY_CENTRES = (1, 15, 64, 15360)
+# a --mesh variant marked with this word has the interface that
+# csrc/sphere_mesh_d2.cu had before its centres got a batch axis
+ONE_CENTRE = "one-centre"
+ONE_CENTRE_FUNCTIONS = {
+    "sphere_mesh_d2_tiles_launch":
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "sphere_mesh_d2_launch":
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]}
 
 
 def _variant(spec: str, source: str):
@@ -95,6 +112,7 @@ def mesh_variants(specs, args) -> dict:
     from chip_smoke import standin_mesh
     from rl_ode_physics_tpu_torch.ops import kernel_build, mesh_kernels
     from rl_ode_physics_tpu_torch.ops import trimesh as tm
+    from rl_ode_physics_tpu_torch.utils.timing import launch_floor_ms
 
     mesh = tm.build_trimesh(*standin_mesh(), device="cuda")
     tris = mesh.transposed()
@@ -105,50 +123,71 @@ def mesh_variants(specs, args) -> dict:
     lo = torch.tensor([-6.0, -0.3, -6.0], device="cuda")
     hi = torch.tensor([6.0, 1.3, 6.0], device="cuda")
     probes = lo + (hi - lo) * torch.rand((p, 3), generator=gen, device="cuda")
-    centers = probes[:64].contiguous()
     ref = tm.sphere_mesh_d2_tiles_plain(probes, *tris)
-    ref_one = tm.sphere_mesh_d2_plain(centers[0], *tris)
     out = torch.empty((p, t // tm.MESH_TILE), device="cuda")
-    out_one = torch.empty((t // tm.MESH_TILE, tm.MESH_TILE), device="cuda")
+    centers = probes[:QUERY_CENTRES[-1]].contiguous()
+    ref_rows = tm.sphere_mesh_d2_plain(centers, *tris)
+    out_rows = torch.empty((centers.shape[0], t // tm.MESH_TILE,
+                            tm.MESH_TILE), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     rtol, atol = mesh_kernels.D2_RTOL, mesh_kernels.D2_ATOL
-    result, tile_calls, one_calls = {}, {}, {}
+    result, tile_calls = {}, {}
+    query_calls = {c: {} for c in QUERY_CENTRES}
     for label, src, flags in (_variant(s, "sphere_mesh_d2.cu") for s in specs):
-        result[label] = {"source": str(src), "flags": list(flags)}
+        batched = ONE_CENTRE not in flags
+        flags = tuple(f for f in flags if f != ONE_CENTRE)
+        result[label] = {"source": str(src), "flags": list(flags),
+                         "launches_per_query": "1" if batched else "C"}
         lib = kernel_build.load(
             _build(src, flags, label, "sphere_mesh_d2", args, result[label]),
-            mesh_kernels.FUNCTIONS)
+            mesh_kernels.FUNCTIONS if batched else ONE_CENTRE_FUNCTIONS)
 
         def tiles(lib=lib, label=label):
             _raise_on(lib.sphere_mesh_d2_tiles_launch(
                 probes.data_ptr(), *tri_ptrs, out.data_ptr(), p, t, stream),
                 label)
 
-        def each_center(lib=lib, label=label):
-            for i in range(centers.shape[0]):
+        def query(c, lib=lib, label=label, batched=batched):
+            """The rows of the first ``c`` centres: one launch, or ``c``
+            launches of a one-centre source."""
+            if batched:
+                _raise_on(lib.sphere_mesh_d2_batch_launch(
+                    centers.data_ptr(), *tri_ptrs, out_rows.data_ptr(), c, t,
+                    stream), label)
+                return
+            for i in range(c):
                 _raise_on(lib.sphere_mesh_d2_launch(
                     centers.data_ptr() + 12 * i, *tri_ptrs,
-                    out_one.data_ptr(), t, stream), label)
+                    out_rows.data_ptr() + 4 * t * i, t, stream), label)
 
         out.fill_(-1.0)
+        out_rows.fill_(-1.0)
         tiles()
-        lib.sphere_mesh_d2_launch(centers.data_ptr(), *tri_ptrs,
-                                  out_one.data_ptr(), t, stream)
+        query(centers.shape[0])
         torch.cuda.synchronize()
-        for name, got, want in (("tiles", out, ref), ("one", out_one,
-                                                      ref_one)):
+        for name, got, want in (
+                ("tiles", out, ref),
+                ("rows", out_rows, ref_rows)):
             err = (got - want).abs()
             if not torch.allclose(got, want, rtol=rtol, atol=atol):
                 raise AssertionError(f"{label} ({name}): differs from the "
                                      f"plain version, max abs err "
                                      f"{float(err.max())}")
             result[label][f"{name}_max_abs_err"] = float(err.max())
-        tile_calls[label], one_calls[label] = tiles, each_center
+        tile_calls[label] = tiles
+        for c in QUERY_CENTRES:
+            query_calls[c][label] = functools.partial(query, c)
     for label, ms in _time_in_turns(tile_calls, args.rounds, 20).items():
         result[label]["tiles_ms"] = ms
-    for label, ms in _time_in_turns(one_calls, args.rounds, 5).items():
-        result[label]["one_probe_ms"] = [x / centers.shape[0] for x in ms]
-    return {"shape": {"P": p, "T": t}, "variants": result}
+    for c, calls in query_calls.items():
+        # many centres through a one-centre source are that many launches:
+        # few runs of it
+        for label, ms in _time_in_turns(calls, args.rounds,
+                                        20 if c <= 64 else 3).items():
+            result[label].setdefault("query_ms", {})[f"C={c}"] = ms
+    floor = [launch_floor_ms() for _ in range(2)]
+    return {"shape": {"P": p, "T": t, "query_centres": list(QUERY_CENTRES)},
+            "launch_floor_ms": floor, "variants": result}
 
 
 def compact_variants(specs, args) -> dict:

@@ -4,6 +4,7 @@ Run on a machine with a CUDA card, from the root of the checkout::
 
     python3 -m rl_ode_physics_tpu_torch.utils.profiling [--worlds 8192]
     python3 -m rl_ode_physics_tpu_torch.utils.profiling --mesh [--worlds 1024]
+    python3 -m rl_ode_physics_tpu_torch.utils.profiling --rollout
 
 The default builds the bench world (``bench_config(64)``, 60 dynamic
 bodies); ``--mesh`` builds the trimesh workload of ``chip_smoke.py``
@@ -21,6 +22,15 @@ substeps; then one JSON object is printed with:
   the summed device time of its kernels, the device's idle share of the
   wall time, the number of kernel launches, and the kernels with the most
   device time.
+
+``--rollout`` builds the rollout workload of ``chip_smoke.py``
+(``benchmarks/rl_rollout_bench.py``'s defaults: ``rollout_config(64)``, the
+bench world, actor slots 4 and 5 observed alone, 16 lidar rays each, 2
+substeps a control step), advances it ``--settle`` substeps under seeded
+actions, and splits one control step of ``PhysicsEnv`` into its substeps,
+``observe`` and the lidar: each with the host and event times of
+``phases`` and, under ``torch.profiler``, its device time, launches and
+idle share.
 
 Nothing here runs on the main path; it calls the same functions the step
 calls.
@@ -68,10 +78,95 @@ def _mesh_workload():
     return config, world, mesh
 
 
+def _card() -> str:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _profiled(fn, top: int) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall time, summed device
+    time of its kernels, the device's idle share of the wall time, the
+    number of kernel launches and the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    return {
+        "wall_ms_profiled": wall_ms,
+        "device_ms": device_ms,
+        "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "kernel_launches": len(kernels),
+        "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top],
+    }
+
+
+def profile_rollout(worlds: int, settle: int, repeats: int, top: int) -> dict:
+    import torch
+
+    from rl_ode_physics_tpu_torch.core.config import rollout_config
+    from rl_ode_physics_tpu_torch.models.env import observe
+
+    card = _card()
+    root = str(Path(__file__).resolve().parents[2])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import rollout_env, seeded_actions
+
+    config = rollout_config(64)
+    env = rollout_env(config, worlds, "cuda")
+    state, _ = env.reset(seed=42)
+    steps = settle // env.substeps
+    actions = seeded_actions((steps + 1, worlds, env.num_actors, 6), 0,
+                             "cuda")
+    for i in range(steps):
+        state = env.advance(state, actions[i])
+    torch.cuda.synchronize()
+    act = actions[steps]
+    rays = env.num_actors * env.lidar_dirs.shape[0]
+    phases = {
+        f"substeps ({env.substeps} x world.step, forces re-armed)":
+            lambda: env.advance(state, act),
+        "observe": lambda: observe(state, env.obs_slots),
+        f"lidar ({rays} rays x {config.max_bodies} slots a world)":
+            lambda: env.sense(state),
+        "whole control step (env.step)": lambda: env.step(state, act),
+    }
+    out = {}
+    for name, fn in phases.items():
+        host_ms, span_ms = _timed(fn, repeats)
+        out[name] = {"host_ms": host_ms, "event_span_ms": span_ms,
+                     **_profiled(fn, top)}
+    return {
+        "card": card,
+        "workload": "rollout",
+        "worlds": worlds,
+        "settle_substeps": steps * env.substeps,
+        "overflow": int(state.overflow.sum()),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "control_step": out,
+    }
+
+
 def profile(worlds: int, settle: int, repeats: int, top: int,
             mesh_path: bool = False) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity
 
     from rl_ode_physics_tpu_torch.core import world as world_m
     from rl_ode_physics_tpu_torch.core.config import bench_config
@@ -81,13 +176,7 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
 
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = _card()
     if mesh_path:
         config, world, mesh = _mesh_workload()
     else:
@@ -127,19 +216,7 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
         host_ms, span_ms = _timed(fn, repeats)
         phase_ms[name] = {"host_ms": host_ms, "event_span_ms": span_ms}
 
-    with torch.profiler.profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        world_m.step(batch, config, mesh)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.device_time for e in kernels) / 1e3
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    substep = _profiled(lambda: world_m.step(batch, config, mesh), top)
     return {
         "card": card,
         "workload": "trimesh" if mesh is not None else "bench",
@@ -147,13 +224,7 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
         "settle_substeps": settle,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "phases": phase_ms,
-        "substep": {
-            "wall_ms_profiled": wall_ms,
-            "device_ms": device_ms,
-            "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-            "kernel_launches": len(kernels),
-            "top_kernels_ms": ranked,
-        },
+        "substep": substep,
     }
 
 
@@ -161,6 +232,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mesh", action="store_true",
                     help="the trimesh workload instead of the bench's")
+    ap.add_argument("--rollout", action="store_true",
+                    help="a control step of the RL rollout workload")
     ap.add_argument("--worlds", type=int, default=None,
                     help="default 8192, or 1024 with --mesh")
     ap.add_argument("--settle", type=int, default=96)
@@ -168,8 +241,12 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
     worlds = args.worlds or (1024 if args.mesh else 8192)
-    print(json.dumps(profile(worlds, args.settle, args.repeats, args.top,
-                             args.mesh), indent=1))
+    if args.rollout:
+        result = profile_rollout(worlds, args.settle, args.repeats, args.top)
+    else:
+        result = profile(worlds, args.settle, args.repeats, args.top,
+                         args.mesh)
+    print(json.dumps(result, indent=1))
 
 
 if __name__ == "__main__":

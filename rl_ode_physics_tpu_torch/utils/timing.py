@@ -1,4 +1,5 @@
-"""Device time of a short piece of work on the card, from CUDA events."""
+"""Device time of a short piece of work on the card, from CUDA events, and
+what an empty kernel reads under the same timer."""
 
 from __future__ import annotations
 
@@ -36,3 +37,27 @@ def cuda_ms(fn, iters: int = 20) -> float:
     torch.cuda.synchronize()
     del ballast
     return start.elapsed_time(end) / iters
+
+
+def launch_floor_ms(iters: int = 200) -> float:
+    """What ``cuda_ms`` reads for an empty kernel (``csrc/launch_floor.cu``,
+    one block of one thread, launched through ``ctypes`` like the
+    hand-written kernels): the least any launch takes on this card under
+    this timer. A kernel whose bound is shorter than this is judged against
+    this."""
+    import ctypes
+
+    import torch
+
+    from rl_ode_physics_tpu_torch.ops import kernel_build
+    lib = kernel_build.load(kernel_build.build("launch_floor.cu"),
+                            {"empty_launch": [ctypes.c_void_p]})
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = lib.empty_launch(stream)
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error "
+                               f"{err}")
+
+    return cuda_ms(launch, iters)

@@ -186,10 +186,11 @@ def test_mesh_kernels_match_plain_versions_on_card():
     near = [trimesh._top_k_smallest(x, trimesh.CAND_TILES).sort(-1).values
             for x in (got, ref)]
     assert torch.equal(*near)
-    for c in probes[:16]:
+    for c in probes[:16]:                   # C = 1 through the (3,) form
         before = mesh_kernels.sphere_mesh_d2.launches
         got = mesh_kernels.sphere_mesh_d2(c.contiguous(), *tris)
         assert mesh_kernels.sphere_mesh_d2.launches == before + 1
+        assert got.shape == (9, 128)
         assert torch.allclose(got, trimesh.sphere_mesh_d2_plain(c, *tris),
                               rtol=rtol, atol=atol)
     bad = probes[:3].clone()
@@ -201,6 +202,88 @@ def test_mesh_kernels_match_plain_versions_on_card():
     assert bool(torch.isnan(
         mesh_kernels.sphere_mesh_d2(bad[1].contiguous(), *tris)).all())
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 15, 64, 77, 1000, 15360])
+def test_batched_d2_kernel_matches_plain_version_on_card(count):
+    """(C, 3) centres in one launch whatever C is: a group of centres per
+    block at wide queries, a C that is no multiple of the group, one centre
+    per block at narrow ones; a NaN centre gives a NaN row and leaves the
+    others alone."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.ops import mesh_kernels, trimesh
+    rtol, atol = mesh_kernels.D2_RTOL, mesh_kernels.D2_ATOL
+    _, mesh = _bumpy_mesh("cuda", n=24)     # 1,152 triangles, 9 tiles
+    tris = mesh.transposed()
+    rng = np.random.default_rng(count)
+    centers = torch.from_numpy(rng.uniform(
+        [-3.5, -0.5, -3.5], [3.5, 1.5, 3.5], size=(count, 3)).astype(
+            np.float32)).cuda()
+    centers[count // 2, 1] = float("nan")
+    before = mesh_kernels.sphere_mesh_d2.launches
+    got = mesh_kernels.sphere_mesh_d2(centers, *tris)
+    assert mesh_kernels.sphere_mesh_d2.launches == before + 1
+    ref = trimesh.sphere_mesh_d2_plain(centers, *tris)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (count, 9, 128)
+    assert bool(torch.isnan(got[count // 2]).all())
+    assert int(torch.isnan(got).any(-1).any(-1).sum()) == 1
+    assert torch.allclose(got, ref, rtol=rtol, atol=atol, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_sphere_mesh_contacts_is_one_launch_on_card():
+    """A query of 15 centres launches the kernel once and gives the CPU's
+    contacts: the same tiles and validity, geometry at atol 1e-5."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.ops import mesh_kernels, trimesh
+    _, mesh = _bumpy_mesh("cpu", n=24)
+    rng = np.random.default_rng(5)
+    centers = torch.from_numpy(rng.uniform(
+        [-3.0, -0.1, -3.0], [3.0, 0.5, 3.0], size=(15, 3)).astype(np.float32))
+    ref = trimesh.sphere_mesh_contacts(centers, 0.4, mesh, k=4)
+    before = mesh_kernels.sphere_mesh_d2.launches
+    got = trimesh.sphere_mesh_contacts(centers.cuda(), 0.4, mesh.to("cuda"),
+                                       k=4)
+    assert mesh_kernels.sphere_mesh_d2.launches == before + 1
+    valid = ref[3]
+    assert torch.equal(got[3].cpu(), valid) and int(valid.sum()) >= 15
+    for r, g in zip(ref[:3], got[:3]):
+        assert torch.allclose(g.cpu()[valid], r[valid], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_card_rollout_matches_cpu_rollout():
+    """``PhysicsEnv`` in 2 worlds of the rollout configuration, settled 40
+    substeps on the CPU, then a 3-step rollout with seeded actions and a
+    lidar on each device: atol 1e-4, tick and overflow exact."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import rollout_config
+    from rl_ode_physics_tpu_torch.models.env import PhysicsEnv
+    config = rollout_config(64)
+    start = make_batched_step_fn(config, substeps=40, device="cpu")(
+        replicate(bench_world(config, device="cpu"), 2, device="cpu"))
+    ang = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+    dirs = np.stack([np.cos(ang), np.zeros_like(ang), np.sin(ang)], -1)
+    acts = torch.from_numpy(np.random.default_rng(2).normal(
+        scale=0.5, size=(3, 2, 2, 6)).astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        env = PhysicsEnv(config, lambda cfg, seed: bench_world(
+            cfg, seed=seed, device=device), actor_slots=[4, 5], num_worlds=2,
+            lidar_dirs=dirs, obs_slots=[4, 5], device=device)
+        state = type(start)(**{k: v.to(device)
+                               for k, v in vars(start).items()})
+        out[device] = env.rollout(state, acts.to(device))
+    (cpu, (cpu_obs, cpu_lidar)), (card, (obs, lidar)) = out["cpu"], out["cuda"]
+    for name in ("pos", "quat", "linvel", "angvel"):
+        diff = (getattr(card, name).cpu() - getattr(cpu, name)).abs().max()
+        assert float(diff) <= 1e-4, name
+    for name in ("tick", "overflow"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    assert float((obs.cpu() - cpu_obs).abs().max()) <= 1e-4
+    assert float((lidar.cpu() - cpu_lidar).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -256,5 +339,9 @@ def test_mesh_kernel_wrappers_take_the_plain_version_on_cpu():
                        trimesh.sphere_mesh_d2_tiles_plain(probes, *tris))
     assert torch.equal(mesh_kernels.sphere_mesh_d2(probes[0], *tris),
                        trimesh.sphere_mesh_d2_plain(probes[0], *tris))
+    batch = mesh_kernels.sphere_mesh_d2(probes, *tris)
+    assert batch.shape == (2, 1, 128)
+    assert torch.equal(batch[1], trimesh.sphere_mesh_d2_plain(probes[1],
+                                                              *tris))
     assert before == (mesh_kernels.sphere_mesh_d2_tiles.launches,
                       mesh_kernels.sphere_mesh_d2.launches)

@@ -249,6 +249,20 @@ def test_d2_plain_matches_pallas_body():
                                    rtol=1e-6)
 
 
+@pytest.mark.parametrize("chunk", [2048, 4])
+def test_d2_plain_batch_equals_loop_over_centres(chunk):
+    """(C, 3) centres in one call, the form one kernel launch takes: each
+    centre's rows are exactly the (3,) call's, across chunk borders."""
+    rng = np.random.default_rng(15)
+    tris = list(map(_t, _random_tris(512, seed=16)))
+    centers = _t(rng.uniform(-3.0, 3.0, size=(10, 3)).astype(np.float32))
+    got = tm.sphere_mesh_d2_plain(centers, *tris, chunk=chunk)
+    assert got.shape == (10, 4, 128)
+    for c, rows in zip(centers, got):
+        assert torch.equal(rows, tm.sphere_mesh_d2_plain(c, *tris))
+    assert tm.sphere_mesh_d2_plain(centers[:1], *tris).shape == (1, 4, 128)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel's operation order against the plain version's
 # ---------------------------------------------------------------------------
@@ -361,7 +375,10 @@ def test_sphere_mesh_contacts_matches_jax(k, interpret_pallas):
         rng.uniform([-3.5, -0.2, -3.5], [3.5, 0.6, 3.5], size=(5, 3)),
         [[0.3, 2.0, 0.2]]]).astype(np.float32)           # one far above
     n_valid = 0
-    for c in centers:
+    batch = tm.sphere_mesh_contacts(_t(centers), 0.5, tmesh, k=k)
+    assert [tuple(x.shape) for x in batch] == [(6, k, 3), (6, k, 3), (6, k),
+                                               (6, k)]
+    for i, c in enumerate(centers):
         ref = jax_tm.sphere_mesh_contacts(jnp.asarray(c), 0.5, jmesh, k=k,
                                           use_pallas=True)
         got = tm.sphere_mesh_contacts(_t(c), 0.5, tmesh, k=k)
@@ -371,7 +388,35 @@ def test_sphere_mesh_contacts_matches_jax(k, interpret_pallas):
         for r, g in zip(ref[:3], got[:3]):
             np.testing.assert_allclose(g.numpy()[rv], np.asarray(r)[rv],
                                        atol=GEOM_ATOL, rtol=0)
+        # the whole query in one call is the loop over its centres
+        for g, b in zip(got, batch):
+            assert torch.equal(g, b[i])
     assert n_valid >= 5
+
+
+def test_sphere_mesh_contacts_batch_matches_jax_vmap(interpret_pallas):
+    """(C, 3) centres with a radius each against ``jax.vmap`` over the JAX
+    function, the Pallas body in interpret mode."""
+    verts, tris = bumpy_grid(n=20, size=8.0, amp=0.4)
+    jmesh, tmesh = _both_meshes(verts, tris)
+    rng = np.random.default_rng(21)
+    centers = rng.uniform([-3.5, -0.2, -3.5], [3.5, 0.6, 3.5],
+                          size=(9, 3)).astype(np.float32)
+    radii = rng.uniform(0.3, 0.7, size=9).astype(np.float32)
+    ref = jax.vmap(lambda c, r: jax_tm.sphere_mesh_contacts(
+        c, r, jmesh, k=4, use_pallas=True))(jnp.asarray(centers),
+                                            jnp.asarray(radii))
+    got = tm.sphere_mesh_contacts(_t(centers), _t(radii), tmesh, k=4)
+    rv = np.asarray(ref[3])
+    assert np.array_equal(got[3].numpy(), rv) and rv.sum() >= 9
+    for r, g in zip(ref[:3], got[:3]):
+        np.testing.assert_allclose(g.numpy()[rv], np.asarray(r)[rv],
+                                   atol=GEOM_ATOL, rtol=0)
+    for i in range(9):
+        one = tm.sphere_mesh_contacts(_t(centers[i]), float(radii[i]), tmesh,
+                                      k=4)
+        for g, b in zip(one, got):
+            assert torch.equal(g, b[i])
 
 
 def _random_box_tri(count, seed):
