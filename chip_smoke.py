@@ -79,7 +79,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. ``PhysicsEnv`` with ``trimesh=``: 64 settled worlds of phase 6 for 2
     control steps with seeded actions on two spheres; finite, overflow 0,
     the tile kernel and the compaction once per substep.
-11. prints one JSON line of every kernel the run launched, then the last
+11. every narrowphase pipeline, card against CPU: ``mini_stack_world`` in 4
+    worlds, settled 48 substeps on the CPU, then 8 substeps on each device
+    (atol 1e-4, tick and overflow exact) through the classic pipeline
+    (``EngineConfig()``), the classic pipeline with exact box clipping, the
+    row-major typed path, sweep-and-prune, the dense pipeline and the
+    throughput policy with capsules and planes; and a PLANE body under
+    boxes, spheres and capsules on the component-major path at K=8. The
+    dense pipeline's peak memory is printed beside the estimate that
+    ``make_batched_step_fn`` refuses batches by.
+12. the capsule-stack path at full width: BASELINE config 2 through the
+    classic pipeline as ``tests/test_physics.py:222-238`` runs it
+    (``EngineConfig(max_bodies=68, max_pair_candidates=192,
+    max_contacts=192)``, defaults otherwise: JACOBI 20 sweeps, K=8,
+    capsules and planes), ``capsule_stack_world(num_bodies=64, seed=7)``:
+    one world settled 480 substeps on the card (the bodies fall 20-50 m),
+    replicated into 8192 worlds, one warm-up launch of 24 substeps and 3
+    timed launches of 48; zero overflow, finite state, no body under the
+    floor; prints body-steps/s, ms/substep and peak memory. The JAX
+    classic pipeline reaches no Pallas kernel, so this path launches none
+    of the hand kernels (counted, and required to be 0).
+13. the mini-stack path at full width: ``benchmarks/
+    tpu_default_conformance.py``'s engine and scene
+    (``EngineConfig.throughput(max_bodies=16, max_pair_candidates=128,
+    max_contacts=256)``: 9 buckets, 2,432 payload rows, bf16 selectors) on
+    ``mini_stack_world`` in 8192 worlds, one warm-up launch of 96 substeps
+    and 3 timed ones; zero overflow, finite state, ``compact_rows_t`` once
+    per substep; then the compaction kernel held exactly to its plain
+    version on this path's own mask (k=256), with its floors.
+14. prints one JSON line of every kernel the run launched, then the last
     line ``{"ok": true, "device": {...}}``.
 
 The bench configuration is ``core.config.bench_config(64)``: the values
@@ -126,6 +154,19 @@ ROLLOUT_RAYS = 16
 ROLLOUT_SUBSTEPS = 2
 ROLLOUT_HORIZON = 16
 ROLLOUT_TIMED = 4
+# the capsule-stack path: BASELINE config 2 through the classic pipeline
+CAPSULE_WORLDS = 8192
+CAPSULE_BODIES = 64              # capsule_stack_world: 63 boxes/spheres + capsule
+CAPSULE_SETTLE = 480             # one world, through the fall onto the pile
+CAPSULE_WARMUP = 24
+CAPSULE_SUBSTEPS_PER_LAUNCH = 48
+CAPSULE_TIMED_LAUNCHES = 3
+# the mini-stack path: benchmarks/tpu_default_conformance.py's engine/scene
+MINI_WORLDS = 8192
+MINI_SUBSTEPS_PER_LAUNCH = 96
+MINI_TIMED_LAUNCHES = 3
+# the pipelines compared card against CPU on mini_stack_world
+STACK = dict(max_bodies=12, max_pair_candidates=64, max_contacts=128)
 # FP32 operations per (probe, triangle) pair, counted from the reference
 # arithmetic (rl_ode_physics_tpu/ops/pallas_kernels.py:89-105 with
 # trimesh._tri_vw), not from what csrc/sphere_mesh_d2.cu executes: 78 for the
@@ -265,7 +306,8 @@ def phase_kernels():
 def _card_matches_cpu(config, world, mesh, settle, label):
     """4 worlds settled ``settle`` substeps on the CPU, then 8 substeps on
     each device: pos/quat/linvel/angvel at atol 1e-4, tick and overflow
-    exact. ``mesh``: the scene's static mesh on the CPU, or None."""
+    exact. ``mesh``: the scene's static mesh on the CPU, or None. Returns
+    the card's peak memory over its 8 substeps, in GB."""
     import torch
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
@@ -275,11 +317,15 @@ def _card_matches_cpu(config, world, mesh, settle, label):
                                                          device="cpu"))
     cpu = make_batched_step_fn(config, substeps=8, device="cpu",
                                trimesh=mesh)(start)
+    on_card = _to(start, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     card = make_batched_step_fn(
         config, substeps=8, device="cuda",
-        trimesh=None if mesh is None else mesh.to("cuda"))(
-            _to(start, "cuda"))
+        trimesh=None if mesh is None else mesh.to("cuda"))(on_card)
     torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     worst = {}
     for name in ("pos", "quat", "linvel", "angvel"):
         diff = (getattr(card, name).cpu() - getattr(cpu, name)).abs().max()
@@ -294,6 +340,7 @@ def _card_matches_cpu(config, world, mesh, settle, label):
     log(f"{label}: card step vs CPU step (4 worlds, {settle} "
         f"settling + 8 substeps): max abs diff {worst}, tick "
         f"{cpu.tick.tolist()}, overflow {cpu.overflow.tolist()}")
+    return peak_gb
 
 
 def phase_card_vs_cpu(config):
@@ -967,7 +1014,219 @@ def phase_env_on_mesh(config, verts, tris, batch, mesh):
     return launches, lambda: env.step(state, actions[0])
 
 
+def pipeline_configs():
+    """The step's narrowphase pipelines, at mini_stack_world's size."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    base = EngineConfig(**STACK)
+    return {
+        "classic (EngineConfig())": base,
+        "classic, exact box clip": base.replace(exact_box_clip=True),
+        "typed row-major (cm_narrowphase=False)": base.replace(
+            typed_buckets=True, cm_narrowphase=False),
+        "typed sweep-and-prune (sap_window=6)": base.replace(
+            typed_buckets=True, sap_window=6, sap_broad=2),
+        "dense pipeline": base.replace(dense_pipeline=True),
+        "throughput policy with capsules and planes":
+            EngineConfig.throughput(**STACK),
+    }
+
+
+def plane_world(config, device):
+    """A kinematic PLANE body under boxes, spheres and capsules (the scene
+    of ``tests/test_narrowphase_cm.py:144-156``)."""
+    import numpy as np
+    from rl_ode_physics_tpu_torch.core.state import BodyType
+    from rl_ode_physics_tpu_torch.models.builder import WorldBuilder
+
+    b = WorldBuilder(config, 0)
+    b.add_body(BodyType.PLANE, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0),
+               kinematic=True)
+    rng = np.random.default_rng(7)
+    for i in range(8):
+        kind = (BodyType.BOX, BodyType.SPHERE, BodyType.CAPSULE)[i % 3]
+        size = ((0.4, 0.5, 0.6) if kind == BodyType.BOX
+                else (0.3, 0.8, 0.0) if kind == BodyType.CAPSULE
+                else (0.3, 0.0, 0.0))
+        b.add_body(kind, (float(rng.uniform(-1, 1)), 0.1 + 0.3 * i,
+                          float(rng.uniform(-1, 1))), size)
+    return b.finish(device)
+
+
+def phase_pipelines_card_vs_cpu():
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models.scenes import mini_stack_world
+    from rl_ode_physics_tpu_torch.parallel.batch import dense_pipeline_bytes
+
+    for label, config in pipeline_configs().items():
+        peak_gb = _card_matches_cpu(
+            config, mini_stack_world(config, device="cpu"), None, 48,
+            f"mini stack, {label}")
+        if config.dense_pipeline:
+            log(f"dense pipeline at 4 worlds x {config.max_bodies} slots, "
+                f"K={config.max_contacts_per_pair}: peak {peak_gb:.6f} GB "
+                f"on the card over its 8 substeps; the estimate the batch "
+                f"step refuses by: "
+                f"{dense_pipeline_bytes(config, 4) / 1e9:.6f} GB")
+    config = EngineConfig(max_bodies=16, max_pair_candidates=64,
+                          max_contacts=128, typed_buckets=True,
+                          max_contacts_per_pair=8)
+    _card_matches_cpu(config, plane_world(config, "cpu"), None, 24,
+                      "plane scene, component-major K=8")
+
+
+def capsule_config():
+    """BASELINE config 2 as ``tests/test_physics.py:222-238`` runs it: the
+    classic pipeline at ``EngineConfig``'s defaults, capacities 1.5x the
+    peaks the JAX package reaches on this scene (PERF.md)."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    return EngineConfig(max_bodies=68, max_pair_candidates=192,
+                        max_contacts=192)
+
+
+def _hand_kernels():
+    from rl_ode_physics_tpu_torch.ops import compaction_kernel, mesh_kernels
+    return (compaction_kernel.compact_rows_t,
+            mesh_kernels.sphere_mesh_d2_tiles, mesh_kernels.sphere_mesh_d2)
+
+
+def _check_batch(batch, label, tick):
+    import torch
+    overflow = int(batch.overflow.sum())
+    if overflow:
+        raise AssertionError(f"{label}: capacity overflow {overflow}, at "
+                             f"most {int(batch.overflow.max())} in a world")
+    for name in ("pos", "quat", "linvel", "angvel"):
+        if not bool(torch.isfinite(getattr(batch, name)).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    if not bool((batch.tick == tick).all()):
+        raise AssertionError(f"{label}: tick {batch.tick.unique().tolist()} "
+                             f"!= {tick}")
+
+
+def phase_capsule_main_path(config, card):
+    import torch
+    from rl_ode_physics_tpu_torch.models.scenes import capsule_stack_world
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, replicate)
+
+    world = capsule_stack_world(config, num_bodies=CAPSULE_BODIES, seed=7,
+                                device="cuda")
+    t0 = time.perf_counter()
+    world = make_batched_step_fn(config, substeps=CAPSULE_SETTLE,
+                                 device="cuda")(world)
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    batch = replicate(world, CAPSULE_WORLDS, device="cuda")
+    warm = make_batched_step_fn(config, substeps=CAPSULE_WARMUP,
+                                device="cuda")
+    step = make_batched_step_fn(config, substeps=CAPSULE_SUBSTEPS_PER_LAUNCH,
+                                device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _hand_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    batch = warm(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(CAPSULE_TIMED_LAUNCHES):
+        batch = step(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+
+    timed_substeps = CAPSULE_SUBSTEPS_PER_LAUNCH * CAPSULE_TIMED_LAUNCHES
+    total = CAPSULE_SETTLE + CAPSULE_WARMUP + timed_substeps
+    _check_batch(batch, "capsule-stack path", total)
+    moving = (world.inv_mass[0] > 0)
+    ys = batch.pos[:, moving, 1]
+    if not (float(ys.min()) > -2.0 and float(ys.max()) < 20.0):
+        raise AssertionError(f"capsule-stack path: bodies between y="
+                             f"{float(ys.min())} and {float(ys.max())}")
+    if any(launches.values()):
+        raise AssertionError(f"capsule-stack path launched hand kernels: "
+                             f"{launches}")
+    dynamic = int(moving.sum())
+    rate = CAPSULE_WORLDS * dynamic * timed_substeps / secs
+    fastest = float(batch.linvel[:, moving].norm(dim=-1).max())
+    k = config.max_contacts_per_pair
+    log(f"capsule-stack path (classic pipeline, K={k}, "
+        f"{config.solver_iterations} Jacobi sweeps): one world settled "
+        f"{CAPSULE_SETTLE} substeps in {settle_s:.3f} s, then "
+        f"{CAPSULE_WORLDS} worlds x {dynamic} dynamic bodies (of "
+        f"{config.max_bodies} slots), {timed_substeps} substeps in "
+        f"{secs:.3f} s ({secs / timed_substeps * 1e3:.3f} ms/substep; "
+        f"warm-up launch of {CAPSULE_WARMUP} substeps {warm_s:.3f} s): "
+        f"{rate:.1f} body-steps/s on {card}; overflow 0, tick {total}, "
+        f"bodies between y={float(ys.min()):.3f} and {float(ys.max()):.3f}, "
+        f"fastest {fastest:.3f} m/s, peak memory {peak_gb:.3f} GB; hand "
+        f"kernel launches {launches} (the classic pipeline has none)")
+    if peak_gb > 40.0:
+        raise AssertionError(f"capsule-stack path: peak {peak_gb:.1f} GB, "
+                             f"step it in world chunks")
+
+
+def mini_config():
+    """``benchmarks/tpu_default_conformance.py:49-53``'s engine."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    return EngineConfig.throughput(max_bodies=16, max_pair_candidates=128,
+                                   max_contacts=256)
+
+
+def phase_mini_main_path(config, card):
+    import torch
+    from rl_ode_physics_tpu_torch.models.scenes import mini_stack_world
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, replicate)
+
+    world = mini_stack_world(config, device="cuda")
+    batch = replicate(world, MINI_WORLDS, device="cuda")
+    step = make_batched_step_fn(config, substeps=MINI_SUBSTEPS_PER_LAUNCH,
+                                device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _hand_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    batch = step(batch)                                  # warm-up launch
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(MINI_TIMED_LAUNCHES):
+        batch = step(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+
+    timed_substeps = MINI_SUBSTEPS_PER_LAUNCH * MINI_TIMED_LAUNCHES
+    total = timed_substeps + MINI_SUBSTEPS_PER_LAUNCH
+    _check_batch(batch, "mini-stack path", total)
+    dynamic = int((world.inv_mass > 0).sum())
+    rate = MINI_WORLDS * dynamic * timed_substeps / secs
+    rows = sum(config.bucket_capacity(*pair) * min(
+        k, config.max_contacts_per_pair) for pair, k in (
+        ((1, 1), 1), ((1, 2), 1), ((1, 3), 1), ((1, 4), 1), ((2, 2), 8),
+        ((2, 3), 3), ((2, 4), 8), ((3, 3), 2), ((3, 4), 2)))
+    log(f"mini-stack path (throughput policy, typed component-major, "
+        f"{rows} payload rows): {MINI_WORLDS} worlds x {dynamic} dynamic "
+        f"bodies (of {config.max_bodies} slots), {timed_substeps} substeps "
+        f"in {secs:.3f} s ({secs / timed_substeps * 1e3:.3f} ms/substep; "
+        f"warm-up launch {warm_s:.3f} s): {rate:.1f} body-steps/s on {card}; "
+        f"overflow 0, tick {total}, peak memory {peak_gb:.3f} GB, hand "
+        f"kernel launches {launches}")
+    want = {"compact_rows_t": total, "sphere_mesh_d2_tiles": 0,
+            "sphere_mesh_d2": 0}
+    if launches != want:
+        raise AssertionError(f"mini-stack path launches {launches}, "
+                             f"expected {want}")
+    return {"compact_rows_t": total}, batch
+
+
 def main() -> int:
+    start = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1013,6 +1272,16 @@ def main() -> int:
     tiles["on_env_on_mesh_data"] = tiles_on_path_data(
         control_step, "env-on-a-mesh", ROLLOUT_SUBSTEPS)
     del batch, control_step
+
+    phase_pipelines_card_vs_cpu()
+    phase_capsule_main_path(capsule_config(), card)
+    torch.cuda.empty_cache()
+    ncfg = mini_config()
+    by_path["mini_stack"], batch = phase_mini_main_path(ncfg, card)
+    compaction["on_mini_stack_path_data"] = compaction_on_path_data(
+        lambda: make_batched_step_fn(ncfg, substeps=1, device="cuda")(batch),
+        "mini-stack", 1)
+    del batch
     for entry in kernels:
         counts = {path: got[entry["name"]] for path, got in by_path.items()
                   if entry["name"] in got}
@@ -1024,6 +1293,8 @@ def main() -> int:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(entry[key]):
                 raise AssertionError(f"{entry['name']}: {key} not finite")
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,31 +1,34 @@
 """Component-major typed-bucket narrowphase.
 
-The port of ``rl_ode_physics_tpu/ops/narrowphase_cm.py`` for the sphere and
-box buckets (``:53-198``, ``:327-630``, ``:779-1014``). A "vec" is a tuple
-``(x, y, z)`` of same-shape tensors; here every plane is ``(B, P)``: worlds
-by pairs. The pair kernels are the JAX package's formulas written in the
-same order, so on the CPU they agree with it to the last bit wherever the
-two libraries' elementwise operations do.
+The port of ``rl_ode_physics_tpu/ops/narrowphase_cm.py``. A "vec" is a
+tuple ``(x, y, z)`` of same-shape tensors; here every plane is ``(B, P)``:
+worlds by pairs. The pair kernels are the JAX package's formulas written in
+the same order, so on the CPU they agree with it to the last bit wherever
+the two libraries' elementwise operations do.
 
-The pipeline per substep: pair eligibility, one compacted candidate list
-per pair type, the type's pair kernel at its manifold size (box-box folds
-8 slots to 4), slot-major emission into a ``(B, 10, M)`` payload with any
-mesh rows (``extra``) appended, and the contact compaction into
-``(B, 10, C)`` rows. On a CUDA tensor the
-compaction is the hand-written kernel (``ops/compaction_kernel.py``),
-whatever ``pallas_compaction`` says; on a CPU tensor it is its plain
-version (``ops/compaction.py``).
+The pipeline per substep: the pair phase (dense eligibility over the
+(N, N) grid, or the windowed sweep-and-prune of ``sap_window``), one
+compacted candidate list per pair type, the type's pair kernel at its
+manifold size (box-box and box-plane fold 8 slots to 4 at K=4), slot-major
+emission into a ``(B, 10, M)`` payload with any mesh rows (``extra``)
+appended, and the contact compaction into ``(B, 10, C)`` rows. On a CUDA
+tensor the compaction is the hand-written kernel
+(``ops/compaction_kernel.py``), whatever ``pallas_compaction`` says; on a
+CPU tensor it is its plain version (``ops/compaction.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rl_ode_physics_tpu_torch.core.config import EngineConfig, jnp_dtype_is_bf16
+from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import BodyType, WorldState
-from rl_ode_physics_tpu_torch.ops import compaction, compaction_kernel
+from rl_ode_physics_tpu_torch.ops import compaction
+from rl_ode_physics_tpu_torch.ops.broadphase import compute_aabbs
+from rl_ode_physics_tpu_torch.ops.compaction import top_k_indices
 from rl_ode_physics_tpu_torch.ops.narrowphase import (
-    Contacts, _KERNEL_K, _enabled_kernels, _pair_eligibility)
+    _KERNEL_K, _bucket_pairs, _check_key_space, _compact_typed,
+    _enabled_kernels, _pair_eligibility, _selector_dtype)
 
 _EPS = 1e-9
 
@@ -178,6 +181,51 @@ def cm_sphere_box(pa, qa, sa, pb, qb, sb):
     return [(point, n, depth, depth > 0.0)]
 
 
+def _plane_params(p, q):
+    """World normal (local +Z = col2) and offset d (n·x = d)."""
+    _, _, c2 = quat_cols(*q)
+    return c2, vdot(c2, p)
+
+
+def cm_sphere_plane(pa, qa, sa, pb, qb, sb):
+    n_p, d_p = _plane_params(pb, qb)
+    h = vdot(n_p, pa) - d_p
+    depth = sa[0] - h
+    point = vsub(pa, vscale(n_p, h))
+    return [(point, vneg(n_p), depth, depth > 0.0)]
+
+
+_BOX_SIGNS = [(sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
+              for sz in (-1.0, 1.0)]   # slot order of narrowphase._BOX_CORNERS
+
+
+def cm_box_plane(pa, qa, sa, pb, qb, sb):
+    """8 corner slots; the fold to 4 (antipodal pairing [7, 6, 5, 4])
+    happens in the packer at K=4."""
+    n_p, d_p = _plane_params(pb, qb)
+    cols_a = quat_cols(*qa)
+    half = vscale(sa, 0.5)
+    out = []
+    for (sx, sy, sz) in _BOX_SIGNS:
+        local = (half[0] * sx, half[1] * sy, half[2] * sz)
+        corner = vadd(pa, rot_apply(cols_a, local))
+        depth = d_p - vdot(corner, n_p)
+        out.append((corner, vneg(n_p), depth, depth > 0.0))
+    return out
+
+
+def _segment_endpoints(p, q, length):
+    _, _, axis = quat_cols(*q)
+    h = 0.5 * length
+    return vsub(p, vscale(axis, h)), vadd(p, vscale(axis, h)), axis
+
+
+def _closest_on_segment(a0, a1, p):
+    d = vsub(a1, a0)
+    t = vdot(vsub(p, a0), d) / torch.clamp_min(vdot(d, d), _EPS)
+    return vadd(a0, vscale(d, torch.clamp(t, 0.0, 1.0)))
+
+
 def _segment_segment(p0, p1, q0, q1):
     """Branch-free closest points of two segments."""
     d1 = vsub(p1, p0)
@@ -196,6 +244,66 @@ def _segment_segment(p0, p1, q0, q1):
     t_cl = torch.clamp(t, 0.0, 1.0)
     s = torch.clamp((b * t_cl - c) / torch.clamp_min(a, _EPS), 0.0, 1.0)
     return vadd(p0, vscale(d1, s)), vadd(q0, vscale(d2, t_cl))
+
+
+def cm_sphere_capsule(pa, qa, sa, pb, qb, sb):
+    b0, b1, _ = _segment_endpoints(pb, qb, sb[1])
+    closest = _closest_on_segment(b0, b1, pa)
+    return cm_sphere_sphere(pa, qa, sa, closest, qb, sb)
+
+
+def cm_capsule_capsule(pa, qa, sa, pb, qb, sb):
+    """Closest point, plus a second contact for near-parallel side-by-side
+    capsules."""
+    a0, a1, ax_a = _segment_endpoints(pa, qa, sa[1])
+    b0, b1, ax_b = _segment_endpoints(pb, qb, sb[1])
+    ca, cb = _segment_segment(a0, a1, b0, b1)
+    (slot0,) = cm_sphere_sphere(ca, qa, sa, cb, qb, sb)
+
+    parallel = torch.abs(vdot(ax_a, ax_b)) > 0.999
+    far_a = vwhere(vnormsq(vsub(ca, a0)) > vnormsq(vsub(ca, a1)), a0, a1)
+    cb2 = _closest_on_segment(b0, b1, far_a)
+    ca2 = _closest_on_segment(a0, a1, cb2)
+    p1, n1, d1, v1 = cm_sphere_sphere(ca2, qa, sa, cb2, qb, sb)[0]
+    distinct = vnormsq(vsub(ca2, ca)) > 1e-8
+    return [slot0, (p1, n1, d1, v1 & parallel & distinct)]
+
+
+def cm_capsule_plane(pa, qa, sa, pb, qb, sb):
+    n_p, d_p = _plane_params(pb, qb)
+    a0, a1, _ = _segment_endpoints(pa, qa, sa[1])
+    r = sa[0]
+    out = []
+    for e in (a0, a1):
+        h = vdot(n_p, e) - d_p
+        depth = r - h
+        out.append((vsub(e, vscale(n_p, h)), vneg(n_p), depth, depth > 0.0))
+    return out
+
+
+def cm_capsule_box(pa, qa, sa, pb, qb, sb):
+    """Endpoint cap spheres and the closest segment point, the mid probe
+    dropped where it is an endpoint."""
+    cols_b = quat_cols(*qb)
+    half = vscale(sb, 0.5)
+    r = sa[0]
+    a0, a1, _ = _segment_endpoints(pa, qa, sa[1])
+    mid = _closest_on_segment(a0, a1, pb)
+
+    out = []
+    for probe in (a0, a1, mid):
+        point, n, depth = cm_sphere_box_core(probe, r, pb, cols_b, half)
+        out.append((point, n, depth, depth > 0.0))
+    dup = (vnorm(vsub(mid, a0)) < 1e-6) | (vnorm(vsub(mid, a1)) < 1e-6)
+    p2, n2, d2, v2 = out[2]
+    return out[:2] + [(p2, n2, d2, v2 & ~dup)]
+
+
+def cm_box_capsule(pa, qa, sa, pb, qb, sb):
+    """BOX < CAPSULE canonical order: capsule-box swapped, normals
+    flipped."""
+    slots = cm_capsule_box(pb, qb, sb, pa, qa, sa)
+    return [(p, vneg(n), d, v) for (p, n, d, v) in slots]
 
 
 def cm_box_box(pa, qa, sa, pb, qb, sb):
@@ -443,16 +551,25 @@ def cm_box_box(pa, qa, sa, pb, qb, sb):
 # ---------------------------------------------------------------------------
 
 _SPHERE, _BOX = int(BodyType.SPHERE), int(BodyType.BOX)
+_CAPSULE, _PLANE = int(BodyType.CAPSULE), int(BodyType.PLANE)
 
 _CM_KERNELS = {
     (_SPHERE, _SPHERE): cm_sphere_sphere,
     (_SPHERE, _BOX): cm_sphere_box,
+    (_SPHERE, _CAPSULE): cm_sphere_capsule,
+    (_SPHERE, _PLANE): cm_sphere_plane,
     (_BOX, _BOX): cm_box_box,
+    (_BOX, _CAPSULE): cm_box_capsule,
+    (_BOX, _PLANE): cm_box_plane,
+    (_CAPSULE, _CAPSULE): cm_capsule_capsule,
+    (_CAPSULE, _PLANE): cm_capsule_plane,
 }
 
-# 8-slot manifolds fold to 4 with these pairings
+# 8-slot manifolds fold to 4 with these pairings (the row-major
+# _fold_manifold call sites')
 _FOLD_PAIRING = {
     (_BOX, _BOX): [4, 5, 6, 7],
+    (_BOX, _PLANE): [7, 6, 5, 4],
 }
 
 
@@ -492,32 +609,130 @@ def supports_cm(config: EngineConfig) -> bool:
 # The component-major typed-bucket narrowphase
 # ---------------------------------------------------------------------------
 
-def _bucket_pairs(mask: torch.Tensor, cap: int):
-    """The first ``cap`` set entries of each world's (N, N) pair mask in
-    row-major order, as (ia, ib, bvalid, total): the pairs the JAX package's
-    closed-form bucket compaction selects, found by a rank-scatter of the
-    flat pair index."""
-    b, n, _ = mask.shape
-    flat = mask.reshape(b, n * n)
-    csum = torch.cumsum(flat.to(torch.int32), dim=1, dtype=torch.int32)
-    total = csum[:, -1]
-    dest = torch.where(flat & (csum <= cap), csum - 1, cap).to(torch.int64)
-    src = torch.arange(n * n, device=mask.device).expand(b, n * n)
-    idx = torch.zeros((b, cap + 1), dtype=torch.int64, device=mask.device)
-    idx.scatter_(1, dest, src)
-    idx = idx[:, :cap]
-    bvalid = (torch.arange(cap, device=mask.device)[None, :]
-              < torch.clamp_max(total, cap)[:, None])
-    ia = torch.where(bvalid, idx // n, 0)
-    ib = torch.where(bvalid, idx % n, 0)
-    return ia, ib, bvalid, total
+def _sap_pair_masks(state: WorldState, config: EngineConfig, exclude=None):
+    """Windowed sweep-and-prune pair phase (``config.sap_window``).
+
+    The ``sap_broad`` eligible bodies of largest x-extent (the arena floor
+    and walls, which x-overlap everything) leave the sort and pair densely;
+    every other body sorts by AABB x-min (broad, inactive and trimesh slots
+    key to +inf and sort last) and pairs only with the next W bodies in
+    sorted order. Per world the mask is (N + Bb, W + Bb): rows 0..N-1 the
+    sorted bodies, rows N.. the broad ones (live only in the broad-broad
+    block, l < k); columns 0..W-1 the window offsets (pair (i, i+1+w)),
+    columns W.. the broad bodies.
+
+    Returns (feat_perm (B, N + Bb) mask row or feature column → slot id,
+    hit, tmin, tmax (B, N + Bb, W + Bb), sap_overflow (B,) int32: the
+    x-overlapping pairs past the window, counted whatever the other tests
+    would have said). The category/collide masks stay int64 and are
+    tested with ``&`` as they are: no bit of them passes through a float.
+    """
+    nw, n = state.num_worlds, state.num_slots
+    w_cap, b_cap = int(config.sap_window), int(config.sap_broad)
+    dev = state.device
+    aabb = compute_aabbs(state)
+    lo, hi = aabb[..., 0, :], aabb[..., 1, :]
+    eligible = state.active & (state.body_type != int(BodyType.TRIMESH))
+
+    # broad selection: the top-Bb x-extents among eligible bodies
+    extent = torch.where(eligible, hi[..., 0] - lo[..., 0], -torch.inf)
+    broad_idx = top_k_indices(extent, b_cap)                 # (B, Bb)
+    is_broad = torch.zeros((nw, n), dtype=torch.bool, device=dev)
+    is_broad.scatter_(1, broad_idx, True)
+    is_broad = is_broad & eligible
+
+    sortable = eligible & ~is_broad
+    keys = torch.where(sortable, lo[..., 0], torch.inf)
+    keys_s, perm = torch.sort(keys, dim=1, stable=True)
+    feat_perm = torch.cat([perm, broad_idx], 1)              # (B, N + Bb)
+
+    def permuted(x):
+        if x.dim() == 3:
+            return torch.gather(x, 1, feat_perm[..., None].expand(
+                -1, -1, x.shape[-1]))
+        return torch.gather(x, 1, feat_perm)
+
+    lo_f, hi_f = permuted(lo), permuted(hi)
+    cat_f, col_f = permuted(state.category), permuted(state.collide)
+    movable_f = permuted(state.inv_mass > 0)
+    t_f = permuted(state.body_type)
+    act_f = torch.cat([torch.gather(sortable, 1, perm),
+                       torch.gather(eligible, 1, broad_idx)], 1)
+
+    # window block: column w of row i is sorted row i + 1 + w; rows past N
+    # read W zero rows of padding, as the JAX band slices do
+    def band(x):
+        pad = torch.zeros((nw, w_cap) + x.shape[2:], dtype=x.dtype, device=dev)
+        xp = torch.cat([x[:, :n], pad], 1)
+        j = (torch.arange(n, device=dev)[:, None] + 1
+             + torch.arange(w_cap, device=dev)[None, :])     # (N, W)
+        return xp[:, j]                                      # (B, N, W, ...)
+
+    lo_jw, hi_jw = band(lo_f), band(hi_f)
+    cat_jw, col_jw, t_jw = band(cat_f), band(col_f), band(t_f)
+    act_jw, mov_jw = band(act_f), band(movable_f)
+    i_n = torch.arange(n, device=dev)
+    win_ok = (i_n[:, None] + 1 + torch.arange(w_cap, device=dev)[None, :]) < n
+    overlap_w = torch.all((lo_f[:, :n, None, :] <= hi_jw)
+                          & (lo_jw <= hi_f[:, :n, None, :]), dim=-1)
+    cat_i, col_i = cat_f[:, :n, None], col_f[:, :n, None]
+    mask_ok_w = ((cat_i & col_jw) != 0) | ((cat_jw & col_i) != 0)
+    hit_w = (overlap_w & mask_ok_w & win_ok
+             & (act_f[:, :n, None] & act_jw)
+             & (movable_f[:, :n, None] | mov_jw))
+    t_n = t_f[:, :n, None]
+    tmin_w, tmax_w = torch.minimum(t_n, t_jw), torch.maximum(t_n, t_jw)
+
+    # broad columns: the Bb appended features against every row
+    i_idx = torch.arange(n + b_cap, device=dev)
+    bb_ok = ((i_idx[:, None] >= n)
+             & ((n + torch.arange(b_cap, device=dev))[None, :]
+                > i_idx[:, None]))
+    pair_ok_b = (i_idx[:, None] < n) | bb_ok                # (N + Bb, Bb)
+    lo_b, hi_b = lo_f[:, n:], hi_f[:, n:]
+    overlap_b = torch.all((lo_f[:, :, None, :] <= hi_b[:, None])
+                          & (lo_b[:, None] <= hi_f[:, :, None, :]), dim=-1)
+    mask_ok_b = (((cat_f[:, :, None] & col_f[:, None, n:]) != 0)
+                 | ((cat_f[:, None, n:] & col_f[:, :, None]) != 0))
+    hit_b = (overlap_b & mask_ok_b & pair_ok_b
+             & (act_f[:, :, None] & act_f[:, None, n:])
+             & (movable_f[:, :, None] | movable_f[:, None, n:]))
+    tmin_b = torch.minimum(t_f[:, :, None], t_f[:, None, n:])
+    tmax_b = torch.maximum(t_f[:, :, None], t_f[:, None, n:])
+
+    if exclude is not None:
+        ex = exclude.expand(nw, n, n)
+        ex_p = torch.gather(ex, 1, feat_perm[..., None].expand(-1, -1, n))
+        ex_p = torch.gather(ex_p, 2, feat_perm[:, None, :].expand(
+            -1, n + b_cap, -1))                              # (B, N+Bb, N+Bb)
+        j = torch.clamp_max(i_n[:, None] + 1
+                            + torch.arange(w_cap, device=dev)[None, :], n - 1)
+        hit_w = hit_w & ~torch.gather(ex_p[:, :n, :n], 2,
+                                      j.expand(nw, n, w_cap))
+        hit_b = hit_b & ~ex_p[:, :, n:]
+
+    def stack(win, broad):
+        pad = torch.zeros((nw, b_cap, w_cap), dtype=win.dtype, device=dev)
+        return torch.cat([torch.cat([win, pad], 1), broad], 2)
+
+    hit = stack(hit_w, hit_b)
+    tmin, tmax = stack(tmin_w, tmin_b), stack(tmax_w, tmax_b)
+
+    # loud window-miss count: after the sort, the bodies whose x-min lies
+    # at or below row i's x-max follow row i contiguously
+    cnt = (torch.sum(keys_s[:, None, :] <= hi_f[:, :n, 0:1], dim=2)
+           - i_n - 1)
+    cnt = torch.where(torch.gather(sortable, 1, perm), cnt, 0)
+    sap_overflow = torch.sum(torch.clamp_min(cnt - w_cap, 0),
+                             dim=1).to(torch.int32)
+    return feat_perm, hit, tmin, tmax, sap_overflow
 
 
 def _gather_cols(feats_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, F, N) feature columns at (B, P) slot ids → (B, F, P)."""
+    """(B, F, N) feature columns at (B, P) indices → (B, F, P)."""
     f = feats_t.shape[1]
     return torch.gather(feats_t, 2,
-                        idx[:, None, :].expand(-1, f, -1))
+                        idx.to(torch.int64)[:, None, :].expand(-1, f, -1))
 
 
 def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
@@ -527,63 +742,61 @@ def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
     ``extra``: rows of another manifold source, the trimesh narrowphase's
     ``(points (B, R, 3), normals, depths (B, R), a (B, R), b (B, R),
     valid (B, R))``, appended after the bucket rows before the compaction.
-    The port runs the dense pair phase only (``sap_window=0``) and takes no
-    joint exclusions (``exclude``).
+    ``exclude``: (N, N) or (B, N, N) joint-connected pairs, never tested.
+    A config whose buckets need the row-major body (``supports_cm`` false)
+    raises: ``narrowphase.narrowphase_typed`` dispatches between the two.
     """
-    if config.sap_window:
-        raise NotImplementedError("sap_window is not ported (dense pairs only)")
-    if exclude is not None:
-        raise NotImplementedError("joint pair exclusion is not ported")
     if not supports_cm(config):
-        raise NotImplementedError(
-            "this config needs the row-major narrowphase, which is not ported")
-
+        raise ValueError("this config needs the row-major body of "
+                         "narrowphase.narrowphase_typed")
     n = state.num_slots
     nw = state.num_worlds
     dev = state.device
-    ccap = config.max_contacts
     k_glob = config.max_contacts_per_pair
     f = state.pos.dtype
-
-    if n * n * k_glob >= 2 ** 24:
-        raise ValueError(
-            f"contact-key space {n * n * k_glob} (max_bodies={n}, "
-            f"K={k_glob}) exceeds the f32 exact-integer range 2^24")
-    sel_bf16 = jnp_dtype_is_bf16(config.selector_dtype)
-    if not sel_bf16 and config.selector_dtype != "float32":
-        raise NotImplementedError(
-            f"selector_dtype={config.selector_dtype!r}: the port takes "
-            f"float32 or bfloat16")
-    if sel_bf16 and n > 256:
-        raise ValueError("selector_dtype='bfloat16' requires max_bodies <= 256")
+    _check_key_space(n, k_glob)
+    sel = _selector_dtype(config, n)
 
     # component-major feature table (B, 12, N): pos ‖ quat ‖ size ‖ type ‖
-    # slot id. With bf16 selectors the JAX package rounds it to bf16 before
-    # its one-hot gather matmuls; the gathers by index here are exact, so
-    # the rounding is the whole difference, reproduced explicitly.
+    # slot id. The JAX package rounds it to the selector dtype before its
+    # one-hot gather matmuls; the gathers by index here are exact, so the
+    # rounding is the whole difference, reproduced explicitly. The slot-id
+    # row gives SAP's sorted-space pairs their slots back.
     cols = torch.arange(n, device=dev, dtype=f).expand(nw, n)
     feats_t = torch.cat([
         state.pos.transpose(1, 2), state.quat.transpose(1, 2),
         state.size.transpose(1, 2),
         state.body_type.to(f)[:, None, :], cols[:, None, :],
     ], dim=1)
-    if sel_bf16:
-        feats_t = compaction.round_to(feats_t, torch.bfloat16)
+    if sel is not None:
+        feats_t = compaction.round_to(feats_t, sel)
 
-    hit, tmin, tmax = _pair_eligibility(state)
+    w_sap = int(config.sap_window)
+    if w_sap:
+        feat_perm, hit, tmin, tmax, sap_overflow = _sap_pair_masks(
+            state, config, exclude)
+        feats_t = _gather_cols(feats_t, feat_perm)           # (B, 12, N+Bb)
+    else:
+        hit, tmin, tmax = _pair_eligibility(state, exclude)
+        sap_overflow = 0
 
     row_parts = [[] for _ in range(10)]   # px py pz nx ny nz depth a b slot
     valid_parts = []
-    total_pairs = torch.zeros((nw,), dtype=torch.int32, device=dev)
-    pair_overflow = torch.zeros((nw,), dtype=torch.int32, device=dev)
+    total_pairs = pair_overflow = 0
     for (t1, t2) in _enabled_kernels(config):
         kernel = _CM_KERNELS[(t1, t2)]
         cp_b = config.bucket_capacity(t1, t2)
         k_b = min(_KERNEL_K[(t1, t2)], k_glob)
-        mask = hit & (tmin == t1) & (tmax == t2)
-        ia, ib, bvalid, total = _bucket_pairs(mask, cp_b)
-        total_pairs = total_pairs + torch.clamp_max(total, cp_b)
-        pair_overflow = pair_overflow + torch.clamp_min(total - cp_b, 0)
+        ia, ib, bvalid, count, over = _bucket_pairs(
+            hit & (tmin == t1) & (tmax == t2), cp_b)
+        total_pairs = total_pairs + count
+        pair_overflow = pair_overflow + over
+        if w_sap:
+            # window column w of sorted row i is sorted row i + 1 + w;
+            # broad column l is appended feature N + l
+            ib = torch.where(bvalid, torch.where(
+                ib < w_sap, torch.clamp_max(ia + 1 + ib, n - 1),
+                n + (ib - w_sap)), 0)
         fa = _gather_cols(feats_t, ia)               # (B, 12, cp_b)
         fb = _gather_cols(feats_t, ib)
 
@@ -617,8 +830,14 @@ def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
             slots = _fold_slots(slots, _FOLD_PAIRING[(t1, t2)])
         assert len(slots) == k_b, (t1, t2, len(slots), k_b)
 
-        ia_f = ia.to(f)
-        ib_f = ib.to(f)
+        if w_sap:
+            # sorted-space indices → slot ids, read from the permuted
+            # features' slot-id row (exact integers)
+            ia_f = torch.where(bvalid, fa[:, 11], 0.0)
+            ib_f = torch.where(bvalid, fb[:, 11], 0.0)
+        else:
+            ia_f = ia.to(f)
+            ib_f = ib.to(f)
         # slot-major emission: slot s of every pair is contiguous
         for s, (point, normal, depth, valid) in enumerate(slots):
             for comp in range(3):
@@ -632,35 +851,7 @@ def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
 
     packed_t = torch.stack([torch.cat(parts, dim=1) for parts in row_parts],
                            dim=1)                             # (B, 10, M)
-    flat_valid = torch.cat(valid_parts, dim=1)                # (B, M)
-
-    if extra is not None:
-        # mesh rows: slot −1 → key −1, excluded from warm-start matching
-        e_pts, e_nrm, e_dep, e_a, e_b, e_val = extra
-        e_packed_t = torch.cat([
-            e_pts.transpose(1, 2), e_nrm.transpose(1, 2), e_dep[:, None],
-            e_a.to(f)[:, None], e_b.to(f)[:, None],
-            torch.full_like(e_dep, -1.0)[:, None],
-        ], dim=1)                                             # (B, 10, R)
-        packed_t = torch.cat([packed_t, e_packed_t], dim=2)
-        flat_valid = torch.cat([flat_valid, e_val], dim=1)
-
-    c_sel = torch.bfloat16 if sel_bf16 else None
-    rows_t, cvalid, count, overflow = compaction_kernel.compact_rows_t(
-        flat_valid, packed_t, ccap, sel_dtype=c_sel)
-    a_out = rows_t[:, 7].to(torch.int32)
-    b_out = rows_t[:, 8].to(torch.int32)
-    slot_out = torch.round(rows_t[:, 9]).to(torch.int32)
-    key = torch.where(cvalid & (slot_out >= 0),
-                      (a_out * n + b_out) * k_glob + slot_out, -1)
-    return Contacts(
-        point=rows_t[:, 0:3].transpose(1, 2).contiguous(),
-        normal=rows_t[:, 3:6].transpose(1, 2).contiguous(),
-        depth=rows_t[:, 6].contiguous(),
-        a=a_out,
-        b=b_out,
-        valid=cvalid,
-        count=count,
-        overflow=overflow + pair_overflow,
-        key=key,
-    ), total_pairs
+    contacts = _compact_typed(packed_t, torch.cat(valid_parts, dim=1), extra,
+                              config, n, sel,
+                              pair_overflow + sap_overflow)
+    return contacts, total_pairs

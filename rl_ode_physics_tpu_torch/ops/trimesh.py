@@ -29,6 +29,7 @@ import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import BodyType, WorldState
+from rl_ode_physics_tpu_torch.ops.compaction import top_k_indices
 from rl_ode_physics_tpu_torch.ops.narrowphase_cm import (
     vadd, vdot, vnormsq, vscale, vsub)
 from rl_ode_physics_tpu_torch.utils import quat as quat_m
@@ -321,8 +322,7 @@ def sphere_mesh_d2_plain(centers, v0t, e1t, e2t, chunk: int = 2048):
 def _top_k_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k smallest entries along the last axis, the lower
     index first among ties: ``jax.lax.top_k(-x, k)``."""
-    return torch.sort(-x, dim=-1, descending=True, stable=True).indices[
-        ..., :k]
+    return top_k_indices(-x, k)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ import torch
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import U32_MASK, WorldState
 from rl_ode_physics_tpu_torch.core.world import make_step_fn
+from rl_ode_physics_tpu_torch.ops.dense import LIVE_PAIR_TENSORS
 
 
 def replicate(state: WorldState, num_worlds: int, reseed: bool = True,
@@ -50,6 +51,29 @@ def concat_worlds(parts) -> WorldState:
         for f in dataclasses.fields(WorldState)})
 
 
+def dense_pipeline_bytes(config: EngineConfig, worlds: int) -> int:
+    """What the dense pipeline's (worlds, N, N, K, 3) f32 intermediates
+    take at their peak, unpadded."""
+    n, k = config.max_bodies, config.max_contacts_per_pair
+    return LIVE_PAIR_TENSORS * worlds * n * n * k * 3 * 4
+
+
+def _check_dense_fits(config: EngineConfig, batch: WorldState,
+                      chunk: int) -> None:
+    """Refuse a dense-pipeline batch whose intermediates exceed the card's
+    free memory, naming a chunk that fits."""
+    per_chunk = chunk or batch.num_worlds
+    need = dense_pipeline_bytes(config, per_chunk)
+    free, _ = torch.cuda.mem_get_info(batch.device)
+    if need > free:
+        fits = max(1, per_chunk * free // need)
+        raise ValueError(
+            f"dense_pipeline at {per_chunk} worlds x {config.max_bodies} "
+            f"bodies needs ~{need / 1e9:.1f} GB of intermediates, "
+            f"{free / 1e9:.1f} GB are free on {batch.device}; use the sparse "
+            f"pipeline or chunk<={fits}")
+
+
 def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
                          chunk: int = 0, device="cuda", trimesh=None):
     """A function batch → batch that runs ``substeps`` substeps.
@@ -58,7 +82,8 @@ def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
     other, to bound peak device memory. The batch must lie on ``device``:
     the function raises rather than step it anywhere else. ``trimesh``: an
     optional static ``ops.trimesh.TriMesh`` on the same device, shared by
-    every world.
+    every world. On a card, a dense-pipeline batch whose intermediates
+    would not fit raises.
     """
     step_fn = make_step_fn(config, substeps, trimesh=trimesh)
     want = torch.device(device)
@@ -67,6 +92,8 @@ def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
         if batch.device.type != want.type:
             raise ValueError(f"batch on {batch.device}, step function made "
                              f"for {want}")
+        if config.dense_pipeline and trimesh is None and batch.pos.is_cuda:
+            _check_dense_fits(config, batch, chunk)
         if not chunk:
             return step_fn(batch)
         b_total = batch.num_worlds

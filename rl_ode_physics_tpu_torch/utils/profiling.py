@@ -5,19 +5,27 @@ Run on a machine with a CUDA card, from the root of the checkout::
     python3 -m rl_ode_physics_tpu_torch.utils.profiling [--worlds 8192]
     python3 -m rl_ode_physics_tpu_torch.utils.profiling --mesh [--worlds 1024]
     python3 -m rl_ode_physics_tpu_torch.utils.profiling --rollout
+    python3 -m rl_ode_physics_tpu_torch.utils.profiling --classic
+    python3 -m rl_ode_physics_tpu_torch.utils.profiling --mini
 
 The default builds the bench world (``bench_config(64)``, 60 dynamic
 bodies); ``--mesh`` builds the trimesh workload of ``chip_smoke.py``
 (``benchmarks/teapot_bench.py``'s 15 spheres above the 9,216-triangle
-heightfield that stands in for the teapot, taken from that script).
-Either is replicated into ``--worlds`` worlds and settled ``--settle``
-substeps; then one JSON object is printed with:
+heightfield that stands in for the teapot, taken from that script);
+``--classic`` the capsule-stack workload of ``chip_smoke.py`` (BASELINE
+config 2 through the classic pipeline, one world settled 480 substeps on
+the card first); ``--mini`` the mini-stack workload of ``chip_smoke.py``
+(``benchmarks/tpu_default_conformance.py``'s engine and scene: the typed
+component-major path with all nine pair kernels). Each is replicated into
+``--worlds`` worlds and settled
+``--settle`` substeps; then one JSON object is printed with:
 
 * ``phases``: each stage of the substep run alone on the settled state:
   host wall time (launch to synchronize) and the CUDA-event span on the
   stream, which includes the gaps where the card waits for the host; with
   ``--mesh`` the mesh narrowphase, and its tile sweep kernel, are stages of
-  their own;
+  their own; with ``--classic`` the broadphase, the nine pair kernels on
+  every candidate and the row compaction;
 * ``substep``: one whole substep under ``torch.profiler``: the wall time,
   the summed device time of its kernels, the device's idle share of the
   wall time, the number of kernel launches, and the kernels with the most
@@ -76,6 +84,36 @@ def _mesh_workload():
     config = mesh_config()
     world, mesh = mesh_world(config, *standin_mesh(), device="cuda")
     return config, world, mesh
+
+
+def _mini_workload():
+    """(config, one world): ``chip_smoke.py``'s mini-stack workload."""
+    root = str(Path(__file__).resolve().parents[2])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import mini_config
+
+    from rl_ode_physics_tpu_torch.models.scenes import mini_stack_world
+
+    config = mini_config()
+    return config, mini_stack_world(config, device="cuda")
+
+
+def _capsule_workload():
+    """(config, one world): ``chip_smoke.py``'s capsule-stack workload, its
+    one world settled on the card through the fall."""
+    root = str(Path(__file__).resolve().parents[2])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import CAPSULE_BODIES, CAPSULE_SETTLE, capsule_config
+
+    from rl_ode_physics_tpu_torch.models.scenes import capsule_stack_world
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+
+    config = capsule_config()
+    world = capsule_stack_world(config, num_bodies=CAPSULE_BODIES, seed=7,
+                                device="cuda")
+    return config, make_batched_step_fn(config, substeps=CAPSULE_SETTLE)(world)
 
 
 def _card() -> str:
@@ -165,20 +203,26 @@ def profile_rollout(worlds: int, settle: int, repeats: int, top: int) -> dict:
 
 
 def profile(worlds: int, settle: int, repeats: int, top: int,
-            mesh_path: bool = False) -> dict:
+            mesh_path: bool = False, classic: bool = False,
+            mini: bool = False) -> dict:
     import torch
 
     from rl_ode_physics_tpu_torch.core import world as world_m
     from rl_ode_physics_tpu_torch.core.config import bench_config
     from rl_ode_physics_tpu_torch.models.scenes import bench_world
     from rl_ode_physics_tpu_torch.ops import (
-        integrator, mesh_kernels, narrowphase_cm, solver, trimesh)
+        broadphase, integrator, mesh_kernels, narrowphase, narrowphase_cm,
+        solver, trimesh)
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
 
     card = _card()
     if mesh_path:
         config, world, mesh = _mesh_workload()
+    elif classic:
+        (config, world), mesh = _capsule_workload(), None
+    elif mini:
+        (config, world), mesh = _mini_workload(), None
     else:
         config, mesh = bench_config(64), None
         world = bench_world(config, device="cuda")
@@ -198,12 +242,23 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
             lambda: trimesh.mesh_narrowphase(batch, mesh, config))
         phases["sphere_mesh_d2_tiles kernel alone"] = (
             lambda: mesh_kernels.sphere_mesh_d2_tiles(probes, *tris))
-    contacts, _ = narrowphase_cm.narrowphase_typed_cm(batch, config, extra)
+    if classic:
+        cand = broadphase.broadphase(batch, config)
+        contacts = narrowphase.narrowphase(batch, cand, config)
+        phases.update({
+            "broadphase (pair mask, candidate compaction)":
+                lambda: broadphase.broadphase(batch, config),
+            "narrowphase (9 pair kernels on every candidate, compact_rows)":
+                lambda: narrowphase.narrowphase(batch, cand, config),
+        })
+    else:
+        contacts, _ = narrowphase_cm.narrowphase_typed_cm(batch, config,
+                                                          extra)
+        phases["narrowphase (eligibility, pair kernels, compaction)"] = (
+            lambda: narrowphase_cm.narrowphase_typed_cm(batch, config, extra))
     forced = integrator.apply_external_forces(batch, config)
     solved = solver.solve(forced, contacts, config)
     phases.update({
-        "narrowphase (eligibility, pair kernels, compaction)":
-            lambda: narrowphase_cm.narrowphase_typed_cm(batch, config, extra),
         "apply_external_forces":
             lambda: integrator.apply_external_forces(batch, config),
         "solve_jacobi": lambda: solver.solve(forced, contacts, config),
@@ -219,9 +274,13 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
     substep = _profiled(lambda: world_m.step(batch, config, mesh), top)
     return {
         "card": card,
-        "workload": "trimesh" if mesh is not None else "bench",
+        "workload": ("trimesh" if mesh is not None
+                     else "capsule-stack" if classic
+                     else "mini-stack" if mini else "bench"),
         "worlds": worlds,
         "settle_substeps": settle,
+        "overflow": int(batch.overflow.sum()),
+        "live_contacts_max": int(contacts.count.max()),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "phases": phase_ms,
         "substep": substep,
@@ -234,6 +293,10 @@ def main() -> None:
                     help="the trimesh workload instead of the bench's")
     ap.add_argument("--rollout", action="store_true",
                     help="a control step of the RL rollout workload")
+    ap.add_argument("--classic", action="store_true",
+                    help="the capsule-stack workload's classic substep")
+    ap.add_argument("--mini", action="store_true",
+                    help="the mini-stack workload's typed substep")
     ap.add_argument("--worlds", type=int, default=None,
                     help="default 8192, or 1024 with --mesh")
     ap.add_argument("--settle", type=int, default=96)
@@ -245,7 +308,7 @@ def main() -> None:
         result = profile_rollout(worlds, args.settle, args.repeats, args.top)
     else:
         result = profile(worlds, args.settle, args.repeats, args.top,
-                         args.mesh)
+                         args.mesh, args.classic, args.mini)
     print(json.dumps(result, indent=1))
 
 

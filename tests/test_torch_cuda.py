@@ -345,3 +345,46 @@ def test_mesh_kernel_wrappers_take_the_plain_version_on_cpu():
                                                               *tris))
     assert before == (mesh_kernels.sphere_mesh_d2_tiles.launches,
                       mesh_kernels.sphere_mesh_d2.launches)
+
+
+STACK = dict(max_bodies=12, max_pair_candidates=64, max_contacts=128)
+PIPELINES = {"classic": dict(), "classic-exact-clip": dict(exact_box_clip=True),
+             "typed-row-major": dict(typed_buckets=True, cm_narrowphase=False),
+             "typed-sap": dict(typed_buckets=True, sap_window=6, sap_broad=2),
+             "dense": dict(dense_pipeline=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PIPELINES))
+def test_card_pipeline_step_matches_cpu_step(name):
+    """``mini_stack_world`` (boxes, spheres, capsules) in 2 worlds through
+    each pipeline, settled 48 substeps on the CPU, then 8 substeps on each
+    device: atol 1e-4, tick and overflow exact."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models.scenes import mini_stack_world
+    config = EngineConfig(**STACK, **PIPELINES[name])
+    start = make_batched_step_fn(config, substeps=48, device="cpu")(
+        replicate(mini_stack_world(config, device="cpu"), 2, device="cpu"))
+    cpu = make_batched_step_fn(config, substeps=8, device="cpu")(start)
+    card_start = type(start)(**{k: v.cuda() for k, v in vars(start).items()})
+    card = make_batched_step_fn(config, substeps=8, device="cuda")(card_start)
+    for field in ("pos", "quat", "linvel", "angvel"):
+        diff = (getattr(card, field).cpu() - getattr(cpu, field)).abs().max()
+        assert float(diff) <= 1e-4, field
+    for field in ("tick", "overflow"):
+        assert torch.equal(getattr(card, field).cpu(), getattr(cpu, field))
+
+
+@pytest.mark.cuda
+def test_dense_batch_too_large_for_the_card_raises():
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models.scenes import mini_stack_world
+    config = EngineConfig(max_bodies=256, max_pair_candidates=64,
+                          max_contacts=128, dense_pipeline=True)
+    # 30 x 1024 x 256² x 8 x 12 bytes: 193 GB of intermediates
+    batch = replicate(mini_stack_world(config, device="cuda"), 1024,
+                      device="cuda")
+    with pytest.raises(ValueError, match="chunk"):
+        make_batched_step_fn(config, device="cuda")(batch)

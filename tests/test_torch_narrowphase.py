@@ -133,13 +133,17 @@ def test_narrowphase_typed_cm_overflow_matches():
     assert out["overflow"] > 0
 
 
-@pytest.mark.parametrize("override", [dict(sap_window=8),
-                                      dict(exact_box_clip=True),
-                                      dict(enable_capsules=True)])
+@pytest.mark.parametrize("override", [dict(exact_box_clip=True),
+                                      dict(max_contacts_per_pair=2),
+                                      dict(selector_dtype="int8")])
 def test_unported_options_raise(override):
+    """Options the component-major function does not take raise there:
+    the exact clip and a deepest-k manifold size need the row-major body
+    (``narrowphase.narrowphase_typed`` dispatches them), and selectors must
+    be of a floating-point dtype."""
     _, tcfg = configs(**override)
     _, tstate = _states()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         t_cm.narrowphase_typed_cm(tstate, tcfg)
 
 

@@ -18,6 +18,7 @@ import pytest
 from rl_ode_physics_tpu.core.state import WorldState as JaxWorldState
 from rl_ode_physics_tpu.parallel.batch import (
     make_batched_step_fn as jax_batched_step_fn, replicate as jax_replicate)
+from rl_ode_physics_tpu_torch.core.config import SolverKind
 from rl_ode_physics_tpu_torch.core.world import make_step_fn
 from rl_ode_physics_tpu_torch.parallel.batch import (
     make_batched_step_fn, replicate)
@@ -87,9 +88,14 @@ def test_step_fn_refuses_batch_on_other_device():
         fn(batch)
 
 
-@pytest.mark.parametrize("override", [dict(typed_buckets=False),
-                                      dict(cm_narrowphase=False)])
+@pytest.mark.parametrize("override", [dict(solver=SolverKind.PGS),
+                                      dict(solver_cm=True),
+                                      dict(solver=SolverKind.DANTZIG),
+                                      dict(solver_matmul_dtype="bfloat16")])
 def test_unported_pipelines_raise(override):
+    """Every narrowphase pipeline steps; what the port does not have yet
+    (the PGS and DANTZIG solvers, the component-major solver loop, bf16
+    solver products) raises when the step function is made."""
     _, tcfg = configs(**override)
     with pytest.raises(NotImplementedError):
         make_step_fn(tcfg)

@@ -46,6 +46,7 @@ from rl_ode_physics_tpu.ops import trimesh as jax_tm
 from rl_ode_physics_tpu.parallel.batch import replicate as jax_replicate
 from rl_ode_physics_tpu.utils import objloader as jax_obj
 from rl_ode_physics_tpu_torch.core.config import EngineConfig as TorchConfig
+from rl_ode_physics_tpu_torch.core.config import SolverKind
 from rl_ode_physics_tpu_torch.core.state import BodyType
 from rl_ode_physics_tpu_torch.models import builder as t_builder
 from rl_ode_physics_tpu_torch.models import scenes as t_scenes
@@ -700,12 +701,42 @@ def test_batched_mesh_step_matches_jax(sel, interpret_pallas):
 
 
 def test_mesh_step_with_capsules_raises():
+    """A capsule on the mesh steps now that its pair kernels are ported;
+    what still raises on that step is a solver the port lacks (PGS)."""
     _, tcfg, arrays, jmesh = _ridge_in_contact(3)
-    fn = make_batched_step_fn(
+    mesh = bridge.trimesh_from_numpy(to_numpy(jmesh), device="cpu")
+    state = make_batched_step_fn(tcfg, device="cpu", trimesh=mesh)(
+        bridge.world_from_numpy(arrays, device="cpu"))
+    assert bool(torch.isfinite(state.pos).all())
+    with pytest.raises(NotImplementedError):
+        make_batched_step_fn(tcfg.replace(solver=SolverKind.PGS),
+                             device="cpu", trimesh=mesh)
+
+
+def test_mesh_step_with_capsule_matches_jax(interpret_pallas):
+    """The ridge scene's sphere and capsule pressed into the mesh (its box
+    taken out: a box on the ridge rests on edge-clip rows, whose validity
+    roundoff decides), 8 substeps on each side within 1e-4."""
+    jcfg, tcfg, arrays, jmesh = _ridge_in_contact(3)
+    arrays = {k: v.copy() for k, v in arrays.items()}
+    arrays["body_type"][2] = int(BodyType.NULL)
+    fn = jax.jit(lambda s: jax_step(s, jcfg, jmesh, use_pallas=True))
+    jstate = JaxWorldState(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    tfn = make_batched_step_fn(
         tcfg, device="cpu",
         trimesh=bridge.trimesh_from_numpy(to_numpy(jmesh), device="cpu"))
-    with pytest.raises(NotImplementedError):
-        fn(bridge.world_from_numpy(arrays, device="cpu"))
+    tstate = bridge.world_from_numpy(arrays, device="cpu")
+    for _ in range(8):
+        jstate = fn(jstate)
+        tstate = tfn(tstate)
+    ref, got = to_numpy(jstate), bridge.world_to_numpy(tstate, 0)
+    for name in ("pos", "quat", "linvel", "angvel"):
+        np.testing.assert_allclose(got[name], ref[name], atol=STEP_ATOL,
+                                   rtol=0, err_msg=name)
+    for name in ("tick", "overflow"):
+        assert np.array_equal(got[name], ref[name]), name
+    # the capsule was pushed out of the ridge it was pressed into
+    assert ref["linvel"][3, 1] > 0.1
 
 
 def test_mesh_on_other_device_than_state_raises():
