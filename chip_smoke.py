@@ -107,8 +107,51 @@ Phases, in order; any failure raises and the script exits non-zero:
     and 3 timed ones; zero overflow, finite state, ``compact_rows_t`` once
     per substep; then the compaction kernel held exactly to its plain
     version on this path's own mask (k=256), with its floors.
-14. prints one JSON line of every kernel the run launched, then the last
-    line ``{"ok": true, "device": {...}}``.
+14. the hand kernels at their newer shapes, each held to its plain
+    version: the compaction at k = 2,048 and k = M = 4,096 (B=1,024, M=4,096,
+    past the index lists that hold 1,536 columns), both selector dtypes,
+    exactly; in float64 at the bench shapes with no, float32 and bf16
+    selector rounding, exactly; the tile kernel and the per-triangle kernel
+    in float64 on 49,152 and 15,360 random probes over the 9,216-triangle
+    mesh at rtol 1e-12, atol 1e-13. Each float64 instance is timed beside its
+    float32 one, its bound at the data sheet's FP64 rate (34 TFLOP/s).
+15. the conformance step, card against CPU: the referee's configuration
+    (``tests/_traj_engine.py:30-39``: PGS, exact box clip, K=8, float64) on
+    ``mini_stack_world`` and on ``ridge_mesh_scene`` (the tile kernel's
+    float64 instance on the card), and the typed path in float64 (the
+    compaction's float64 instance): 4 kicked worlds settled on the CPU (the
+    stack 48 substeps, the ridge 64, while its bodies land), then 8
+    substeps on each device, atol 1e-9, tick and overflow exact. In
+    float32, from the settled stack: the warm step
+    (``ops/warmstart.make_warm_step_fn``, JACOBI and PGS; impulses and keys
+    too) and ``step_with_diagnostics``' counters.
+16. the conformance path at width: the referee's configuration on the
+    settled stack's first world in 1,024 worlds, one warm-up launch of 4
+    substeps and 2 timed launches of 8; zero overflow, finite state;
+    prints body-steps/s, ms/substep, PGS's live-row bound and, under
+    ``torch.profiler``, the launches and kernel time of one substep, with
+    the device's idle share of the untraced substep (the trace slows the
+    host, so the traced substep's wall time would count that as idle). It
+    launches no hand kernel (counted). Then the settled ridge mesh's first world in 1,024
+    worlds for 16 substeps and one ``sphere_mesh_contacts`` query of every
+    world's sphere: the float64 tile kernel once per substep, the float64
+    per-triangle kernel once, each held to its plain version on that
+    path's own tensors.
+17. the device probes: each probe kernel against its plain version at a
+    few trips (``probe_vpu`` and ``probe_mxu`` at A = 1, B = 1/16 bit for
+    bit, ``probe_mxu`` on random inputs at rtol 1e-5, ``probe_matmuls``'
+    acc within 4 float32 spacings and its checksum of all 384 columns at
+    rtol 1e-5, a product 1% off in its first 64 columns refused by that
+    check), then the probe path
+    ``utils/device_probe.run(quick=True)``, launch counts set to 0 before
+    and read after: the memory pass at 64 MB and 1 GB, the bf16 ``bmm``,
+    the three kernels at the TPU probes' first trip counts, the shape menu;
+    prints the measured GB/s and FP32 TFLOP/s beside the data sheet's.
+18. prints one JSON line of every kernel the run launched (each float64
+    instance as a sub-entry of its kernel, with its own launches), then the
+    last line ``{"ok": true, "device": {...}}``.
+
+Each phase's seconds are printed as it ends.
 
 The bench configuration is ``core.config.bench_config(64)``: the values
 ``bench.bench_config(64)`` resolves to at its defaults, with the contact
@@ -132,10 +175,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks: device-memory rate (bytes/s) and FP32 rate
-# outside the tensor cores (operations/s)
+# H100 SXM data-sheet peaks: device-memory rate (bytes/s) and the FP32 and
+# FP64 rates outside the tensor cores (operations/s)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 WORLDS = 8192
 BODIES = 60
 SUBSTEPS_PER_LAUNCH = 96
@@ -167,6 +211,21 @@ MINI_SUBSTEPS_PER_LAUNCH = 96
 MINI_TIMED_LAUNCHES = 3
 # the pipelines compared card against CPU on mini_stack_world
 STACK = dict(max_bodies=12, max_pair_candidates=64, max_contacts=128)
+# the conformance path: tests/_traj_engine.py's make_cfg("pgs") capacities
+CONF_CAPS = dict(max_bodies=16, max_pair_candidates=128, max_contacts=256)
+CONF_WORLDS = 1024
+CONF_WARMUP = 4
+CONF_SUBSTEPS_PER_LAUNCH = 8
+CONF_TIMED_LAUNCHES = 2
+CONF_SETTLE = 48             # CPU substeps before a card-vs-CPU comparison
+RIDGE_SETTLE = 64            # the ridge scene's bodies land at 50-70
+CONF_ATOL = 1e-9             # float64 card against float64 CPU
+RIDGE_SUBSTEPS = 16
+# the compaction at k past the index list: worlds of M = 4,096 columns
+WIDE_K_WORLDS = 1024
+# the probe kernels: trips of the short checks, names in the kernels line
+PROBE_CHECK_TRIPS = 2
+PROBE_NAMES = ("probe_kernel_matmuls", "probe_kernel_vpu", "probe_mxu_peak")
 # FP32 operations per (probe, triangle) pair, counted from the reference
 # arithmetic (rl_ode_physics_tpu/ops/pallas_kernels.py:89-105 with
 # trimesh._tri_vw), not from what csrc/sphere_mesh_d2.cu executes: 78 for the
@@ -211,14 +270,15 @@ def phase_build():
     return floor_ms
 
 
-def compaction_floors(mask, d: int, k: int) -> dict:
-    """The least device-memory time of ``compact_rows_t`` on this mask:
-    ``bound_ms`` reads the mask and 4 bytes per kept value and writes the
-    outputs (rows, valid, count, overflow); ``sector_floor_ms`` reads 32
-    bytes per payload row and group of 8 columns that holds a kept column
-    instead, since a column's values lie M floats apart; ``floor_64b_ms``
-    does the same with 64 bytes per group of 16 columns, should device
-    memory serve no less than that at once."""
+def compaction_floors(mask, d: int, k: int, size: int = 4) -> dict:
+    """The least device-memory time of ``compact_rows_t`` on this mask, for
+    payload values of ``size`` bytes: ``bound_ms`` reads the mask and each
+    kept value and writes the outputs (rows, valid, count, overflow);
+    ``sector_floor_ms`` reads 32 bytes per payload row and group of 32 /
+    ``size`` columns that holds a kept column instead, since a column's
+    values lie M values apart; ``floor_64b_ms`` does the same with 64 bytes
+    per group of 64 / ``size`` columns, should device memory serve no less
+    than that at once."""
     import torch
     b, m = mask.shape
     kept = mask & (mask.cumsum(1) <= k)
@@ -228,15 +288,17 @@ def compaction_floors(mask, d: int, k: int) -> dict:
         return int(groups.reshape(b, -1, width).any(-1).sum())
 
     n_kept = int(kept.sum())
-    fixed = b * m + b * (4 * d * k + k + 8)
+    fixed = b * m + b * (size * d * k + k + 8)
 
     def ms(payload_bytes):
         return (fixed + payload_bytes) / HBM_BYTES_PER_S * 1e3
 
     return dict(density=float(mask.float().mean()), kept=n_kept,
-                bound_ms=ms(4 * d * n_kept),
-                sector_floor_ms=ms(32 * d * groups_with_a_kept_column(8)),
-                floor_64b_ms=ms(64 * d * groups_with_a_kept_column(16)))
+                bound_ms=ms(size * d * n_kept),
+                sector_floor_ms=ms(32 * d * groups_with_a_kept_column(
+                    32 // size)),
+                floor_64b_ms=ms(64 * d * groups_with_a_kept_column(
+                    64 // size)))
 
 
 def compaction_equals_plain(mask, payload, k, sel, label):
@@ -303,18 +365,39 @@ def phase_kernels():
                 sector_floor_ms=floors["sector_floor_ms"])
 
 
-def _card_matches_cpu(config, world, mesh, settle, label):
-    """4 worlds settled ``settle`` substeps on the CPU, then 8 substeps on
-    each device: pos/quat/linvel/angvel at atol 1e-4, tick and overflow
-    exact. ``mesh``: the scene's static mesh on the CPU, or None. Returns
-    the card's peak memory over its 8 substeps, in GB."""
+def kicked(batch, seed):
+    """The batch with every dynamic body's velocity kicked by 0.05 x
+    standard normal, from numpy and a seed, so that the worlds differ."""
+    import numpy as np
     import torch
+    rng = np.random.default_rng(seed)
+    kick = torch.from_numpy(0.05 * rng.standard_normal(
+        tuple(batch.linvel.shape))).to(batch.linvel)
+    moving = (batch.dynamic & ~batch.is_kinematic)[..., None]
+    return batch.replace(linvel=batch.linvel + torch.where(moving, kick, 0.0))
+
+
+def settled_on_cpu(config, world, mesh, settle, kick_seed=None):
+    """4 worlds of ``world`` (``kicked`` apart with ``kick_seed``, if
+    given) settled ``settle`` substeps on the CPU. ``mesh``: the scene's
+    static mesh on the CPU, or None."""
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
+    batch = replicate(world, 4, device="cpu")
+    if kick_seed is not None:
+        batch = kicked(batch, kick_seed)
+    return make_batched_step_fn(config, substeps=settle, device="cpu",
+                                trimesh=mesh)(batch)
 
-    start = make_batched_step_fn(config, substeps=settle, device="cpu",
-                                 trimesh=mesh)(replicate(world, 4,
-                                                         device="cpu"))
+
+def _card_matches_cpu(config, start, mesh, label, atol=1e-4):
+    """8 substeps on each device from ``start``, a batch settled on the
+    CPU: pos/quat/linvel/angvel at ``atol``, tick and overflow exact.
+    ``mesh``: the scene's static mesh on the CPU, or None. Returns the
+    card's peak memory over its 8 substeps, in GB."""
+    import torch
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+
     cpu = make_batched_step_fn(config, substeps=8, device="cpu",
                                trimesh=mesh)(start)
     on_card = _to(start, "cuda")
@@ -330,24 +413,25 @@ def _card_matches_cpu(config, world, mesh, settle, label):
     for name in ("pos", "quat", "linvel", "angvel"):
         diff = (getattr(card, name).cpu() - getattr(cpu, name)).abs().max()
         worst[name] = float(diff)
-        if not diff <= 1e-4:
+        if not diff <= atol:
             raise AssertionError(f"{label}: card step differs from the CPU "
-                                 f"step in {name}: {float(diff)} > 1e-4")
+                                 f"step in {name}: {float(diff)} > {atol}")
     for name in ("tick", "overflow"):
         if not torch.equal(getattr(card, name).cpu(), getattr(cpu, name)):
             raise AssertionError(f"{label}: card step {name} differs from "
                                  f"the CPU's")
-    log(f"{label}: card step vs CPU step (4 worlds, {settle} "
-        f"settling + 8 substeps): max abs diff {worst}, tick "
-        f"{cpu.tick.tolist()}, overflow {cpu.overflow.tolist()}")
+    log(f"{label}: card step vs CPU step ({start.num_worlds} worlds settled "
+        f"{int(start.tick[0])} substeps on the CPU, + 8 substeps, atol "
+        f"{atol}): max abs diff {worst}, tick {cpu.tick.tolist()}, overflow "
+        f"{cpu.overflow.tolist()}")
     return peak_gb
 
 
 def phase_card_vs_cpu(config):
     from rl_ode_physics_tpu_torch.models.scenes import bench_world
-    _card_matches_cpu(config, bench_world(config, num_bodies=BODIES,
-                                          device="cpu"),
-                      None, 40, "bench scene")
+    world = bench_world(config, num_bodies=BODIES, device="cpu")
+    _card_matches_cpu(config, settled_on_cpu(config, world, None, 40), None,
+                      "bench scene")
 
 
 def _to(state, device):
@@ -433,11 +517,12 @@ def caught_calls(module, name, drive):
     return caught
 
 
-def compaction_on_path_data(drive, path, calls):
+def compaction_on_path_data(drive, path, calls, earlier=""):
     """``compact_rows_t`` on the mask and payload that a settled main path
     hands it: ``drive()`` runs the path on (``calls`` substeps) with the
     kernel's wrapper caught; the last call's tensors are then held to the
-    plain version, exactly, and both are timed on them alone."""
+    plain version, exactly, and both are timed on them alone. ``earlier``:
+    an earlier record of that time, printed beside it."""
     from rl_ode_physics_tpu_torch.ops import compaction, compaction_kernel
     from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
 
@@ -452,41 +537,63 @@ def compaction_on_path_data(drive, path, calls):
         lambda: compaction_kernel.compact_rows_t(mask, payload, k, sel))
     plain_ms = cuda_ms(
         lambda: compaction.compact_rows_t(mask, payload, k, sel))
-    floors = compaction_floors(mask, d, k)
+    floors = compaction_floors(mask, d, k, payload.element_size())
     log(f"compact_rows_t on the {path} path's own data (B={b} D={d} "
-        f"M={m} k={k}, sel {sel}, mask density {floors['density']:.5f}, "
+        f"M={m} k={k}, {payload.dtype}, sel {sel}, mask density {floors['density']:.5f}, "
         f"kept {floors['kept']}): exact; kernel_ms={kernel_ms:.5f} "
         f"plain_ms={plain_ms:.5f} bound_ms={floors['bound_ms']:.5f} "
         f"sector_floor_ms={floors['sector_floor_ms']:.5f} floor_64b_ms="
-        f"{floors['floor_64b_ms']:.5f}")
+        f"{floors['floor_64b_ms']:.5f}{earlier}")
     return dict(floors, ms=kernel_ms, plain_ms=plain_ms, max_abs_err=0.0,
                 shape=[b, d, m, k])
 
 
 def d2_errors(got, ref, what):
     """Raise unless a mesh kernel's ``got`` matches its plain version's
-    ``ref`` within (D2_RTOL, D2_ATOL); return the largest absolute and
-    relative error."""
+    ``ref`` within the kernels' tolerance for their dtype (D2_RTOL, D2_ATOL
+    in float32; D2_RTOL_F64, D2_ATOL_F64 in float64); return the largest
+    absolute and relative error."""
     import torch
-    from rl_ode_physics_tpu_torch.ops.mesh_kernels import D2_ATOL, D2_RTOL
+    from rl_ode_physics_tpu_torch.ops.mesh_kernels import tolerance
+    rtol, atol = tolerance(got.dtype)
     err = (got - ref).abs()
-    worst = float(err.max()), float((err / ref.abs().clamp_min(D2_ATOL))
-                                    .max())
-    if not torch.allclose(got, ref, rtol=D2_RTOL, atol=D2_ATOL,
-                          equal_nan=True):
+    worst = float(err.max()), float((err / ref.abs().clamp_min(atol)).max())
+    if not torch.allclose(got, ref, rtol=rtol, atol=atol, equal_nan=True):
         raise AssertionError(
-            f"{what} differs from its plain version beyond rtol {D2_RTOL}, "
-            f"atol {D2_ATOL}: max abs err {worst[0]}, max rel err "
-            f"{worst[1]}")
+            f"{what} differs from its plain version beyond rtol {rtol}, "
+            f"atol {atol}: max abs err {worst[0]}, max rel err {worst[1]}")
     return worst
 
 
-def tiles_bound(p: int, t: int) -> dict:
+def _rates(dtype):
+    """(bytes a value, operations/s) of the card's data sheet for a dtype:
+    FP32 or FP64 outside the tensor cores."""
+    import torch
+    if dtype == torch.float64:
+        return 8, FP64_OPS_PER_S
+    return 4, FP32_OPS_PER_S
+
+
+def tiles_bound(p: int, t: int, dtype=None) -> dict:
     """The least time of ``sphere_mesh_d2_tiles`` on P probes and T
     triangles: 79 operations a pair, against the probes and triangles read
     and one minimum per (probe, tile) written."""
-    ops_ms = p * t * (D2_OPS_PER_PAIR + 1) / FP32_OPS_PER_S * 1e3
-    bytes_ms = (12 * p + 36 * t + 4 * p * (t // 128)) / HBM_BYTES_PER_S * 1e3
+    size, rate = _rates(dtype)
+    ops_ms = p * t * (D2_OPS_PER_PAIR + 1) / rate * 1e3
+    bytes_ms = (size * (3 * p + 9 * t + p * (t // 128))
+                / HBM_BYTES_PER_S * 1e3)
+    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                bytes_ms=bytes_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def d2_bound(c: int, t: int, dtype=None) -> dict:
+    """The least time of one ``sphere_mesh_d2`` query of C centres: 78
+    operations a pair, against the centres and triangles read and every
+    distance written."""
+    size, rate = _rates(dtype)
+    ops_ms = c * t * D2_OPS_PER_PAIR / rate * 1e3
+    bytes_ms = size * (3 * c + 9 * t + c * t) / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
                 bytes_ms=bytes_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
@@ -495,7 +602,8 @@ def tiles_bound(p: int, t: int) -> dict:
 def tiles_on_path_data(drive, path, calls):
     """``sphere_mesh_d2_tiles`` on the probes that a settled path hands it,
     caught as in ``compaction_on_path_data``: held to the plain version at
-    rtol 1e-5, atol 1e-6, and both timed on them alone."""
+    the kernels' tolerance for the probes' dtype, and both timed on them
+    alone."""
     import torch
     from rl_ode_physics_tpu_torch.ops import mesh_kernels
     from rl_ode_physics_tpu_torch.ops import trimesh as tm
@@ -516,11 +624,12 @@ def tiles_on_path_data(drive, path, calls):
         lambda: mesh_kernels.sphere_mesh_d2_tiles(probes, *tris))
     plain_ms = cuda_ms(
         lambda: tm.sphere_mesh_d2_tiles_plain(probes, *tris), iters=3)
-    bound = tiles_bound(p, t)
+    bound = tiles_bound(p, t, probes.dtype)
+    rtol, atol = mesh_kernels.tolerance(probes.dtype)
     log(f"sphere_mesh_d2_tiles on the {path} path's own probes (P={p} x "
-        f"T={t}): within rtol {mesh_kernels.D2_RTOL}, atol "
-        f"{mesh_kernels.D2_ATOL} of the plain version (max abs err "
-        f"{abs_err:.3e}, max rel err {rel_err:.3e}); kernel_ms="
+        f"T={t}, {probes.dtype}): within rtol {rtol}, atol {atol} of the "
+        f"plain version (max abs err {abs_err:.3e}, max rel err "
+        f"{rel_err:.3e}); kernel_ms="
         f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} bound_ms="
         f"{bound['bound_ms']:.5f} (operations {bound['ops_ms']:.5f}, bytes "
         f"{bound['bytes_ms']:.5f})")
@@ -597,12 +706,14 @@ def ridge_box_world(config, device):
 
 def phase_mesh_card_vs_cpu(config, verts, tris):
     world, mesh = mesh_world(config, verts, tris, "cpu")
-    _card_matches_cpu(config, world, mesh, MESH_WARMUP_SUBSTEPS,
-                      f"trimesh scene ({mesh.num_tris} triangles)")
+    _card_matches_cpu(
+        config, settled_on_cpu(config, world, mesh, MESH_WARMUP_SUBSTEPS),
+        mesh, f"trimesh scene ({mesh.num_tris} triangles)")
     # the box lands in the valley at about substep 50: the 8 compared
     # substeps hold its impact
     world, mesh = ridge_box_world(config, "cpu")
-    _card_matches_cpu(config, world, mesh, 44, "sphere and box on the ridge")
+    _card_matches_cpu(config, settled_on_cpu(config, world, mesh, 44), mesh,
+                      "sphere and box on the ridge")
 
 
 def phase_mesh_main_path(config, verts, tris, card):
@@ -809,19 +920,17 @@ def phase_mesh_kernels(batch, config, mesh, sphere_centers, floor_ms):
         kernel_ms = cuda_ms(lambda: mesh_kernels.sphere_mesh_d2(query, *tris))
         plain_ms = cuda_ms(lambda: tm.sphere_mesh_d2_plain(query, *tris),
                            iters=3)
-        ops_ms = count * t * D2_OPS_PER_PAIR / FP32_OPS_PER_S * 1e3
-        bytes_ms = ((12 * count + 36 * t + 4 * count * t)
-                    / HBM_BYTES_PER_S * 1e3)
-        bound_ms = max(ops_ms, bytes_ms)
+        bound = d2_bound(count, t)
         queries[f"C={count}"] = dict(
-            ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            judged_against=("bound" if bound_ms >= floor_ms
+            ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+            bound_by=bound["bound_by"],
+            judged_against=("bound" if bound["bound_ms"] >= floor_ms
                             else "launch floor"))
         log(f"sphere_mesh_d2, one query of C={count} centres x T={t} "
             f"triangles: kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
-            f"bound_ms={bound_ms:.6f} (operations {ops_ms:.6f}, bytes "
-            f"{bytes_ms:.6f}) launch_floor_ms={floor_ms:.5f} library_ms=null")
+            f"bound_ms={bound['bound_ms']:.6f} (operations "
+            f"{bound['ops_ms']:.6f}, bytes {bound['bytes_ms']:.6f}) "
+            f"launch_floor_ms={floor_ms:.5f} library_ms=null")
     # the line's own numbers are the widest query's, where the work and not
     # the launch is what is timed
     wide = queries[f"C={sphere_centers.shape[0]}"]
@@ -1059,7 +1168,8 @@ def phase_pipelines_card_vs_cpu():
 
     for label, config in pipeline_configs().items():
         peak_gb = _card_matches_cpu(
-            config, mini_stack_world(config, device="cpu"), None, 48,
+            config, settled_on_cpu(config, mini_stack_world(
+                config, device="cpu"), None, 48), None,
             f"mini stack, {label}")
         if config.dense_pipeline:
             log(f"dense pipeline at 4 worlds x {config.max_bodies} slots, "
@@ -1070,8 +1180,8 @@ def phase_pipelines_card_vs_cpu():
     config = EngineConfig(max_bodies=16, max_pair_candidates=64,
                           max_contacts=128, typed_buckets=True,
                           max_contacts_per_pair=8)
-    _card_matches_cpu(config, plane_world(config, "cpu"), None, 24,
-                      "plane scene, component-major K=8")
+    _card_matches_cpu(config, settled_on_cpu(config, plane_world(
+        config, "cpu"), None, 24), None, "plane scene, component-major K=8")
 
 
 def capsule_config():
@@ -1225,6 +1335,464 @@ def phase_mini_main_path(config, card):
     return {"compact_rows_t": total}, batch
 
 
+def phase_kernels_new_shapes(mesh):
+    """The hand kernels at their newer shapes: the compaction at
+    k = 2,048 and k = M = 4,096 and with float64 payloads, both mesh kernels
+    in float64; each against its plain version, and timed beside its float32
+    instance."""
+    import torch
+    from rl_ode_physics_tpu_torch.ops import (
+        compaction, compaction_kernel, mesh_kernels)
+    from rl_ode_physics_tpu_torch.ops import trimesh as tm
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    b, d, m = WIDE_K_WORLDS, 10, 4096
+    mask = torch.rand((b, m), generator=gen, device="cuda") < 0.5
+    payload = torch.randn((b, d, m), generator=gen, device="cuda")
+    for k in (2048, m):
+        for sel in (None, torch.bfloat16):
+            got, _ = compaction_equals_plain(mask, payload, k, sel,
+                                             f"k={k}, sel {sel}")
+            log(f"compact_rows_t at B={b} D={d} M={m} k={k} sel={sel}: exact "
+                f"(kept {int(got[2].sum())} rows, overflow "
+                f"{int(got[3].sum())})")
+    k = 2048
+    wide = compaction_floors(mask, d, k)
+    wide.update(
+        shape=[b, d, m, k],
+        ms=cuda_ms(lambda: compaction_kernel.compact_rows_t(mask, payload, k)),
+        plain_ms=cuda_ms(lambda: compaction.compact_rows_t(mask, payload, k)),
+        max_abs_err=0.0)
+    log(f"compact_rows_t at k={k} (an index list a chunk): kernel_ms="
+        f"{wide['ms']:.5f} plain_ms={wide['plain_ms']:.5f} bound_ms="
+        f"{wide['bound_ms']:.5f} sector_floor_ms={wide['sector_floor_ms']:.5f}")
+
+    b, d, m, k = WORLDS, 10, 384, 64
+    mask = torch.rand((b, m), generator=gen, device="cuda") < 0.15
+    pay32 = torch.randn((b, d, m), generator=gen, device="cuda")
+    pay64 = pay32.double() + 1e-12 * torch.randn(
+        (b, d, m), generator=gen, device="cuda", dtype=torch.float64)
+    for sel in (None, torch.float32, torch.bfloat16):
+        compaction_equals_plain(mask, pay64, k, sel, f"float64, sel {sel}")
+        log(f"compact_rows_t float64 at B={b} D={d} M={m} k={k} sel={sel}: "
+            f"exact")
+    f64 = compaction_floors(mask, d, k, 8)
+    f64.update(
+        shape=[b, d, m, k], max_abs_err=0.0,
+        ms=cuda_ms(lambda: compaction_kernel.compact_rows_t(mask, pay64, k)),
+        plain_ms=cuda_ms(lambda: compaction.compact_rows_t(mask, pay64, k)),
+        f32_ms=cuda_ms(lambda: compaction_kernel.compact_rows_t(mask, pay32,
+                                                                k)))
+    log(f"compact_rows_t float64 at B={b} D={d} M={m} k={k} (density 0.15): "
+        f"kernel_ms={f64['ms']:.5f} (float32 on the same mask "
+        f"{f64['f32_ms']:.5f}) plain_ms={f64['plain_ms']:.5f} bound_ms="
+        f"{f64['bound_ms']:.5f} sector_floor_ms={f64['sector_floor_ms']:.5f}")
+
+    # both mesh kernels in float64 on the stand-in mesh, random probes
+    tris32 = mesh.transposed()
+    tris64 = [x.double().contiguous() for x in tris32]
+    t = mesh.num_tris
+    real = mesh.v0[mesh.v0[:, 0] < 1e8]
+    lo, hi = real.amin(0) - 1.0, real.amax(0) + 1.0
+    p = MESH_WORLDS * 16 * 3
+    probes64 = (lo.double() + (hi - lo).double() * torch.rand(
+        (p, 3), generator=gen, device="cuda", dtype=torch.float64))
+    probes32 = probes64.float()
+    mesh64 = {}
+    for name, kernel, plain, bound, n in (
+            ("sphere_mesh_d2_tiles", mesh_kernels.sphere_mesh_d2_tiles,
+             tm.sphere_mesh_d2_tiles_plain, tiles_bound, p),
+            ("sphere_mesh_d2", mesh_kernels.sphere_mesh_d2,
+             tm.sphere_mesh_d2_plain, d2_bound, 15360)):
+        q64, q32 = probes64[:n].contiguous(), probes32[:n].contiguous()
+        got, ref = kernel(q64, *tris64), plain(q64, *tris64)
+        torch.cuda.synchronize()
+        abs_err, rel_err = d2_errors(got, ref, f"{name} in float64")
+        entry = dict(
+            shape=[n, t], max_abs_err=abs_err, max_rel_err=rel_err,
+            ms=cuda_ms(lambda: kernel(q64, *tris64)),
+            plain_ms=cuda_ms(lambda: plain(q64, *tris64), iters=3),
+            f32_ms=cuda_ms(lambda: kernel(q32, *tris32)),
+            **bound(n, t, torch.float64))
+        entry["f32_bound_ms"] = bound(n, t)["bound_ms"]
+        rtol, atol = mesh_kernels.tolerance(torch.float64)
+        log(f"{name} float64 on {n} random probes x {t} triangles: within "
+            f"rtol {rtol}, atol {atol} of the plain version (max abs err "
+            f"{abs_err:.3e}, max rel err {rel_err:.3e}); kernel_ms="
+            f"{entry['ms']:.5f} plain_ms={entry['plain_ms']:.5f} bound_ms="
+            f"{entry['bound_ms']:.5f} (FP64 at {FP64_OPS_PER_S / 1e12:.0f} "
+            f"TFLOP/s); float32 instance {entry['f32_ms']:.5f} ms against "
+            f"its bound {entry['f32_bound_ms']:.5f} (FP32 at "
+            f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+        mesh64[name] = entry
+    return dict(k2048=wide, f64=f64), mesh64
+
+
+def referee_config(dtype="float64"):
+    """``tests/_traj_engine.py:30-39``'s ``make_cfg("pgs")``, by value:
+    PGS in buffer row order, exact box clipping, K=8, float64."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    return EngineConfig.conformance(**CONF_CAPS, dtype=dtype,
+                                    matmul_precision="highest")
+
+
+def _as_float32(state):
+    """The state with its float64 fields in float32."""
+    import dataclasses
+    return type(state)(**{
+        f.name: (v.float() if v.is_floating_point() else v)
+        for f in dataclasses.fields(state)
+        for v in [getattr(state, f.name)]})
+
+
+def _same(label, card, cpu, atol):
+    """Raise unless two dicts of tensors agree: integer and bool tensors
+    exactly, floats within ``atol``; return the largest float difference."""
+    import torch
+    worst = 0.0
+    for name, value in cpu.items():
+        other = card[name].cpu()
+        if value.is_floating_point():
+            diff = float((other - value).abs().max())
+            worst = max(worst, diff)
+            if not diff <= atol:
+                raise AssertionError(f"{label}: card {name} differs from the "
+                                     f"CPU's by {diff} > {atol}")
+        elif not torch.equal(other, value):
+            raise AssertionError(f"{label}: card {name} differs from the "
+                                 f"CPU's")
+    return worst
+
+
+def phase_conformance_card_vs_cpu():
+    """The conformance step, card against CPU, from one mini-stack state
+    settled on the CPU under the referee's configuration (4 kicked worlds)
+    and one ridge-mesh state: in float64 the referee's step on both (the
+    tile kernel's float64 instance on the card) and the typed path (the
+    compaction's float64 instance); in float32 the warm step (JACOBI and
+    PGS) and ``step_with_diagnostics``. Returns the typed path's
+    compaction launches and the two settled states."""
+    import dataclasses
+
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
+    from rl_ode_physics_tpu_torch.core.world import step_with_diagnostics
+    from rl_ode_physics_tpu_torch.models.scenes import (
+        mini_stack_world, ridge_mesh_scene)
+    from rl_ode_physics_tpu_torch.ops import (
+        compaction_kernel, mesh_kernels, warmstart)
+
+    config = referee_config()
+    stack = settled_on_cpu(config, mini_stack_world(config, device="cpu"),
+                           None, CONF_SETTLE, kick_seed=3)
+    _card_matches_cpu(config, stack, None, "conformance float64, mini stack",
+                      atol=CONF_ATOL)
+    world, mesh = ridge_mesh_scene(config, device="cpu")
+    ridge = settled_on_cpu(config, world, mesh, RIDGE_SETTLE, kick_seed=4)
+    tiles = mesh_kernels.sphere_mesh_d2_tiles
+    before = tiles.launches
+    _card_matches_cpu(config, ridge, mesh, "conformance float64, ridge mesh",
+                      atol=CONF_ATOL)
+    if tiles.launches - before != 8:
+        raise AssertionError("ridge mesh: the float64 tile kernel did not "
+                             "run once per card substep")
+    typed = EngineConfig(**CONF_CAPS, typed_buckets=True, dtype="float64")
+    before = compaction_kernel.compact_rows_t.launches
+    _card_matches_cpu(typed, stack, None,
+                      "typed path float64 (float32 selectors)",
+                      atol=CONF_ATOL)
+    typed_f64 = compaction_kernel.compact_rows_t.launches - before
+    if typed_f64 != 8:
+        raise AssertionError(f"typed float64: compact_rows_t launched "
+                             f"{typed_f64} times in 8 card substeps")
+
+    stack32 = _as_float32(stack)
+    for kind in ("JACOBI", "PGS"):
+        cfg = EngineConfig(**CONF_CAPS, solver=SolverKind[kind])
+        step = warmstart.make_warm_step_fn(cfg)
+        cpu, card = stack32, _to(stack32, "cuda")
+        caches = [warmstart.init_cache(cfg, 4, device=d)
+                  for d in ("cpu", "cuda")]
+        for _ in range(8):
+            cpu, caches[0] = step(cpu, caches[0])
+            card, caches[1] = step(card, caches[1])
+        fields = ("pos", "quat", "linvel", "angvel", "tick", "overflow")
+        worst = _same(f"warm step {kind}", {f: getattr(card, f)
+                                            for f in fields},
+                      {f: getattr(cpu, f) for f in fields}, 1e-4)
+        lam = _same(f"warm cache {kind}", dataclasses.asdict(caches[1]),
+                    dataclasses.asdict(caches[0]), 1e-4)
+        log(f"warm step {kind} (float32), card vs CPU (4 worlds, 8 substeps "
+            f"from the settled stack): max abs diff {worst:.3e}, impulses "
+            f"{lam:.3e}, keys exact ({int((caches[0].key >= 0).sum())} live)")
+
+    cfg = EngineConfig.conformance(**CONF_CAPS)
+    _, want = step_with_diagnostics(stack32, cfg)
+    _, got = step_with_diagnostics(_to(stack32, "cuda"), cfg)
+    worst = _same("step_with_diagnostics", got, want, 1e-4)
+    log(f"step_with_diagnostics (conformance policy, float32), card vs CPU: "
+        f"counts exact, floats within {worst:.3e}: "
+        f"{ {k: v.tolist() for k, v in want.items()} }")
+    return {"compact_rows_t": typed_f64}, stack, (ridge, mesh)
+
+
+def _launches_of(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` with the device's
+    activity only (its kernels, without the host's operator tree): kernel
+    launches, their summed device time and the traced wall time (longer
+    than an untraced call's: the trace slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time for e in kernels) / 1e3
+    return dict(launches=len(kernels), device_ms=device_ms, wall_ms=wall_ms)
+
+
+def phase_conformance_path(card, stack, ridge):
+    """The conformance configuration at width: the referee's float64 PGS
+    step on the settled mini stack's first world in 1,024 worlds, then on
+    the settled ridge mesh's, whose probes go through the tile kernel's
+    float64 instance."""
+    import torch
+    from rl_ode_physics_tpu_torch.core.state import BodyType
+    from rl_ode_physics_tpu_torch.ops import (
+        broadphase, mesh_kernels, narrowphase, solver)
+    from rl_ode_physics_tpu_torch.ops import trimesh as tm
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, replicate, take_worlds)
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    config = referee_config()
+    batch = replicate(take_worlds(stack, 0, 1), CONF_WORLDS, device="cuda")
+    warm = make_batched_step_fn(config, substeps=CONF_WARMUP, device="cuda")
+    step = make_batched_step_fn(config, substeps=CONF_SUBSTEPS_PER_LAUNCH,
+                                device="cuda")
+    torch.cuda.synchronize()
+    for fn in _hand_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    batch = warm(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(CONF_TIMED_LAUNCHES):
+        batch = step(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+    timed = CONF_SUBSTEPS_PER_LAUNCH * CONF_TIMED_LAUNCHES
+    _check_batch(batch, "conformance path",
+                 int(stack.tick[0]) + CONF_WARMUP + timed)
+    if any(launches.values()):
+        raise AssertionError(f"conformance path launched hand kernels: "
+                             f"{launches}")
+    contacts = narrowphase.narrowphase(
+        batch, broadphase.broadphase(batch, config), config)
+    bound = solver.live_row_bound(contacts.valid)
+    if not bound:
+        raise AssertionError("conformance path: no live contact row")
+    one = make_batched_step_fn(config, substeps=1, device="cuda")
+    t0 = time.perf_counter()
+    prof = _launches_of(lambda: one(batch))
+    prof_s = time.perf_counter() - t0
+    dynamic = int((stack.inv_mass[0] > 0).sum())
+    rate = CONF_WORLDS * dynamic * timed / secs
+    substep_ms = secs / timed * 1e3
+    idle = max(0.0, 1.0 - prof["device_ms"] / substep_ms)
+    log(f"conformance path (referee configuration: PGS "
+        f"{config.solver_iterations} sweeps, exact box clip, K="
+        f"{config.max_contacts_per_pair}, float64): {CONF_WORLDS} worlds x "
+        f"{dynamic} dynamic bodies of the settled mini stack, {timed} "
+        f"substeps in {secs:.3f} s ({substep_ms:.3f} ms/substep; "
+        f"warm-up launch of {CONF_WARMUP} substeps {warm_s:.3f} s): "
+        f"{rate:.1f} body-steps/s on {card}; overflow 0; live-row bound "
+        f"{bound} of {config.max_contacts} rows (contacts per world "
+        f"{int(contacts.count.min())}-{int(contacts.count.max())}); one "
+        f"substep under torch.profiler ({prof_s:.1f} s with the trace): "
+        f"{prof['launches']} launches, {prof['device_ms']:.3f} ms of kernel "
+        f"time, idle {idle:.3f} of the untraced {substep_ms:.3f} ms substep "
+        f"(the traced substep took {prof['wall_ms']:.3f} ms); "
+        f"hand kernel launches {launches} (the classic pipeline has none)")
+    del batch, contacts
+
+    state, mesh = ridge
+    mesh = mesh.to("cuda")
+    rbatch = replicate(take_worlds(state, 0, 1), CONF_WORLDS, device="cuda")
+    rstep = make_batched_step_fn(config, substeps=RIDGE_SUBSTEPS,
+                                 device="cuda", trimesh=mesh)
+    for fn in _hand_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rbatch = rstep(rbatch)
+    torch.cuda.synchronize()
+    rsecs = time.perf_counter() - t0
+    sphere = int((state.body_type[0] == int(BodyType.SPHERE)).nonzero()[0])
+    centres = rbatch.pos[:, sphere].contiguous()
+    query = tm.sphere_mesh_contacts(centres, 0.3, mesh, k=4)
+    torch.cuda.synchronize()
+    rlaunches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+    _check_batch(rbatch, "ridge-mesh conformance path",
+                 int(state.tick[0]) + RIDGE_SUBSTEPS)
+    want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": RIDGE_SUBSTEPS,
+            "sphere_mesh_d2": 1}
+    if rlaunches != want:
+        raise AssertionError(f"ridge-mesh conformance path launches "
+                             f"{rlaunches}, expected {want}")
+    if not all(bool(torch.isfinite(x).all()) for x in query):
+        raise AssertionError("ridge mesh: non-finite sphere_mesh_contacts")
+    log(f"ridge-mesh conformance path (float64): {CONF_WORLDS} worlds of "
+        f"the settled ridge scene, {RIDGE_SUBSTEPS} substeps in {rsecs:.3f} s "
+        f"({rsecs / RIDGE_SUBSTEPS * 1e3:.3f} ms/substep); "
+        f"sphere_mesh_contacts on the {CONF_WORLDS} spheres, one query: "
+        f"{int(query[3].any(1).sum())} touch the mesh; launches {rlaunches}")
+    tiles64 = tiles_on_path_data(
+        lambda: make_batched_step_fn(config, substeps=1, device="cuda",
+                                     trimesh=mesh)(rbatch),
+        "ridge-mesh conformance", 1)
+    tris = mesh.transposed()
+    got = mesh_kernels.sphere_mesh_d2(centres, *tris)
+    ref = tm.sphere_mesh_d2_plain(centres, *tris)
+    torch.cuda.synchronize()
+    abs_err, rel_err = d2_errors(got, ref, "sphere_mesh_d2 on the ridge's "
+                                 "spheres")
+    bound = d2_bound(CONF_WORLDS, mesh.num_tris, torch.float64)
+    d2_64 = dict(
+        shape=[CONF_WORLDS, mesh.num_tris], max_abs_err=abs_err,
+        max_rel_err=rel_err,
+        ms=cuda_ms(lambda: mesh_kernels.sphere_mesh_d2(centres, *tris)),
+        plain_ms=cuda_ms(lambda: tm.sphere_mesh_d2_plain(centres, *tris)),
+        **bound)
+    log(f"sphere_mesh_d2 float64 on the ridge path's {CONF_WORLDS} sphere "
+        f"centres x {mesh.num_tris} triangles: max abs err {abs_err:.3e}, "
+        f"max rel err {rel_err:.3e}; kernel_ms={d2_64['ms']:.5f} plain_ms="
+        f"{d2_64['plain_ms']:.5f} bound_ms={d2_64['bound_ms']:.6f}")
+    return ({"conformance": launches,
+             "ridge_mesh_conformance": rlaunches},
+            dict(tiles=tiles64, d2=d2_64))
+
+
+def phase_device_probes(card):
+    """The three probe kernels against their plain versions at a few trips,
+    then the device-probe path (``utils/device_probe.run``) at the TPU
+    probes' first trip counts."""
+    import torch
+    from rl_ode_physics_tpu_torch.ops import probe_kernels as pk
+    from rl_ode_physics_tpu_torch.utils import device_probe as dp
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    trips = PROBE_CHECK_TRIPS
+    vel = torch.randn((dp.MATMUL_WORLDS, pk.ROWS, pk.INNER), generator=gen,
+                      device="cuda")
+    s = torch.randn((dp.MATMUL_WORLDS, pk.INNER, pk.COLS), generator=gen,
+                    device="cuda")
+    matmuls_err = 0.0
+    for label, (v, w) in (("random", (vel, s)),
+                          ("the TPU probe's", dp.matmuls_inputs())):
+        got = pk.probe_matmuls(v, w, trips)
+        want = pk.probe_matmuls_plain(v, w, trips)
+        errors = pk.matmuls_errors(v, got, want)
+        # the check must refuse a product 1% off in its first 64 columns
+        off = w.clone()
+        off[..., :pk.INNER] *= 1.01
+        off_errors = pk.matmuls_errors(v, pk.probe_matmuls(v, off, trips),
+                                       want)
+        err = float((got[0] - want[0]).abs().max())
+        if not pk.matmuls_agree(errors) or pk.matmuls_agree(off_errors):
+            raise AssertionError(f"probe_matmuls on {label} inputs: {errors}; "
+                                 f"with the first 64 columns 1% off "
+                                 f"{off_errors}")
+        matmuls_err = max(matmuls_err, err)
+        log(f"probe_matmuls on {label} inputs, {trips} trips: acc within "
+            f"{errors['ulps']:.0f} float32 spacings of the plain version "
+            f"(max abs err {err:.3e}, increment rel err "
+            f"{errors['increment']:.3e}), checksum of all 384 columns rel err "
+            f"{errors['checksum']:.3e}; with the first 64 columns 1% off "
+            f"refused ({off_errors['ulps']:.0f} spacings, increment rel err "
+            f"{off_errors['increment']:.3e}, checksum rel err "
+            f"{off_errors['checksum']:.3e})")
+    for n in (3 * pk.VPU_THREADS, 12 * pk.VPU_THREADS):
+        x = 0.5 + 1.5 * torch.rand((n,), generator=gen, device="cuda")
+        if not torch.equal(pk.probe_vpu(x, 8), pk.probe_vpu_plain(x, 8)):
+            raise AssertionError(f"probe_vpu on {n} values differs from the "
+                                 f"plain version")
+        fused = float((pk.probe_vpu(x, 8, True)
+                       - pk.probe_vpu_plain(x, 8, True)).abs().max())
+        log(f"probe_vpu on {n} values, 8 trips: bitwise the plain version; "
+            f"the fmaf chain {fused:.3e} from the plain addcmul chain "
+            f"(another rounding: timed only)")
+    a, b = dp.mxu_inputs()
+    if not torch.equal(pk.probe_mxu(a, b, 5), pk.probe_mxu_plain(a, b, 5)):
+        raise AssertionError("probe_mxu at A = 1, B = 1/16 differs from the "
+                             "plain version")
+    ra = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda")
+    rb = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda") / 16
+    got, ref = pk.probe_mxu(ra, rb, 3), pk.probe_mxu_plain(ra, rb, 3)
+    mxu_err = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, rtol=pk.MATMUL_RTOL,
+                          atol=pk.MATMUL_RTOL * float(ref.abs().max())):
+        raise AssertionError(f"probe_mxu on random inputs: max abs err "
+                             f"{mxu_err}")
+    log(f"probe_mxu: bitwise the plain version at A = 1, B = 1/16 (5 "
+        f"steps); on random inputs within rtol {pk.MATMUL_RTOL} (max abs err "
+        f"{mxu_err:.3e} of {float(ref.abs().max()):.3e})")
+
+    counters = (pk.probe_matmuls, pk.probe_vpu, pk.probe_mxu)
+    for fn in counters:
+        fn.launches = 0
+    report = dp.run(quick=True)
+    torch.cuda.synchronize()
+    launches = dict(zip(PROBE_NAMES, (fn.launches for fn in counters)))
+    m = report["measured"]
+    rates = ", ".join(f"{h['gb_per_s']:.1f} GB/s over {h['mb']} MB"
+                      for h in report["hbm"])
+    log(f"device probes on {card}: memory {rates} (data sheet "
+        f"{m['data_sheet_gb_per_s']:.0f}); FP32 "
+        f"{m['fp32_tflop_per_s_one_sm']:.4f} TFLOP/s on one SM, x132 = "
+        f"{m['fp32_tflop_per_s_x132']:.2f} TFLOP/s in the product chain, "
+        f"{m['fp32_fma_chain_tflop_per_s_one_sm']:.4f} x132 = "
+        f"{m['fp32_fma_chain_tflop_per_s_x132']:.2f} TFLOP/s in the fused "
+        f"multiply-add chain (data sheet "
+        f"{m['data_sheet_fp32_tflop_per_s']:.0f}); launches {launches}")
+    log(f"device probes: {json.dumps(report)}")
+
+    matmuls = report["kernel_matmuls"][0]
+    vpu = report["kernel_vpu"][0]
+    mxu = report["mxu_peak"][0]
+    v0, s0 = dp.matmuls_inputs()
+    x0 = torch.ones(vpu["shape"], device="cuda").reshape(-1)
+    plain = dict(
+        matmuls=cuda_ms(lambda: pk.probe_matmuls_plain(
+            v0, s0, matmuls["trips"]), iters=2),
+        vpu=cuda_ms(lambda: pk.probe_vpu_plain(x0, vpu["trips"]), iters=2),
+        mxu=cuda_ms(lambda: pk.probe_mxu_plain(a, b, mxu["steps"]), iters=2))
+    source = "rl_ode_physics_tpu_torch/csrc/device_probe.cu"
+    entries = []
+    for name, line, rep, key, err in (
+            ("probe_kernel_matmuls", 94, matmuls, "matmuls", matmuls_err),
+            ("probe_kernel_vpu", 131, vpu, "vpu", 0.0),
+            ("probe_mxu_peak", 157, mxu, "mxu", mxu_err)):
+        entries.append(dict(
+            name=name, route="cuda", source=source,
+            replaces=f"benchmarks/device_probe.py:{line}", launches=None,
+            max_abs_err=err, ms=rep["ms"], plain_ms=plain[key],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=None,
+            timed_at={k: rep[k] for k in ("trips", "steps", "shape")
+                      if k in rep}))
+        log(f"{name}: kernel_ms={rep['ms']:.5f} plain_ms={plain[key]:.5f} "
+            f"bound_ms={rep['bound_ms']:.5f} (FP32 operations on the SMs it "
+            f"runs on) library_ms=null")
+    return {"device_probe": launches}, entries, report["measured"]
+
+
 def main() -> int:
     start = time.perf_counter()
     card = phase_device()
@@ -1234,37 +1802,54 @@ def main() -> int:
         bench_config, rollout_config)
     from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
 
+    mark = [start]
+
+    def lap(phases: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {phases}: {now - mark[0]:.1f} s")
+        mark[0] = now
+
     config = bench_config(64)
     floor_ms = phase_build()
+    lap("0-1 (device, build)")
     kernels = [phase_kernels()]
     compaction = kernels[0]
+    lap("2")
     phase_card_vs_cpu(config)
+    lap("3")
     bench_launches, batch = phase_main_path(config, card)
     by_path = {"bench": bench_launches}
     # each path's own tensors: one more substep (or control step) of the
     # settled path with the kernel's wrapper caught, after the counts are read
     compaction["on_main_path_data"] = compaction_on_path_data(
         lambda: make_batched_step_fn(config, substeps=1,
-                                     device="cuda")(batch), "bench", 1)
+                                     device="cuda")(batch), "bench", 1,
+        " (the earlier record on the bench mask: 0.02997 ms)")
     del batch
+    lap("4")
 
     mcfg = mesh_config()
     verts, tris = standin_mesh()
     phase_mesh_card_vs_cpu(mcfg, verts, tris)
+    lap("5")
     by_path["trimesh"], batch, mesh, centers = phase_mesh_main_path(
         mcfg, verts, tris, card)
     compaction["on_trimesh_path_data"] = compaction_on_path_data(
         lambda: make_batched_step_fn(mcfg, substeps=1, device="cuda",
                                      trimesh=mesh)(batch), "trimesh", 1)
+    lap("6")
     tiles, per_triangle = phase_mesh_kernels(batch, mcfg, mesh, centers,
                                              floor_ms)
     kernels += [tiles, per_triangle]
+    lap("7")
 
     rcfg = rollout_config(64)
     phase_rollout_card_vs_cpu(rcfg)
+    lap("8")
     by_path["rollout"], control_step = phase_rollout_main_path(rcfg, card)
     compaction["on_rollout_path_data"] = compaction_on_path_data(
         control_step, "rollout", ROLLOUT_SUBSTEPS)
+    lap("9")
     by_path["env_on_mesh"], control_step = phase_env_on_mesh(
         mcfg, verts, tris, batch, mesh)
     compaction["on_env_on_mesh_data"] = compaction_on_path_data(
@@ -1272,19 +1857,50 @@ def main() -> int:
     tiles["on_env_on_mesh_data"] = tiles_on_path_data(
         control_step, "env-on-a-mesh", ROLLOUT_SUBSTEPS)
     del batch, control_step
+    lap("10")
 
     phase_pipelines_card_vs_cpu()
+    lap("11")
     phase_capsule_main_path(capsule_config(), card)
     torch.cuda.empty_cache()
+    lap("12")
     ncfg = mini_config()
     by_path["mini_stack"], batch = phase_mini_main_path(ncfg, card)
     compaction["on_mini_stack_path_data"] = compaction_on_path_data(
         lambda: make_batched_step_fn(ncfg, substeps=1, device="cuda")(batch),
         "mini-stack", 1)
     del batch
+    torch.cuda.empty_cache()
+    lap("13")
+
+    compaction_new, mesh64 = phase_kernels_new_shapes(mesh)
+    compaction.update(compaction_new)
+    lap("14")
+    typed_f64, stack, ridge = phase_conformance_card_vs_cpu()
+    f64_paths = {"typed_f64_card_vs_cpu": typed_f64}
+    lap("15")
+    conformance, on_ridge = phase_conformance_path(card, stack, ridge)
+    f64_paths.update(conformance)
+    # the float64 instances: the same kernels, counted on their own paths
+    for entry in kernels:
+        f64 = entry["f64"] if "f64" in entry else mesh64[entry["name"]]
+        entry["f64"] = f64
+        counts = {path: got[entry["name"]] for path, got in f64_paths.items()
+                  if got.get(entry["name"])}
+        f64["launches"] = sum(counts.values())
+        f64["launches_by_path"] = counts
+    tiles["f64"]["on_ridge_mesh_path_data"] = on_ridge["tiles"]
+    per_triangle["f64"]["on_ridge_mesh_path_data"] = on_ridge["d2"]
+    by_path.update(f64_paths)
+    lap("16")
+    probe_launches, probe_entries, _ = phase_device_probes(card)
+    by_path.update(probe_launches)
+    kernels += probe_entries
+    lap("17")
+
     for entry in kernels:
         counts = {path: got[entry["name"]] for path, got in by_path.items()
-                  if entry["name"] in got}
+                  if got.get(entry["name"])}
         entry["launches"] = sum(counts.values())
         entry["launches_by_path"] = counts
         if not entry["launches"]:

@@ -136,7 +136,9 @@ def create_world(config: EngineConfig, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 def default_mass(dtype=torch.float32, device="cpu"):
-    """ODE ``dBodyCreate`` default: total mass 1, unit inertia."""
+    """ODE ``dBodyCreate`` default: total mass 1, unit inertia, in
+    ``dtype`` (float32 by default, as in the JAX package; a float64 caller
+    passes its state's dtype)."""
     return (torch.tensor(1.0, dtype=dtype, device=device),
             torch.ones((3,), dtype=dtype, device=device))
 

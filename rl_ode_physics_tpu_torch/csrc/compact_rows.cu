@@ -52,6 +52,24 @@
 // a kept one) take at the data sheet's 3.35 TB/s, and 1.4 times what 32
 // bytes per group of 8 take (chip_smoke.py prints both, floor_64b_ms and
 // sector_floor_ms, beside the bound).
+//
+// Any k, and float64. The index list costs k ints a warp of shared
+// memory, which caps it at k <= kMaxListK = 1,536 (48 KB a block without
+// an opt-in). Past that the warp's list holds one chunk's kept columns
+// (at most kChunk = 512 ints): after each chunk's scan the warp gathers
+// that chunk's columns to their ranks, coalesced as in step 3, before the
+// next chunk overwrites the list; a last loop writes the zero columns from
+// the count to k and the valid flags. The k <= 1,536 instances stay the
+// code measured above. Every k >= 1 is taken, k > M included. At k = 2,048
+// (B = 1,024, M = 4,096, density 0.5) it takes 0.134 ms, 2.6 times its
+// bound; storing each kept column at its rank during the scan, one lane
+// at a time, took 0.814 ms (scattered 4-byte stores). The element type is a template
+// parameter: float and double, each with the D = 10 and run-time-D
+// instances. The selector rounding is done in the kernel, as the plain
+// version does it: to bf16 through float (PyTorch converts a double to
+// bf16 by way of float, so __float2bfloat16_rn((float)x) and not
+// __double2bfloat16), or, for a double payload and float32 selectors, to
+// float and back.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -59,11 +77,23 @@
 
 namespace {
 
-constexpr int kWarps = 8;                  // worlds per block (the wrapper's
-                                           // limit on k counts on it)
+constexpr int kWarps = 8;                  // worlds per block
 constexpr int kMinBlocks = 4;              // blocks an SM: 64 registers a thread
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 32 * 16;            // mask bytes a warp scans at once
+// the largest k whose index lists fit in the 48 KB of shared memory a
+// block gets without an opt-in
+constexpr int kMaxListK = 48 * 1024 / (kWarps * 4);
+
+// the selector rounding: 0 none, 1 bf16 (through float), 2 float
+enum Round { kNone = 0, kBf16 = 1, kFloat = 2 };
+
+template <typename T>
+__device__ __forceinline__ T round_sel(T v, int mode) {
+  if (mode == kBf16) return (T)__bfloat162float(__float2bfloat16_rn((float)v));
+  if (mode == kFloat) return (T)(float)v;
+  return v;
+}
 
 // The lane's 16 mask bytes from `off` as four words of 0/1 bytes; bytes at
 // or beyond M read as 0. `vec`: the row is 16-byte aligned and M % 16 == 0.
@@ -89,27 +119,50 @@ __device__ __forceinline__ uint4 load_mask16(const uint8_t* __restrict__ row,
   return w;
 }
 
+// rows[d, j] = payload[d, m] for every payload row d, rounded as asked.
+template <typename T, int kD>
+__device__ __forceinline__ void copy_column(const T* __restrict__ pay_w,
+                                            T* __restrict__ rows_w, int D,
+                                            int M, int k, int m, int j,
+                                            int round_mode) {
+  if constexpr (kD > 0) {
+    T v[kD];
+#pragma unroll
+    for (int d = 0; d < kD; ++d) v[d] = __ldcs(pay_w + (size_t)d * M + m);
+#pragma unroll
+    for (int d = 0; d < kD; ++d)
+      rows_w[(size_t)d * k + j] = round_sel(v[d], round_mode);
+  } else {
+    for (int d = 0; d < D; ++d)
+      rows_w[(size_t)d * k + j] =
+          round_sel(__ldcs(pay_w + (size_t)d * M + m), round_mode);
+  }
+}
+
 // kD > 0: the payload has kD rows (unrolled); kD == 0: D rows, a run-time
-// loop.
-template <int kD>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// loop. kList: the warp's index list in shared memory holds all k kept
+// columns (k <= kMaxListK); otherwise it holds one chunk's, gathered
+// before the next chunk is scanned.
+template <typename T, int kD, bool kList>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kMinBlocks : 2)
 compact_rows_kernel(const uint8_t* __restrict__ mask,      // (B, M)
-                    const float* __restrict__ payload,     // (B, D, M)
-                    float* __restrict__ rows,              // (B, D, k)
+                    const T* __restrict__ payload,         // (B, D, M)
+                    T* __restrict__ rows,                  // (B, D, k)
                     uint8_t* __restrict__ valid,           // (B, k)
                     int32_t* __restrict__ count,           // (B,)
                     int32_t* __restrict__ overflow,        // (B,)
-                    int B, int D, int M, int k, int round_bf16, int vec) {
-  extern __shared__ int index_lists[];                     // (kWarps, k)
+                    int B, int D, int M, int k, int round_mode, int vec) {
+  extern __shared__ int index_lists[];       // (kWarps, k) or (kWarps, kChunk)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int w = blockIdx.x * kWarps + warp;
   if (w >= B) return;                  // whole warps leave; no block barrier
   const int rows_d = kD > 0 ? kD : D;
-  int* idx = index_lists + warp * k;
+  int* idx = index_lists + warp * (kList ? k : kChunk);
   const uint8_t* mask_w = mask + (size_t)w * M;
-  const float* pay_w = payload + (size_t)w * rows_d * M;
+  const T* pay_w = payload + (size_t)w * rows_d * M;
+  T* rows_w = rows + (size_t)w * rows_d * k;
 
   int total = 0;                       // kept columns before this chunk
   for (int base = 0; base < M; base += kChunk) {
@@ -124,44 +177,62 @@ compact_rows_kernel(const uint8_t* __restrict__ mask,      // (B, M)
       if (lane >= step) incl += up;
     }
     int rank = total + incl - mine;
+    int slot = kList ? rank : incl - mine;     // the lane's first list slot
     const uint32_t words[4] = {bits.x, bits.y, bits.z, bits.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       uint32_t word = words[q];
       while (word != 0u && rank < k) {
         const int bit = __ffs(word) - 1;           // 0, 8, 16 or 24
-        idx[rank++] = off + 4 * q + (bit >> 3);
+        idx[slot++] = off + 4 * q + (bit >> 3);
+        ++rank;
         word &= word - 1u;
       }
     }
-    total += __shfl_sync(0xffffffffu, incl, 31);
+    const int in_chunk = __shfl_sync(0xffffffffu, incl, 31);
+    if constexpr (!kList) {
+      __syncwarp();
+      const int n = min(in_chunk, k - total);      // this chunk's kept columns
+      for (int j = lane; j < n; j += 32)
+        copy_column<T, kD>(pay_w, rows_w, D, M, k, idx[j], total + j,
+                           round_mode);
+      __syncwarp();                    // the list is the next chunk's
+    }
+    total += in_chunk;
   }
   __syncwarp();
 
   const int kept = total < k ? total : k;
-  float* rows_w = rows + (size_t)w * rows_d * k;
+  if constexpr (kList) {
 #pragma unroll 2
-  for (int j = lane; j < k; j += 32) {
-    const bool live = j < kept;
-    const int m = live ? idx[j] : 0;
-    if constexpr (kD > 0) {
-      float v[kD];
+    for (int j = lane; j < k; j += 32) {
+      const bool live = j < kept;
+      const int m = live ? idx[j] : 0;
+      if constexpr (kD > 0) {
+        T v[kD];
 #pragma unroll
-      for (int d = 0; d < kD; ++d)
-        v[d] = live ? __ldcs(pay_w + (size_t)d * M + m) : 0.0f;
+        for (int d = 0; d < kD; ++d)
+          v[d] = live ? __ldcs(pay_w + (size_t)d * M + m) : T(0);
 #pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        if (round_bf16) v[d] = __bfloat162float(__float2bfloat16_rn(v[d]));
-        rows_w[(size_t)d * k + j] = v[d];
+        for (int d = 0; d < kD; ++d) {
+          if (round_mode) v[d] = round_sel(v[d], round_mode);
+          rows_w[(size_t)d * k + j] = v[d];
+        }
+      } else {
+        for (int d = 0; d < D; ++d) {
+          T v = live ? __ldcs(pay_w + (size_t)d * M + m) : T(0);
+          if (round_mode) v = round_sel(v, round_mode);
+          rows_w[(size_t)d * k + j] = v;
+        }
       }
-    } else {
-      for (int d = 0; d < D; ++d) {
-        float v = live ? __ldcs(pay_w + (size_t)d * M + m) : 0.0f;
-        if (round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-        rows_w[(size_t)d * k + j] = v;
-      }
+      valid[(size_t)w * k + j] = (j < total) ? 1 : 0;
     }
-    valid[(size_t)w * k + j] = (j < total) ? 1 : 0;
+  } else {
+    // the kept columns are stored; zero the rest and write the flags
+    for (int j = kept + lane; j < k; j += 32)
+      for (int d = 0; d < rows_d; ++d) rows_w[(size_t)d * k + j] = T(0);
+    for (int j = lane; j < k; j += 32)
+      valid[(size_t)w * k + j] = (j < total) ? 1 : 0;
   }
   if (lane == 0) {
     count[w] = kept;
@@ -169,22 +240,42 @@ compact_rows_kernel(const uint8_t* __restrict__ mask,      // (B, M)
   }
 }
 
+template <typename T>
+int launch(const void* mask, const void* payload, void* rows, void* valid,
+           void* count, void* overflow, int B, int D, int M, int k,
+           int round_mode, void* stream) {
+  const int vec = (M % 16 == 0) && ((uintptr_t)mask % 16 == 0);
+  const int blocks = (B + kWarps - 1) / kWarps;
+  const bool list = k <= kMaxListK;
+  auto kernel = list ? (D == 10 ? compact_rows_kernel<T, 10, true>
+                                : compact_rows_kernel<T, 0, true>)
+                     : (D == 10 ? compact_rows_kernel<T, 10, false>
+                                : compact_rows_kernel<T, 0, false>);
+  const size_t smem = (size_t)kWarps * (list ? k : kChunk) * sizeof(int);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const T*)payload, (T*)rows, (uint8_t*)valid,
+      (int32_t*)count, (int32_t*)overflow, B, D, M, k, round_mode, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launches the kernel on `stream` for B worlds and returns the launch's
-// cudaError_t (0 on success). Pointers are device pointers; k ints per
-// warp must fit in 48 KB of shared memory (k <= 1536).
+// Each launcher enqueues the kernel on `stream` for B worlds and returns the
+// launch's cudaError_t (0 on success). Pointers are device pointers, the
+// payload and rows float (compact_rows_launch) or double
+// (compact_rows_launch_f64); k >= 1; round_mode: 0 none, 1 bf16, 2 float.
 extern "C" int compact_rows_launch(const void* mask, const void* payload,
                                    void* rows, void* valid, void* count,
                                    void* overflow, int B, int D, int M, int k,
-                                   int round_bf16, void* stream) {
-  const size_t smem = (size_t)kWarps * k * sizeof(int);
-  const int vec = (M % 16 == 0) && ((uintptr_t)mask % 16 == 0);
-  const int blocks = (B + kWarps - 1) / kWarps;
-  auto kernel = D == 10 ? compact_rows_kernel<10> : compact_rows_kernel<0>;
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, (const float*)payload, (float*)rows,
-      (uint8_t*)valid, (int32_t*)count, (int32_t*)overflow, B, D, M, k,
-      round_bf16, vec);
-  return (int)cudaGetLastError();
+                                   int round_mode, void* stream) {
+  return launch<float>(mask, payload, rows, valid, count, overflow, B, D, M,
+                       k, round_mode, stream);
+}
+
+extern "C" int compact_rows_launch_f64(const void* mask, const void* payload,
+                                       void* rows, void* valid, void* count,
+                                       void* overflow, int B, int D, int M,
+                                       int k, int round_mode, void* stream) {
+  return launch<double>(mask, payload, rows, valid, count, overflow, B, D, M,
+                        k, round_mode, stream);
 }

@@ -110,6 +110,19 @@
 // across the borders and stationary in (v, w) at the closest point, so
 // either moves it only at roundoff. ops/trimesh.py:_d2_kernel_order is this
 // file's arithmetic in PyTorch, for the tests.
+//
+// float64. Both kernels are templates on the element type, so a float64
+// step (the conformance configuration) runs the same arithmetic in double:
+// fma for fmaf, a clamp for __saturatef, a NaN-keeping minimum written out
+// (min.NaN has no f64 form), and the 1e-9 guards in double, as the plain
+// version's comparisons are. The staged triangle is then 160 bytes, 20 KB
+// a tile. The H100 SXM's FP64 rate outside the tensor cores is 34 TFLOP/s
+// on the data sheet, half the FP32 rate, so the f64 bound is twice the
+// f32 one; chip_smoke.py prints both, and the f64 instances' errors
+// against the plain version in double. Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W: the tile kernel 2.07 ms at 49,152 probes x 9,216
+// triangles (1.96 times its FP64 bound; float32 0.91 ms), the per-triangle
+// kernel 0.59 ms at 15,360 centres (float32 0.30 ms).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -120,44 +133,46 @@ constexpr int kTile = 128;            // triangles per tile (MESH_TILE)
 constexpr int kThreads = 128;         // threads per block of the tile kernel
 constexpr int kPerThread = 6;         // probes a thread carries
 constexpr int kProbes = kThreads * kPerThread;   // probes per block
-constexpr float kEps = 1e-9f;         // ops/trimesh.py _EPS
+constexpr double kEps = 1e-9;         // ops/trimesh.py _EPS
 constexpr int kMaxGroup = 128;        // centres a block of d2_kernel loops over
 static_assert(kMaxGroup <= kTile, "one thread stages one centre");
 // d2_kernel's launcher grows the group only once the grid has this many
 // blocks: 132 SMs x 16 resident blocks of 128 threads
 constexpr int kFillBlocks = 132 * 16;
 
-// A triangle as the pair function reads it, five 16-byte words, with
+// four values of T in one aligned word: float4's layout for float
+template <typename T>
+struct alignas(4 * sizeof(T)) Quad {
+  T x, y, z, w;
+};
+
+template <typename T>
+__device__ __forceinline__ Quad<T> quad(T x, T y, T z, T w) {
+  Quad<T> q;
+  q.x = x; q.y = y; q.z = z; q.w = w;
+  return q;
+}
+
+// A triangle as the pair function reads it, five aligned words, with
 // det = a c - b^2 and every reciprocal guarded:
 //   q0 = (v0, a), q1 = (e1, b), q2 = (e2, c),
 //   q3 = (1/a, 1/c, 1/((a - b) + (c - b)), det/det),
 //   q4 = (a/det, b/det, c/det, unused).
+template <typename T>
 struct Tri {
-  float4 q0, q1, q2, q3, q4;
+  Quad<T> q0, q1, q2, q3, q4;
 };
 
-__device__ __forceinline__ float guarded_reciprocal(float x, float otherwise) {
-  return fabsf(x) > kEps ? 1.0f / x : otherwise;
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
 }
-
-__device__ __forceinline__ Tri make_tri(
-    float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
-    float e2x, float e2y, float e2z) {
-  const float a = fmaf(e1z, e1z, fmaf(e1y, e1y, e1x * e1x));
-  const float b = fmaf(e1z, e2z, fmaf(e1y, e2y, e1x * e2x));
-  const float c = fmaf(e2z, e2z, fmaf(e2y, e2y, e2x * e2x));
-  const float det = fmaf(a, c, -(b * b));
-  const float inv_det = guarded_reciprocal(det, 1.0f);
-  Tri tri;
-  tri.q0 = make_float4(v0x, v0y, v0z, a);
-  tri.q1 = make_float4(e1x, e1y, e1z, b);
-  tri.q2 = make_float4(e2x, e2y, e2z, c);
-  tri.q3 = make_float4(guarded_reciprocal(a, 0.0f),
-                       guarded_reciprocal(c, 0.0f),
-                       guarded_reciprocal((a - b) + (c - b), 1.0f),
-                       det * inv_det);
-  tri.q4 = make_float4(a * inv_det, b * inv_det, c * inv_det, 0.0f);
-  return tri;
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float saturate(float x) { return __saturatef(x); }
+__device__ __forceinline__ double saturate(double x) {
+  // __saturatef's contract: NaN gives 0
+  return x > 0.0 ? (x < 1.0 ? x : 1.0) : 0.0;
 }
 
 // a minimum that keeps a NaN, as torch.amin and jnp.min do
@@ -166,79 +181,106 @@ __device__ __forceinline__ float min_keep_nan(float x, float y) {
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
   return r;
 }
+__device__ __forceinline__ double min_keep_nan(double x, double y) {
+  return (x != x) ? x : ((y != y) ? y : fmin(x, y));
+}
+
+template <typename T>
+__device__ __forceinline__ T guarded_reciprocal(T x, T otherwise) {
+  return fabs(x) > T(kEps) ? T(1) / x : otherwise;
+}
+
+template <typename T>
+__device__ __forceinline__ Tri<T> make_tri(
+    T v0x, T v0y, T v0z, T e1x, T e1y, T e1z, T e2x, T e2y, T e2z) {
+  const T a = fma_t(e1z, e1z, fma_t(e1y, e1y, e1x * e1x));
+  const T b = fma_t(e1z, e2z, fma_t(e1y, e2y, e1x * e2x));
+  const T c = fma_t(e2z, e2z, fma_t(e2y, e2y, e2x * e2x));
+  const T det = fma_t(a, c, -(b * b));
+  const T inv_det = guarded_reciprocal(det, T(1));
+  Tri<T> tri;
+  tri.q0 = quad(v0x, v0y, v0z, a);
+  tri.q1 = quad(e1x, e1y, e1z, b);
+  tri.q2 = quad(e2x, e2y, e2z, c);
+  tri.q3 = quad(guarded_reciprocal(a, T(0)), guarded_reciprocal(c, T(0)),
+                guarded_reciprocal((a - b) + (c - b), T(1)), det * inv_det);
+  tri.q4 = quad(a * inv_det, b * inv_det, c * inv_det, T(0));
+  return tri;
+}
 
 // Squared distance from p to its closest point on the triangle. The CPU
 // tests hold ops/trimesh.py:_d2_kernel_order, this function and make_tri
 // in PyTorch, to the plain version: edit that function with these two.
-__device__ __forceinline__ float pair_d2(float px, float py, float pz,
-                                         const Tri& tri) {
-  const float apx = px - tri.q0.x, apy = py - tri.q0.y, apz = pz - tri.q0.z;
-  const float e1x = tri.q1.x, e1y = tri.q1.y, e1z = tri.q1.z;
-  const float e2x = tri.q2.x, e2y = tri.q2.y, e2z = tri.q2.z;
-  const float a = tri.q0.w, b = tri.q1.w, c = tri.q2.w;
-  const float s = fmaf(e1z, apz, fmaf(e1y, apy, e1x * apx));
-  const float t = fmaf(e2z, apz, fmaf(e2y, apy, e2x * apx));
-  const float d3 = s - a, d4 = t - b, d5 = s - b, d6 = t - c;
-  const float d43 = d4 - d3;
+template <typename T>
+__device__ __forceinline__ T pair_d2(T px, T py, T pz, const Tri<T>& tri) {
+  const T apx = px - tri.q0.x, apy = py - tri.q0.y, apz = pz - tri.q0.z;
+  const T e1x = tri.q1.x, e1y = tri.q1.y, e1z = tri.q1.z;
+  const T e2x = tri.q2.x, e2y = tri.q2.y, e2z = tri.q2.z;
+  const T a = tri.q0.w, b = tri.q1.w, c = tri.q2.w;
+  const T s = fma_t(e1z, apz, fma_t(e1y, apy, e1x * apx));
+  const T t = fma_t(e2z, apz, fma_t(e2y, apy, e2x * apx));
+  const T d3 = s - a, d4 = t - b, d5 = s - b, d6 = t - c;
+  const T d43 = d4 - d3;
   // the interior's barycentrics vb/det and vc/det, with the signs of vb, vc
-  const float v_in = fmaf(tri.q4.z, s, -(tri.q4.y * t));
-  const float w_in = fmaf(tri.q4.x, t, -(tri.q4.y * s));
+  const T v_in = fma_t(tri.q4.z, s, -(tri.q4.y * t));
+  const T w_in = fma_t(tri.q4.x, t, -(tri.q4.y * s));
 
-  const bool in_a = (s <= 0.0f) & (t <= 0.0f);
-  const bool in_b = (d3 >= 0.0f) & (d43 <= 0.0f);
-  const bool in_c = (d6 >= 0.0f) & (d5 <= d6);
-  const bool on_ab = (w_in <= 0.0f) & (s >= 0.0f) & (d3 <= 0.0f);
-  const bool on_ac = (v_in <= 0.0f) & (t >= 0.0f) & (d6 <= 0.0f);
+  const bool in_a = (s <= T(0)) & (t <= T(0));
+  const bool in_b = (d3 >= T(0)) & (d43 <= T(0));
+  const bool in_c = (d6 >= T(0)) & (d5 <= d6);
+  const bool on_ab = (w_in <= T(0)) & (s >= T(0)) & (d3 <= T(0));
+  const bool on_ac = (v_in <= T(0)) & (t >= T(0)) & (d6 <= T(0));
   const bool on_bc = (v_in + w_in) >= tri.q3.w;          // va <= 0
   const bool use_ab = in_a | in_b | (on_ab & !in_c);
   const bool use_ac = in_c | on_ac;
 
-  const float u = __saturatef(d43 * tri.q3.z);
-  float v = on_bc ? 1.0f - u : v_in;
-  float w = on_bc ? u : w_in;
-  v = use_ac ? 0.0f : v;
-  w = use_ac ? __saturatef(t * tri.q3.y) : w;
-  v = use_ab ? __saturatef(s * tri.q3.x) : v;
-  w = use_ab ? 0.0f : w;
+  const T u = saturate(d43 * tri.q3.z);
+  T v = on_bc ? T(1) - u : v_in;
+  T w = on_bc ? u : w_in;
+  v = use_ac ? T(0) : v;
+  w = use_ac ? saturate(t * tri.q3.y) : w;
+  v = use_ab ? saturate(s * tri.q3.x) : v;
+  w = use_ab ? T(0) : w;
 
-  const float dx = fmaf(-w, e2x, fmaf(-v, e1x, apx));
-  const float dy = fmaf(-w, e2y, fmaf(-v, e1y, apy));
-  const float dz = fmaf(-w, e2z, fmaf(-v, e1z, apz));
-  return fmaf(dz, dz, fmaf(dy, dy, dx * dx));
+  const T dx = fma_t(-w, e2x, fma_t(-v, e1x, apx));
+  const T dy = fma_t(-w, e2y, fma_t(-v, e1y, apy));
+  const T dz = fma_t(-w, e2z, fma_t(-v, e1z, apz));
+  return fma_t(dz, dz, fma_t(dy, dy, dx * dx));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-d2_tiles_kernel(const float* __restrict__ probes,    // (P, 3)
-                const float* __restrict__ v0t,       // (3, T)
-                const float* __restrict__ e1t,       // (3, T)
-                const float* __restrict__ e2t,       // (3, T)
-                float* __restrict__ out,             // (P, T / kTile)
-                int P, int T) {
-  __shared__ Tri tris[kTile];
+d2_tiles_kernel(const T* __restrict__ probes,    // (P, 3)
+                const T* __restrict__ v0t,       // (3, T)
+                const T* __restrict__ e1t,       // (3, T)
+                const T* __restrict__ e2t,       // (3, T)
+                T* __restrict__ out,             // (P, T / kTile)
+                int P, int T_) {
+  __shared__ Tri<T> tris[kTile];
   const int tile = blockIdx.y;
-  const int nt = T / kTile;
+  const int nt = T_ / kTile;
   for (int i = threadIdx.x; i < kTile; i += kThreads) {
     const size_t t = (size_t)tile * kTile + i;
-    tris[i] = make_tri(v0t[t], v0t[T + t], v0t[2 * (size_t)T + t],
-                       e1t[t], e1t[T + t], e1t[2 * (size_t)T + t],
-                       e2t[t], e2t[T + t], e2t[2 * (size_t)T + t]);
+    tris[i] = make_tri(v0t[t], v0t[T_ + t], v0t[2 * (size_t)T_ + t],
+                       e1t[t], e1t[T_ + t], e1t[2 * (size_t)T_ + t],
+                       e2t[t], e2t[T_ + t], e2t[2 * (size_t)T_ + t]);
   }
   __syncthreads();
 
   // probe j of this thread; past the end it repeats the last probe and is
   // not stored
   const int first = blockIdx.x * kProbes + threadIdx.x;
-  float px[kPerThread], py[kPerThread], pz[kPerThread], best[kPerThread];
+  T px[kPerThread], py[kPerThread], pz[kPerThread], best[kPerThread];
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
     const int p = min(first + j * kThreads, P - 1);
     px[j] = probes[(size_t)p * 3 + 0];
     py[j] = probes[(size_t)p * 3 + 1];
     pz[j] = probes[(size_t)p * 3 + 2];
-    best[j] = INFINITY;
+    best[j] = T(INFINITY);
   }
   for (int i = 0; i < kTile; ++i) {
-    const Tri tri = tris[i];
+    const Tri<T> tri = tris[i];
 #pragma unroll
     for (int j = 0; j < kPerThread; ++j)
       best[j] = min_keep_nan(best[j], pair_d2(px[j], py[j], pz[j], tri));
@@ -250,47 +292,75 @@ d2_tiles_kernel(const float* __restrict__ probes,    // (P, 3)
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kTile)
-d2_kernel(const float* __restrict__ centers,         // (C, 3)
-          const float* __restrict__ v0t,             // (3, T)
-          const float* __restrict__ e1t,
-          const float* __restrict__ e2t,
-          float* __restrict__ out,                   // (C, T / kTile, kTile)
-          int C, int T, int group) {
-  __shared__ float4 cs[kMaxGroup];
+d2_kernel(const T* __restrict__ centers,         // (C, 3)
+          const T* __restrict__ v0t,             // (3, T)
+          const T* __restrict__ e1t,
+          const T* __restrict__ e2t,
+          T* __restrict__ out,                   // (C, T / kTile, kTile)
+          int C, int T_, int group) {
+  __shared__ Quad<T> cs[kMaxGroup];
   const int first = blockIdx.x * group;
   const int n = min(group, C - first);
   if (threadIdx.x < n) {
-    const float* c = centers + (size_t)(first + threadIdx.x) * 3;
-    cs[threadIdx.x] = make_float4(c[0], c[1], c[2], 0.0f);
+    const T* c = centers + (size_t)(first + threadIdx.x) * 3;
+    cs[threadIdx.x] = quad(c[0], c[1], c[2], T(0));
   }
   const size_t t = (size_t)blockIdx.y * kTile + threadIdx.x;
-  const Tri tri = make_tri(v0t[t], v0t[T + t], v0t[2 * (size_t)T + t],
-                           e1t[t], e1t[T + t], e1t[2 * (size_t)T + t],
-                           e2t[t], e2t[T + t], e2t[2 * (size_t)T + t]);
+  const Tri<T> tri = make_tri(v0t[t], v0t[T_ + t], v0t[2 * (size_t)T_ + t],
+                              e1t[t], e1t[T_ + t], e1t[2 * (size_t)T_ + t],
+                              e2t[t], e2t[T_ + t], e2t[2 * (size_t)T_ + t]);
   __syncthreads();
-  float* row = out + (size_t)first * T + t;
+  T* row = out + (size_t)first * T_ + t;
 #pragma unroll 16
   for (int j = 0; j < n; ++j) {
-    const float4 c = cs[j];
-    __stcs(row + (size_t)j * T, pair_d2(c.x, c.y, c.z, tri));
+    const Quad<T> c = cs[j];
+    __stcs(row + (size_t)j * T_, pair_d2(c.x, c.y, c.z, tri));
   }
+}
+
+template <typename T>
+int tiles_launch(const void* probes, const void* v0t, const void* e1t,
+                 const void* e2t, void* out, int P, int T_, void* stream) {
+  const dim3 grid((P + kProbes - 1) / kProbes, T_ / kTile);
+  d2_tiles_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)probes, (const T*)v0t, (const T*)e1t, (const T*)e2t,
+      (T*)out, P, T_);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int batch_launch(const void* centers, const void* v0t, const void* e1t,
+                 const void* e2t, void* out, int C, int T_, void* stream) {
+  const int tiles = T_ / kTile;
+  const long long alone = (long long)C * tiles;      // blocks at group 1
+  const long long wanted = (alone + kFillBlocks - 1) / kFillBlocks;
+  const int group = wanted < kMaxGroup ? (int)wanted : kMaxGroup;
+  const dim3 grid((C + group - 1) / group, tiles);
+  d2_kernel<T><<<grid, kTile, 0, (cudaStream_t)stream>>>(
+      (const T*)centers, (const T*)v0t, (const T*)e1t, (const T*)e2t,
+      (T*)out, C, T_, group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Each launcher enqueues its kernel on `stream` and returns the launch's
-// cudaError_t (0 on success). Pointers are device pointers; T is a
-// multiple of 128 with at most 65,535 tiles, and P >= 1.
+// cudaError_t (0 on success). Pointers are device pointers to float, or to
+// double for the _f64 launchers; T is a multiple of 128 with at most
+// 65,535 tiles, and P >= 1.
 extern "C" int sphere_mesh_d2_tiles_launch(const void* probes, const void* v0t,
                                            const void* e1t, const void* e2t,
                                            void* out, int P, int T,
                                            void* stream) {
-  const dim3 grid((P + kProbes - 1) / kProbes, T / kTile);
-  d2_tiles_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)probes, (const float*)v0t, (const float*)e1t,
-      (const float*)e2t, (float*)out, P, T);
-  return (int)cudaGetLastError();
+  return tiles_launch<float>(probes, v0t, e1t, e2t, out, P, T, stream);
+}
+
+extern "C" int sphere_mesh_d2_tiles_launch_f64(
+    const void* probes, const void* v0t, const void* e1t, const void* e2t,
+    void* out, int P, int T, void* stream) {
+  return tiles_launch<double>(probes, v0t, e1t, e2t, out, P, T, stream);
 }
 
 // C >= 1 centres in one launch, whatever C is.
@@ -299,13 +369,11 @@ extern "C" int sphere_mesh_d2_batch_launch(const void* centers,
                                            const void* e1t, const void* e2t,
                                            void* out, int C, int T,
                                            void* stream) {
-  const int tiles = T / kTile;
-  const long long alone = (long long)C * tiles;      // blocks at group 1
-  const long long wanted = (alone + kFillBlocks - 1) / kFillBlocks;
-  const int group = wanted < kMaxGroup ? (int)wanted : kMaxGroup;
-  const dim3 grid((C + group - 1) / group, tiles);
-  d2_kernel<<<grid, kTile, 0, (cudaStream_t)stream>>>(
-      (const float*)centers, (const float*)v0t, (const float*)e1t,
-      (const float*)e2t, (float*)out, C, T, group);
-  return (int)cudaGetLastError();
+  return batch_launch<float>(centers, v0t, e1t, e2t, out, C, T, stream);
+}
+
+extern "C" int sphere_mesh_d2_batch_launch_f64(
+    const void* centers, const void* v0t, const void* e1t, const void* e2t,
+    void* out, int C, int T, void* stream) {
+  return batch_launch<double>(centers, v0t, e1t, e2t, out, C, T, stream);
 }

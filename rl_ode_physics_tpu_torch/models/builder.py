@@ -71,7 +71,9 @@ class WorldBuilder:
     def add_body_map(self, pos, rot_euler, size,
                      color=(80, 80, 80, 255)) -> int:
         """AddBodyMap semantics: a static box geom. Its quaternion comes
-        from ``from_euler_xyz`` in f32, like the JAX builder's."""
+        from ``from_euler_xyz`` in f32 whatever ``config.dtype`` is: the JAX
+        builder computes it so (``jnp.asarray(rot_euler, jnp.float32)``),
+        and a float64 world must start from the same quaternion."""
         i = self._next()
         self.pos[i] = pos
         rot = torch.tensor(rot_euler, dtype=torch.float32)

@@ -80,8 +80,10 @@ class PhysicsEnv:
         self.num_worlds = num_worlds
         self.substeps = substeps
         self.trimesh = trimesh
+        # rounded to f32 as the JAX env does, then held in the state's dtype
         self.lidar_dirs = (None if lidar_dirs is None else torch.as_tensor(
-            lidar_dirs, dtype=torch.float32).to(self.device))
+            lidar_dirs, dtype=torch.float32).to(
+                device=self.device, dtype=getattr(torch, config.dtype)))
         self.lidar_range = lidar_range
         self.obs_slots = (None if obs_slots is None
                           else tuple(int(s) for s in obs_slots))

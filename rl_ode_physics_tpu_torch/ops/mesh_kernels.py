@@ -5,7 +5,8 @@
 (phase 1 of ``ops/trimesh.mesh_narrowphase``, once per substep) and
 ``sphere_mesh_d2`` (``ops/trimesh.sphere_mesh_contacts``), which takes the
 centres of a whole query in one launch: the batch axis that ``jax.vmap``
-over the Pallas call adds. The library is built with ``nvcc`` at first use
+over the Pallas call adds. Both take float32 or float64 (one template
+instance each). The library is built with ``nvcc`` at first use
 (``ops/kernel_build.py``).
 
 Each wrapper launches its kernel for CUDA tensors. For CPU tensors, and
@@ -15,8 +16,9 @@ which ``chip_smoke.py`` also holds the kernel to on the card, at rtol
 their reciprocals once per triangle, so they round otherwise than the
 plain versions, and the tile minima feed only the cull of
 ``ops/trimesh.mesh_narrowphase``, which recomputes every contact from the
-candidate triangles. The ``launches`` attribute of each wrapper counts its
-kernel's launches.
+candidate triangles. In float64 the same holds at ``D2_RTOL_F64``,
+``D2_ATOL_F64``. The ``launches`` attribute of each wrapper counts its
+kernel's launches, float32 and float64 alike.
 """
 
 from __future__ import annotations
@@ -30,8 +32,11 @@ from rl_ode_physics_tpu_torch.ops import kernel_build, trimesh
 
 MESH_TILE = trimesh.MESH_TILE
 _MAX_TILES = 65535                  # both kernels' grid.y
-# how closely the kernels match their plain versions
+# how closely the kernels match their plain versions, in float32 and in
+# float64
 D2_RTOL, D2_ATOL = 1e-5, 1e-6
+D2_RTOL_F64, D2_ATOL_F64 = 1e-12, 1e-13
+_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
 
 def build():
@@ -42,10 +47,16 @@ def build():
 
 # the library's C interface: launcher → argtypes
 FUNCTIONS = {
-    "sphere_mesh_d2_tiles_launch":
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    "sphere_mesh_d2_batch_launch":
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+    f"sphere_mesh_d2_{kind}_launch{suffix}":
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for kind in ("tiles", "batch") for suffix in _SUFFIX.values()}
+
+
+def tolerance(dtype) -> tuple:
+    """(rtol, atol) the kernels are held to their plain versions at."""
+    if dtype == torch.float64:
+        return D2_RTOL_F64, D2_ATOL_F64
+    return D2_RTOL, D2_ATOL
 
 
 @functools.lru_cache(maxsize=1)
@@ -58,16 +69,19 @@ def _all_cpu(*tensors) -> bool:
 
 
 def _check(points: torch.Tensor, tris) -> int:
-    """Raise unless every tensor is a contiguous f32 CUDA tensor on one
-    device and the triangle planes are (3, T) with T a positive multiple
-    of 128; return T."""
+    """Raise unless every tensor is a contiguous CUDA tensor on one device,
+    all float32 or all float64, and the triangle planes are (3, T) with T
+    a positive multiple of 128; return T."""
     dev = points.device
+    if points.dtype not in _SUFFIX:
+        raise TypeError(f"expected float32 or float64, got {points.dtype}")
     for x in (points, *tris):
         if not x.is_cuda or x.device != dev:
             raise ValueError(f"tensors on {x.device} and {dev}: the kernel "
                              f"takes CUDA tensors on one device")
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise TypeError(f"expected contiguous float32, got {x.dtype}")
+        if x.dtype != points.dtype or not x.is_contiguous():
+            raise TypeError(f"expected contiguous {points.dtype}, got "
+                            f"{x.dtype}")
     t = tris[0].shape[-1]
     for x in tris:
         if x.shape != (3, t):
@@ -96,11 +110,13 @@ def sphere_mesh_d2_tiles(probes: torch.Tensor, v0t: torch.Tensor,
     if t // MESH_TILE > _MAX_TILES:
         raise ValueError(f"{t // MESH_TILE} tiles: at most {_MAX_TILES}")
     p = probes.shape[0]
-    out = torch.empty((p, t // MESH_TILE), dtype=torch.float32,
+    out = torch.empty((p, t // MESH_TILE), dtype=probes.dtype,
                       device=probes.device)
+    launch = getattr(_library(), "sphere_mesh_d2_tiles_launch"
+                     + _SUFFIX[probes.dtype])
     with torch.cuda.device(probes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().sphere_mesh_d2_tiles_launch(
+        err = launch(
             probes.data_ptr(), v0t.data_ptr(), e1t.data_ptr(),
             e2t.data_ptr(), out.data_ptr(), p, t, stream)
     _raise_on(err, "sphere_mesh_d2_tiles")
@@ -124,11 +140,13 @@ def sphere_mesh_d2(centers: torch.Tensor, v0t: torch.Tensor,
     if t // MESH_TILE > _MAX_TILES:
         raise ValueError(f"{t // MESH_TILE} tiles: at most {_MAX_TILES}")
     c = 1 if single else centers.shape[0]
-    out = torch.empty((c, t // MESH_TILE, MESH_TILE), dtype=torch.float32,
+    out = torch.empty((c, t // MESH_TILE, MESH_TILE), dtype=centers.dtype,
                       device=centers.device)
+    launch = getattr(_library(), "sphere_mesh_d2_batch_launch"
+                     + _SUFFIX[centers.dtype])
     with torch.cuda.device(centers.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().sphere_mesh_d2_batch_launch(
+        err = launch(
             centers.data_ptr(), v0t.data_ptr(), e1t.data_ptr(),
             e2t.data_ptr(), out.data_ptr(), c, t, stream)
     _raise_on(err, "sphere_mesh_d2")

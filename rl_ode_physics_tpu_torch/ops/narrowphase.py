@@ -205,7 +205,7 @@ _BOX_CORNERS = np.array(
 def _box_plane(pa, qa, sa, pb, qb, sb, k):
     n_p, d_p = _plane_params(pb, qb)
     ra = quat_m.to_matrix(qa)
-    signs = torch.as_tensor(_BOX_CORNERS, device=pa.device)
+    signs = torch.as_tensor(_BOX_CORNERS, dtype=pa.dtype, device=pa.device)
     corners = pa[..., None, :] + _mv(ra[..., None, :, :],
                                      signs * (0.5 * sa)[..., None, :])
     depths = d_p[..., None] - torch.sum(corners * n_p[..., None, :], -1)
@@ -690,10 +690,11 @@ def _check_key_space(n: int, k: int) -> None:
             f"the f32 exact-integer range 2^24")
 
 
-def _selector_dtype(config: EngineConfig, n: int):
+def _selector_dtype(config: EngineConfig, n: int, state_dtype):
     """The dtype the typed paths round their feature table and payload to,
     as the JAX package's selector matmuls in ``selector_dtype`` do; None
-    for float32 (no rounding)."""
+    where it is the state's own dtype (no rounding). A float64 state with
+    float32 selectors rounds to float32, as the JAX package does."""
     if jnp_dtype_is_bf16(config.selector_dtype):
         if n > 256:
             raise ValueError(
@@ -703,7 +704,7 @@ def _selector_dtype(config: EngineConfig, n: int):
     if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
         raise ValueError(f"selector_dtype={config.selector_dtype!r} is not "
                          f"a floating-point dtype")
-    return None if dtype == torch.float32 else dtype
+    return None if dtype == state_dtype else dtype
 
 
 def _gather_rows(table, idx):
@@ -743,8 +744,9 @@ def _compact_typed(packed_t, flat_valid, extra, config: EngineConfig, n: int,
         flat_valid = torch.cat([flat_valid, e_val], dim=1)
 
     k_glob = config.max_contacts_per_pair
-    if sel not in (None, torch.bfloat16):
-        # the kernel rounds to bf16 itself; another dtype rounds here
+    if sel not in (None, torch.bfloat16, torch.float32):
+        # the kernel rounds to bf16 and float32 itself; another dtype
+        # rounds here
         packed_t, sel = compaction.round_to(packed_t, sel), None
     rows_t, cvalid, count, row_overflow = compaction_kernel.compact_rows_t(
         flat_valid, packed_t, config.max_contacts, sel_dtype=sel)
@@ -800,7 +802,7 @@ def narrowphase_typed(state: WorldState, config: EngineConfig, extra=None,
     k_glob = config.max_contacts_per_pair
     f = state.pos.dtype
     _check_key_space(n, k_glob)
-    sel = _selector_dtype(config, n)
+    sel = _selector_dtype(config, n, f)
 
     hit, tmin, tmax = _pair_eligibility(state, exclude)
     # the JAX package rounds the feature table to the selector dtype before

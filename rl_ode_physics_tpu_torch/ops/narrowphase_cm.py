@@ -755,7 +755,7 @@ def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
     k_glob = config.max_contacts_per_pair
     f = state.pos.dtype
     _check_key_space(n, k_glob)
-    sel = _selector_dtype(config, n)
+    sel = _selector_dtype(config, n, f)
 
     # component-major feature table (B, 12, N): pos ‖ quat ‖ size ‖ type ‖
     # slot id. The JAX package rounds it to the selector dtype before its

@@ -1,8 +1,11 @@
-"""Contact solver: batched projected Jacobi with mass splitting.
+"""Contact solver: batched projected Jacobi with mass splitting, and
+sequential projected Gauss-Seidel.
 
-The port of the JACOBI path of ``rl_ode_physics_tpu/ops/solver.py``
-(``:54-190``, ``:334-545``, ``:636-765``): the row-major iteration loop with
-heavy-ball momentum, μ=∞ or finite μ, and per-body surface parameters.
+The port of the JACOBI and PGS paths of ``rl_ode_physics_tpu/ops/solver.py``
+(``:54-331``, ``:334-545``, ``:636-765``): the row-major Jacobi loop with
+heavy-ball momentum, μ=∞ or finite μ, and per-body surface parameters; PGS
+in buffer row order (ODE QuickStep's ordering, the conformance solver);
+warm starting (``lam0``) and impulse outputs (``return_lam``) on both.
 
 Per contact row (normal n, arms r_a/r_b, bodies a, b), in impulse space:
     v_n    = (v_b + w_b × r_b − v_a − w_a × r_a) · n
@@ -17,7 +20,15 @@ package, as ``torch.bmm``: the gather ``S @ vel`` and the scatter
 ``Sᵀ @ contrib``. Both are deterministic on the card, where an
 ``index_add_`` would sum in an order that changes from run to run. A
 float32 matmul stays float32 on the card only with TF32 off, which is
-PyTorch's default; ``solve_jacobi`` raises if it was turned on.
+PyTorch's default; both solvers raise if it was turned on.
+
+PGS is sequential over rows: row i reads the velocities row i − 1 wrote.
+Its loop runs in Python, a few dozen launches over (B,) tensors a row,
+batched over worlds, and stops at the batch's last live row: rows are
+compacted with the live ones first, and a dead row adds ``axis·0`` to the
+velocities, so the rows past it change nothing while their geometry is
+finite. Finding that row is one host read per solve, which keeps PGS out
+of a captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -78,10 +89,38 @@ def _gather_body_features(state: WorldState, s_mat, kappa):
     )
 
 
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, ...) per-slot values at (B, C) slots → (B, C, ...)."""
+    b, c = idx.shape
+    flat = x.reshape(b, x.shape[1], -1)
+    out = torch.gather(flat, 1, idx.to(torch.int64)[..., None].expand(
+        b, c, flat.shape[-1]))
+    return out.reshape((b, c) + x.shape[2:])
+
+
+def _direct_body_features(state: WorldState, contacts: Contacts):
+    """Per-contact body features by index: the PGS path's direct gathers
+    (``_row_data`` of the JAX package without ``gathered``)."""
+    inv_i = world_inv_inertia(state)                    # (B, N, 3, 3)
+    vel = torch.cat([state.linvel, state.angvel], -1)   # (B, N, 6)
+    a, b = contacts.a, contacts.b
+    return dict(
+        pos_a=_take(state.pos, a), pos_b=_take(state.pos, b),
+        inv_i_a=_take(inv_i, a), inv_i_b=_take(inv_i, b),
+        inv_m_a=_take(state.inv_mass, a), inv_m_b=_take(state.inv_mass, b),
+        vel_a=_take(vel, a), vel_b=_take(vel, b),
+        friction_a=_take(state.friction, a),
+        friction_b=_take(state.friction, b),
+        bounce_a=_take(state.restitution, a),
+        bounce_b=_take(state.restitution, b),
+        inv_i=inv_i,
+    )
+
+
 def _row_data(state: WorldState, contacts: Contacts, config: EngineConfig,
               gathered):
-    """Per-row geometry, effective masses and rhs targets from the
-    selector-gathered body features."""
+    """Per-row geometry, effective masses and rhs targets from the body
+    features ``gathered`` by the selector product or, for PGS, by index."""
     dt = config.dt
     n = contacts.normal
     p = contacts.point
@@ -113,10 +152,14 @@ def _row_data(state: WorldState, contacts: Contacts, config: EngineConfig,
     d_t2 = eff_mass(t2) + cfm_term
 
     # rhs: ERP bias capped by max_correcting_vel, bounce from pre-solve v_n
-    vh = torch.bmm(gathered["s_mat"],
-                   torch.cat([state.linvel, state.angvel], -1))
-    va0 = vh[:, :c, 0:3] + _cross(vh[:, :c, 3:6], r_a)
-    vb0 = vh[:, c:, 0:3] + _cross(vh[:, c:, 3:6], r_b)
+    if "vel_a" in gathered:
+        vel_a, vel_b = gathered["vel_a"], gathered["vel_b"]
+    else:
+        vh = torch.bmm(gathered["s_mat"],
+                       torch.cat([state.linvel, state.angvel], -1))
+        vel_a, vel_b = vh[:, :c], vh[:, c:]
+    va0 = vel_a[..., 0:3] + _cross(vel_a[..., 3:6], r_a)
+    vb0 = vel_b[..., 0:3] + _cross(vel_b[..., 3:6], r_b)
     v0 = vb0 - va0
     v_n0 = torch.sum(v0 * n, dim=-1)
 
@@ -124,11 +167,16 @@ def _row_data(state: WorldState, contacts: Contacts, config: EngineConfig,
                            config.max_correcting_vel)
     mu_row = None
     if config.per_body_surface:
-        # pair mixing: min(friction) via max of the shipped inverses,
-        # max(restitution)
-        inv_mu = torch.maximum(gathered["inv_mu_a"], gathered["inv_mu_b"])
-        mu_row = torch.where(inv_mu > _EPS,
-                             1.0 / torch.clamp_min(inv_mu, _EPS), torch.inf)
+        # pair mixing: min(friction), by index or via max of the shipped
+        # inverses, and max(restitution)
+        if "friction_a" in gathered:
+            mu_row = torch.minimum(gathered["friction_a"],
+                                   gathered["friction_b"])
+        else:
+            inv_mu = torch.maximum(gathered["inv_mu_a"], gathered["inv_mu_b"])
+            mu_row = torch.where(inv_mu > _EPS,
+                                 1.0 / torch.clamp_min(inv_mu, _EPS),
+                                 torch.inf)
         bounce_row = torch.maximum(gathered["bounce_a"], gathered["bounce_b"])
     else:
         bounce_row = config.bounce
@@ -234,16 +282,10 @@ def pack_solver_inputs(state: WorldState, contacts: Contacts,
     return s_mat, rowdata, halfop, vel, extras
 
 
-def solve_jacobi(state: WorldState, contacts: Contacts,
-                 config: EngineConfig, lam0=None, return_lam: bool = False,
-                 joints_rows=None):
-    """Batched projected Jacobi with mass splitting, ``solver_iterations``
-    sweeps of the row-major loop. Warm starting (``lam0``), impulse outputs
-    (``return_lam``), joints and the component-major loop (``solver_cm``)
-    are not ported and raise."""
-    if lam0 is not None or return_lam:
-        raise NotImplementedError("warm starting and impulse outputs are "
-                                  "not ported")
+def _check_solver(state: WorldState, config: EngineConfig,
+                  joints_rows) -> None:
+    """Raise for what the port's solvers do not have: joint rows, the
+    component-major loop, bf16 selector products, and TF32 products."""
     if joints_rows is not None:
         raise NotImplementedError("joint rows are not ported")
     if config.solver_cm:
@@ -256,6 +298,18 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
     if state.pos.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on: the "
                            "selector products must run in full float32")
+
+
+def solve_jacobi(state: WorldState, contacts: Contacts,
+                 config: EngineConfig, lam0=None, return_lam: bool = False,
+                 joints_rows=None):
+    """Batched projected Jacobi with mass splitting, ``solver_iterations``
+    sweeps of the row-major loop. ``lam0``: (B, C, 3) initial impulses
+    (normal, t1, t2), applied to the velocities up front (warm start);
+    ``return_lam`` also returns the accumulated (B, C, 3) impulses. Joints
+    and the component-major loop (``solver_cm``) are not ported and
+    raise."""
+    _check_solver(state, config, joints_rows)
     c = contacts.a.shape[1]
     f = state.linvel.dtype
 
@@ -327,8 +381,18 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
 
     zero = torch.zeros(contacts.valid.shape + (1,), dtype=f,
                        device=state.device)
-    vel, lam_n, lam_t1, lam_t2 = vel0, zero, zero, zero
-    pn = p1 = p2 = zero
+    if lam0 is None:
+        l_n = l_1 = l_2 = zero
+    else:
+        # warm start: the cached impulses go through the same scatter
+        l_n, l_1, l_2 = (torch.where(contacts.valid, lam0[..., j].to(f),
+                                     0.0)[..., None] for j in range(3))
+        if config.friction:
+            vel0 = vel0 + scatter_dl(l_n, l_1, l_2)
+        else:
+            vel0 = vel0 + scatter_dl(l_n)
+    vel, lam_n, lam_t1, lam_t2 = vel0, l_n, l_1, l_2
+    pn, p1, p2 = l_n, l_1, l_2
     for _ in range(config.solver_iterations):
         if momentum:
             # heavy-ball: extrapolate with the previous accepted step before
@@ -374,14 +438,148 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
 
         vel = vel + dv
 
-    return state.replace(linvel=vel[..., 0:3].contiguous(),
-                         angvel=vel[..., 3:6].contiguous())
+    out = state.replace(linvel=vel[..., 0:3].contiguous(),
+                        angvel=vel[..., 3:6].contiguous())
+    if return_lam:
+        return out, torch.cat([lam_n, lam_t1, lam_t2], dim=-1)
+    return out
+
+
+def live_row_bound(valid: torch.Tensor) -> int:
+    """One past the last row that is live in some world of the batch: the
+    rows a sequential sweep must visit. One host read."""
+    c = valid.shape[1]
+    if c == 0:
+        return 0
+    last = torch.arange(1, c + 1, device=valid.device) * valid.any(0)
+    return int(last.max())
+
+
+def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
+              lam0=None, return_lam: bool = False, joints_rows=None):
+    """Sequential projected Gauss-Seidel (SOR) in buffer row order, ODE
+    QuickStep's ordering: ``solver_iterations`` sweeps, each row seeing the
+    velocities the rows before it wrote; batched over worlds.
+
+    ``lam0``: (B, C, 3) initial impulses, applied to the velocities up
+    front (warm start); ``return_lam`` also returns the accumulated
+    (B, C, 3) impulses. Each sweep stops at ``live_row_bound`` of the
+    contacts: rows past it are dead in every world, and a dead row changes
+    nothing. Joints are not ported and raise."""
+    _check_solver(state, config, joints_rows)
+    feats = _direct_body_features(state, contacts)
+    rows = _row_data(state, contacts, config, feats)
+    bsz, c = contacts.a.shape
+    dev = state.device
+    omega = config.sor_omega
+    cfm_term = config.cfm / config.dt
+    mu_inf = math.isinf(config.mu)
+    rows_bound = live_row_bound(contacts.valid)
+
+    def by_row(x):
+        """(B, C, ...) → (C, B, ...), so that row i is a view."""
+        return x.transpose(0, 1).contiguous()
+
+    a_r, b_r = by_row(contacts.a.to(torch.int64)), by_row(
+        contacts.b.to(torch.int64))
+    live_r = by_row(contacts.valid)
+    r_a, r_b = by_row(rows["r_a"]), by_row(rows["r_b"])
+    im_a, im_b = by_row(feats["inv_m_a"]), by_row(feats["inv_m_b"])
+    ii_a, ii_b = by_row(feats["inv_i_a"]), by_row(feats["inv_i_b"])
+    axes = [by_row(rows[k]) for k in ("n", "t1", "t2")]
+    d_r = [by_row(rows[k]) for k in ("d_n", "d_t1", "d_t2")]
+    target_r = by_row(rows["target"])
+    mu_r = by_row(rows["mu"]) if config.per_body_surface else None
+    ar = torch.arange(bsz, device=dev)
+
+    vel = torch.cat([state.linvel, state.angvel], -1)   # (B, N, 6), updated
+    if lam0 is None:
+        lam = torch.zeros((3, c, bsz), dtype=vel.dtype, device=dev)
+    else:
+        # warm start: the cached impulses of the live rows, applied to the
+        # velocities up front through one-hot products, then refined
+        l3 = torch.where(contacts.valid[..., None], lam0.to(vel.dtype),
+                         0.0)                                  # (B, C, 3)
+        imp = (rows["n"] * l3[..., 0:1] + rows["t1"] * l3[..., 1:2]
+               + rows["t2"] * l3[..., 2:3])
+        n_slots = state.num_slots
+        for sign, body, r, im, ii in (
+                (-1.0, contacts.a, rows["r_a"], feats["inv_m_a"],
+                 feats["inv_i_a"]),
+                (1.0, contacts.b, rows["r_b"], feats["inv_m_b"],
+                 feats["inv_i_b"])):
+            dlin = sign * im[..., None] * imp
+            torque = sign * _cross(r, imp)
+            dang = torch.sum(ii * torque[..., None, :], -1)
+            oh_t = torch.nn.functional.one_hot(
+                body.to(torch.int64), n_slots).to(vel.dtype).transpose(1, 2)
+            vel = vel + torch.cat([torch.bmm(oh_t, dlin),
+                                   torch.bmm(oh_t, dang)], -1)
+        lam = l3.permute(2, 1, 0).contiguous()          # (3, C, B)
+    lam_n, lam_t1, lam_t2 = lam[0], lam[1], lam[2]
+
+    def rel_v(i, axis):
+        va = vel[ar, a_r[i]]
+        vb = vel[ar, b_r[i]]
+        va = va[:, 0:3] + _cross(va[:, 3:6], r_a[i])
+        vb = vb[:, 0:3] + _cross(vb[:, 3:6], r_b[i])
+        return torch.sum((vb - va) * axis, -1)
+
+    def apply_pair(i, axis, dlam):
+        imp = axis * dlam[:, None]
+        for body, r, im, ii, sgn_imp in ((a_r[i], r_a[i], im_a[i], ii_a[i],
+                                          -imp),
+                                         (b_r[i], r_b[i], im_b[i], ii_b[i],
+                                          imp)):
+            ang = torch.sum(ii * _cross(r, sgn_imp)[:, None, :], -1)
+            vel[ar, body] += torch.cat([im[:, None] * sgn_imp, ang], -1)
+
+    def friction_row(i, axis, d, lam_t, bound):
+        dls = omega * (0.0 - rel_v(i, axis) - cfm_term * lam_t[i]) / d[i]
+        new_l = torch.clamp(lam_t[i] + dls, -bound, bound)
+        dls = torch.where(live_r[i], new_l - lam_t[i], 0.0)
+        lam_t[i] += dls
+        apply_pair(i, axis, dls)
+
+    for _ in range(config.solver_iterations):
+        for i in range(rows_bound):
+            # normal row (the residual includes ODE's CFM softening −cfm/h·λ)
+            n_i = axes[0][i]
+            dlam = omega * (target_r[i] - rel_v(i, n_i)
+                            - cfm_term * lam_n[i]) / d_r[0][i]
+            new_lam = torch.clamp_min(lam_n[i] + dlam, 0.0)
+            dlam = torch.where(live_r[i], new_lam - lam_n[i], 0.0)
+            lam_n[i] += dlam
+            apply_pair(i, n_i, dlam)
+
+            # friction rows (target velocity 0, bound μ·λ_n)
+            if config.friction:
+                if config.per_body_surface:
+                    mu_i = mu_r[i]
+                    bound = torch.where(torch.isinf(mu_i),
+                                        torch.full_like(mu_i, torch.inf),
+                                        mu_i * lam_n[i])
+                elif mu_inf:
+                    bound = torch.full_like(lam_n[i], torch.inf)
+                else:
+                    bound = config.mu * lam_n[i]
+                friction_row(i, axes[1][i], d_r[1], lam_t1, bound)
+                friction_row(i, axes[2][i], d_r[2], lam_t2, bound)
+
+    out = state.replace(linvel=vel[..., 0:3].contiguous(),
+                        angvel=vel[..., 3:6].contiguous())
+    if return_lam:
+        return out, lam.permute(2, 1, 0).contiguous()
+    return out
 
 
 def solve(state: WorldState, contacts: Contacts,
           config: EngineConfig, joints_rows=None) -> WorldState:
-    """The contact solve of one substep. The port has JACOBI only."""
+    """The contact solve of one substep: JACOBI or PGS; DANTZIG is not
+    ported and raises."""
+    if config.solver is SolverKind.PGS:
+        return solve_pgs(state, contacts, config, joints_rows=joints_rows)
     if config.solver is not SolverKind.JACOBI:
         raise NotImplementedError(
-            f"solver {config.solver.value!r} is not ported (JACOBI only)")
+            f"solver {config.solver.value!r} is not ported (JACOBI and PGS)")
     return solve_jacobi(state, contacts, config, joints_rows=joints_rows)

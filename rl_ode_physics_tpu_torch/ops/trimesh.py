@@ -73,7 +73,8 @@ def build_trimesh(vertices, triangles, slot: int = 0, dtype=torch.float32,
                   pad_to_multiple: int = 1024, device="cuda") -> TriMesh:
     """Host-side mesh bake in f64: edges, normals, padding to a tile
     multiple with degenerate triangles far away (they never produce
-    contacts)."""
+    contacts); the tensors in ``dtype`` (float32 by default, as in the JAX
+    package; a float64 world passes its state's dtype)."""
     v = np.asarray(vertices, np.float64)
     t = np.asarray(triangles, np.int64)
     v0 = v[t[:, 0]]

@@ -1,13 +1,15 @@
 """NumPy bridge between the JAX package's pytrees and the port's tensors.
 
-A JAX ``WorldState`` or ``Contacts`` read out as a mapping of field name to
-numpy array (``{f.name: np.asarray(getattr(s, f.name))}``) becomes the port's
-dataclass, and back. This is how state built or stepped by one side is
-carried to the other: the "weights" of this system.
+A JAX ``WorldState``, ``Contacts`` or ``WarmCache`` read out as a mapping
+of field name to numpy array (``{f.name: np.asarray(getattr(s, f.name))}``)
+becomes the port's dataclass, and back; so does the dict of diagnostics
+counters that ``step_with_diagnostics`` returns. This is how state built or
+stepped by one side is carried to the other: the "weights" of this system.
 
 Arrays may come with or without the leading world axis; a single world
-gains an axis of length 1. A ``TriMesh`` has no world axis: one mesh is
-shared by every world. uint32 fields (``category``, ``collide``,
+gains an axis of length 1 (a counter of one world, a scalar, becomes a
+(1,) tensor). A ``TriMesh`` has no world axis: one mesh is shared by every
+world. uint32 fields (``category``, ``collide``,
 ``rng_state``) travel as int64 in the port and return as uint32.
 """
 
@@ -22,6 +24,7 @@ import torch
 from rl_ode_physics_tpu_torch.core.state import WorldState
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
 from rl_ode_physics_tpu_torch.ops.trimesh import TriMesh
+from rl_ode_physics_tpu_torch.ops.warmstart import WarmCache
 
 _U32_FIELDS = ("category", "collide", "rng_state")
 
@@ -101,4 +104,37 @@ def trimesh_to_numpy(mesh: TriMesh) -> dict:
     out = {name: getattr(mesh, name).detach().cpu().numpy()
            for name in ("v0", "e1", "e2", "normal")}
     out["slot"] = np.asarray(mesh.slot, np.int32)
+    return out
+
+
+def warmcache_from_numpy(arrays: Mapping[str, np.ndarray],
+                         device="cuda") -> WarmCache:
+    """The port's ``WarmCache`` from numpy arrays of the JAX fields
+    (``key`` (C,) or (B, C), ``lam`` (C, 3) or (B, C, 3))."""
+    batched = _is_batched(arrays, "key", 1)
+    return WarmCache(key=_to_tensor(arrays["key"], batched, device),
+                     lam=_to_tensor(arrays["lam"], batched, device))
+
+
+def warmcache_to_numpy(cache: WarmCache,
+                       world: Optional[int] = None) -> dict:
+    return _to_numpy(cache, world)
+
+
+def metrics_from_numpy(metrics: Mapping[str, np.ndarray],
+                       device="cuda") -> dict:
+    """Diagnostics counters, each a scalar (one world) or (B,), as (B,)
+    tensors."""
+    batched = np.asarray(next(iter(metrics.values()))).ndim == 1
+    return {name: _to_tensor(value, batched, device)
+            for name, value in metrics.items()}
+
+
+def metrics_to_numpy(metrics: Mapping[str, torch.Tensor],
+                     world: Optional[int] = None) -> dict:
+    """(B,) counters as numpy arrays; ``world`` picks one world's scalars."""
+    out = {}
+    for name, value in metrics.items():
+        a = value.detach().cpu().numpy()
+        out[name] = a if world is None else a[world]
     return out

@@ -59,6 +59,13 @@ ONE_CENTRE_FUNCTIONS = {
         [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]}
 
 
+def _float32_launchers(functions: dict) -> dict:
+    """A library's float32 launchers: the ones every revision of its source
+    has (the float64 ones came later)."""
+    return {name: argtypes for name, argtypes in functions.items()
+            if not name.endswith("_f64")}
+
+
 def _variant(spec: str, source: str):
     """``label=source[,flag...]`` → (label, absolute source path, flags)."""
     from rl_ode_physics_tpu_torch.ops import kernel_build
@@ -140,7 +147,8 @@ def mesh_variants(specs, args) -> dict:
                          "launches_per_query": "1" if batched else "C"}
         lib = kernel_build.load(
             _build(src, flags, label, "sphere_mesh_d2", args, result[label]),
-            mesh_kernels.FUNCTIONS if batched else ONE_CENTRE_FUNCTIONS)
+            _float32_launchers(mesh_kernels.FUNCTIONS) if batched
+            else ONE_CENTRE_FUNCTIONS)
 
         def tiles(lib=lib, label=label):
             _raise_on(lib.sphere_mesh_d2_tiles_launch(
@@ -205,7 +213,7 @@ def compact_variants(specs, args) -> dict:
         result[label] = {"source": str(src), "flags": list(flags), "ms": {}}
         libs[label] = kernel_build.load(
             _build(src, flags, label, "compact_rows", args, result[label]),
-            compaction_kernel.FUNCTIONS)
+            _float32_launchers(compaction_kernel.FUNCTIONS))
     for b in (8192, 1024):
         mk, pl = mask[:b].contiguous(), payload[:b].contiguous()
         ref = compaction.compact_rows_t(mk, pl, k, torch.bfloat16)

@@ -12,7 +12,8 @@ import torch
 
 
 def identity(dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """The identity quaternion (w=1)."""
+    """The identity quaternion (w=1), in ``dtype`` (float32 by default, as
+    in the JAX package; a float64 world passes its dtype)."""
     return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
 
 

@@ -388,3 +388,208 @@ def test_dense_batch_too_large_for_the_card_raises():
                       device="cuda")
     with pytest.raises(ValueError, match="chunk"):
         make_batched_step_fn(config, device="cuda")(batch)
+
+
+# ---------------------------------------------------------------------------
+# Any k and float64 through the kernels; the probe kernels; the conformance
+# step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sel", ["none", "float32", "bfloat16"])
+def test_plain_compaction_of_float64_matches_numpy_loop(sel):
+    """The plain version keeps a float64 payload in float64; ``sel_dtype``
+    rounds it first, to float32 or to bf16 through float32, as PyTorch's
+    conversions do."""
+    mask, payload = _inputs(0.3, seed=23)
+    payload = payload.astype(np.float64) + 1e-10
+    sel_dtype = {"none": None, "float32": torch.float32,
+                 "bfloat16": torch.bfloat16}[sel]
+    rows, valid, count, overflow = compaction.compact_rows_t(
+        torch.from_numpy(mask), torch.from_numpy(payload), K, sel_dtype)
+    assert rows.dtype == torch.float64
+    src = payload
+    if sel == "float32":
+        src = payload.astype(np.float32).astype(np.float64)
+    elif sel == "bfloat16":
+        src = torch.from_numpy(payload.astype(np.float32)).to(
+            torch.bfloat16).double().numpy()
+    for w in range(B):
+        kept = np.flatnonzero(mask[w])
+        ref = np.zeros((D, K))
+        ref[:, :min(len(kept), K)] = src[w][:, kept[:K]]
+        assert np.array_equal(rows[w].numpy(), ref)
+        assert int(count[w]) == min(len(kept), K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sel", list(SEL))
+@pytest.mark.parametrize("k", [1536, 1537, 2048, 4096, 5000])
+def test_kernel_takes_any_k(k, sel):
+    """Past the 1,536 columns that the index lists hold, each lane stores
+    its kept columns at their rank: still exactly the plain version, at
+    k = M = 4,096 and past it."""
+    _require_card()
+    rng = np.random.default_rng(k)
+    b, d, m = 6, 10, 4096
+    for density in (0.2, 0.5, 1.0):
+        mask = torch.from_numpy(rng.uniform(size=(b, m)) < density)
+        payload = torch.from_numpy(
+            rng.normal(size=(b, d, m)).astype(np.float32))
+        before = compaction_kernel.compact_rows_t.launches
+        got = compaction_kernel.compact_rows_t(mask.cuda(), payload.cuda(),
+                                               k, SEL[sel])
+        assert compaction_kernel.compact_rows_t.launches == before + 1
+        ref = compaction.compact_rows_t(mask, payload, k, SEL[sel])
+        torch.cuda.synchronize()
+        for name, r, g in zip(("rows_t", "valid", "count", "overflow"), ref,
+                              got):
+            assert torch.equal(r, g.cpu()), (name, density)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sel", ["none", "float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(B, D, M, K), (3, 7, 1000, 50),
+                                   (2, 10, 4096, 2048)],
+                         ids=["bench", "off-path", "wide-k"])
+def test_kernel_takes_float64_bitwise(shape, sel):
+    _require_card()
+    sel_dtype = {"none": None, "float32": torch.float32,
+                 "bfloat16": torch.bfloat16}[sel]
+    b, d, m, k = shape
+    rng = np.random.default_rng(29)
+    for density in DENSITIES:
+        mask = torch.from_numpy(rng.uniform(size=(b, m)) < density)
+        payload = torch.from_numpy(rng.normal(size=(b, d, m)))
+        got = compaction_kernel.compact_rows_t(mask.cuda(), payload.cuda(),
+                                               k, sel_dtype)
+        ref = compaction.compact_rows_t(mask, payload, k, sel_dtype)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.float64
+        for name, r, g in zip(("rows_t", "valid", "count", "overflow"), ref,
+                              got):
+            assert torch.equal(r, g.cpu()), (name, density)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_other_dtypes_on_card():
+    _require_card()
+    from rl_ode_physics_tpu_torch.ops import mesh_kernels
+    mask = torch.ones((2, 16), dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError):
+        compaction_kernel.compact_rows_t(
+            mask, torch.zeros((2, 3, 16), dtype=torch.float16,
+                              device="cuda"), 4)
+    _, mesh = _bumpy_mesh("cuda", n=4)
+    tris = [x.half() for x in mesh.transposed()]
+    with pytest.raises(TypeError):
+        mesh_kernels.sphere_mesh_d2_tiles(
+            torch.zeros((4, 3), dtype=torch.float16, device="cuda"), *tris)
+    with pytest.raises(TypeError):                 # mixed float32/float64
+        mesh_kernels.sphere_mesh_d2(
+            torch.zeros((4, 3), dtype=torch.float64, device="cuda"),
+            *mesh.transposed())
+
+
+@pytest.mark.cuda
+def test_mesh_kernels_take_float64_on_card():
+    """Both distance kernels in float64 against their plain versions at
+    the stated float64 tolerance."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.ops import mesh_kernels, trimesh
+    rtol, atol = mesh_kernels.tolerance(torch.float64)
+    assert (rtol, atol) == (1e-12, 1e-13)
+    _, mesh = _bumpy_mesh("cuda", n=24)
+    tris = [x.double().contiguous() for x in mesh.transposed()]
+    rng = np.random.default_rng(31)
+    probes = torch.from_numpy(rng.uniform(
+        [-3.5, -0.5, -3.5], [3.5, 1.5, 3.5], size=(2000, 3))).cuda()
+    before = (mesh_kernels.sphere_mesh_d2_tiles.launches,
+              mesh_kernels.sphere_mesh_d2.launches)
+    got = mesh_kernels.sphere_mesh_d2_tiles(probes, *tris)
+    rows = mesh_kernels.sphere_mesh_d2(probes[:300].contiguous(), *tris)
+    assert (mesh_kernels.sphere_mesh_d2_tiles.launches,
+            mesh_kernels.sphere_mesh_d2.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert got.dtype == rows.dtype == torch.float64
+    assert torch.allclose(got, trimesh.sphere_mesh_d2_tiles_plain(
+        probes, *tris), rtol=rtol, atol=atol)
+    assert torch.allclose(rows, trimesh.sphere_mesh_d2_plain(
+        probes[:300], *tris), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain_versions_on_card():
+    """The multiply-then-add chain and the (256, 256) chain at A = 1,
+    B = 1/16 bit for bit; the (256, 256) chain on random inputs at
+    MATMUL_RTOL; the world products by ``matmuls_agree``, which refuses a
+    product 1% off in its first 64 columns."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.ops import probe_kernels as pk
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    vel = torch.randn((8, pk.ROWS, pk.INNER), generator=gen, device="cuda")
+    s = torch.randn((8, pk.INNER, pk.COLS), generator=gen, device="cuda")
+    before = pk.probe_matmuls.launches
+    got = pk.probe_matmuls(vel, s, 2)
+    assert pk.probe_matmuls.launches == before + 1
+    want = pk.probe_matmuls_plain(vel, s, 2)
+    assert pk.matmuls_agree(pk.matmuls_errors(vel, got, want))
+    off = s.clone()
+    off[..., :pk.INNER] *= 1.01
+    assert not pk.matmuls_agree(pk.matmuls_errors(
+        vel, pk.probe_matmuls(vel, off, 2), want))
+    for n in (3 * pk.VPU_THREADS, 12 * pk.VPU_THREADS):
+        x = 0.5 + torch.rand((n,), generator=gen, device="cuda")
+        assert torch.equal(pk.probe_vpu(x, 5), pk.probe_vpu_plain(x, 5))
+        fused = pk.probe_vpu(x, 5, fused=True)
+        assert torch.allclose(fused, pk.probe_vpu_plain(x, 5), rtol=1e-5)
+    a = torch.ones((pk.MXU_N, pk.MXU_N), device="cuda")
+    b = torch.full((pk.MXU_N, pk.MXU_N), 1.0 / 16.0, device="cuda")
+    for steps in (1, 2, 7):
+        assert torch.equal(pk.probe_mxu(a, b, steps),
+                           pk.probe_mxu_plain(a, b, steps))
+    a = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda")
+    b = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda") / 16
+    got, ref = pk.probe_mxu(a, b, 3), pk.probe_mxu_plain(a, b, 3)
+    assert torch.allclose(got, ref, rtol=pk.MATMUL_RTOL,
+                          atol=pk.MATMUL_RTOL * float(ref.abs().max()))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["mini_stack", "ridge_mesh"])
+def test_conformance_step_card_matches_cpu_in_float64(scene):
+    """``EngineConfig.conformance`` in float64 (PGS, exact box clip, K=8),
+    2 worlds settled on the CPU, then 8 substeps on each device: within
+    1e-9, tick and overflow exact; the ridge mesh's probes go through the
+    float64 tile kernel."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models import scenes
+    from rl_ode_physics_tpu_torch.ops import mesh_kernels
+    config = EngineConfig.conformance(max_bodies=16, max_pair_candidates=128,
+                                      max_contacts=256, dtype="float64")
+    mesh = None
+    if scene == "ridge_mesh":
+        world, mesh = scenes.ridge_mesh_scene(config, device="cpu")
+        settle = 60
+    else:
+        world, settle = scenes.mini_stack_world(config, device="cpu"), 40
+    start = make_batched_step_fn(config, substeps=settle, device="cpu",
+                                 trimesh=mesh)(replicate(world, 2,
+                                                         device="cpu"))
+    cpu = make_batched_step_fn(config, substeps=8, device="cpu",
+                               trimesh=mesh)(start)
+    card_start = type(start)(**{k: v.cuda() for k, v in vars(start).items()})
+    before = mesh_kernels.sphere_mesh_d2_tiles.launches
+    card = make_batched_step_fn(
+        config, substeps=8, device="cuda",
+        trimesh=None if mesh is None else mesh.to("cuda"))(card_start)
+    torch.cuda.synchronize()
+    assert mesh_kernels.sphere_mesh_d2_tiles.launches - before == (
+        8 if mesh is not None else 0)
+    assert card.pos.dtype == torch.float64
+    for field in ("pos", "quat", "linvel", "angvel"):
+        diff = (getattr(card, field).cpu() - getattr(cpu, field)).abs().max()
+        assert float(diff) <= 1e-9, field
+    for field in ("tick", "overflow"):
+        assert torch.equal(getattr(card, field).cpu(), getattr(cpu, field))

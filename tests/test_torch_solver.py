@@ -13,8 +13,9 @@ from rl_ode_physics_tpu.core.state import WorldState as JaxWorldState
 from rl_ode_physics_tpu.ops import integrator as jax_integrator
 from rl_ode_physics_tpu.ops import narrowphase_cm as jax_cm
 from rl_ode_physics_tpu.ops import solver as jax_solver
+from rl_ode_physics_tpu.ops import warmstart as jax_warmstart
 from rl_ode_physics_tpu_torch.core.config import SolverKind
-from rl_ode_physics_tpu_torch.ops import integrator, solver
+from rl_ode_physics_tpu_torch.ops import integrator, solver, warmstart
 from rl_ode_physics_tpu_torch.utils import bridge
 
 from _torch_port import configs, settled_state, to_numpy
@@ -84,9 +85,12 @@ def test_apply_external_forces_and_integrate_match():
 
 
 @pytest.mark.parametrize("override", [
-    dict(solver=SolverKind.PGS), dict(solver=SolverKind.DANTZIG),
+    dict(solver=SolverKind.PGS, solver_cm=True),
+    dict(solver=SolverKind.DANTZIG),
     dict(solver_cm=True), dict(solver_matmul_dtype="bfloat16")])
 def test_unported_solver_options_raise(override):
+    """DANTZIG, the component-major loop (with either solver) and bf16
+    solver products raise; JACOBI and PGS solve."""
     _, tcfg = configs(**override)
     arrays = settled_state(30)
     tstate = bridge.world_from_numpy(arrays, device="cpu")
@@ -100,10 +104,13 @@ def test_unported_solver_options_raise(override):
 
 
 def test_warm_start_raises():
-    _, tcfg = configs()
-    tstate = bridge.world_from_numpy(settled_state(30), device="cpu")
-    with pytest.raises(NotImplementedError):
-        solver.solve_jacobi(tstate, None, tcfg, lam0=np.zeros((32, 3)))
+    """Warm starting takes PGS and JACOBI, as in the JAX package; the warm
+    step of another solver raises when it is made."""
+    _, tcfg = configs(solver=SolverKind.DANTZIG)
+    with pytest.raises(ValueError):
+        warmstart.make_warm_step_fn(tcfg)
+    with pytest.raises(ValueError):
+        jax_warmstart.make_warm_step_fn(configs(solver=SolverKind.DANTZIG)[0])
 
 
 def test_solver_kinds_share_values():

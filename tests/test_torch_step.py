@@ -88,14 +88,16 @@ def test_step_fn_refuses_batch_on_other_device():
         fn(batch)
 
 
-@pytest.mark.parametrize("override", [dict(solver=SolverKind.PGS),
+@pytest.mark.parametrize("override", [dict(solver=SolverKind.PGS,
+                                           solver_cm=True),
                                       dict(solver_cm=True),
                                       dict(solver=SolverKind.DANTZIG),
                                       dict(solver_matmul_dtype="bfloat16")])
 def test_unported_pipelines_raise(override):
-    """Every narrowphase pipeline steps; what the port does not have yet
-    (the PGS and DANTZIG solvers, the component-major solver loop, bf16
-    solver products) raises when the step function is made."""
+    """Every narrowphase pipeline steps, with the JACOBI and PGS solvers;
+    what the port does not have yet (the DANTZIG solver, the
+    component-major solver loop, bf16 solver products) raises when the
+    step function is made."""
     _, tcfg = configs(**override)
     with pytest.raises(NotImplementedError):
         make_step_fn(tcfg)

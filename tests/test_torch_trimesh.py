@@ -347,6 +347,23 @@ def test_d2_kernel_order_matches_plain_order(case):
                                atol=D2_ATOL, equal_nan=True)
 
 
+@pytest.mark.parametrize("case", KERNEL_ORDER_CASES)
+def test_d2_kernel_order_matches_plain_order_in_float64(case):
+    """The same in float64, the kernels' float64 instances' arithmetic:
+    within the float64 tolerance the card holds them to (rtol 1e-12, atol
+    1e-13), padded triangles included."""
+    mesh, real = _kernel_order_mesh()
+    mesh = tm.TriMesh(**{**vars(mesh), **{
+        name: getattr(mesh, name).double()
+        for name in ("v0", "e1", "e2", "normal")}})
+    probes = _kernel_order_probes(case, mesh, real).double()
+    ref = _pair_d2(tm._d2_pallas_order, probes, mesh)
+    got = _pair_d2(tm._d2_kernel_order, probes, mesh)
+    assert got.dtype == ref.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12,
+                               atol=1e-13, equal_nan=True)
+
+
 @pytest.mark.parametrize("case", KERNEL_ORDER_CASES[:-1])
 def test_d2_kernel_order_keeps_the_nearest_tiles(case):
     """``mesh_narrowphase`` keeps the 8 nearest tiles of each probe: both
@@ -702,14 +719,14 @@ def test_batched_mesh_step_matches_jax(sel, interpret_pallas):
 
 def test_mesh_step_with_capsules_raises():
     """A capsule on the mesh steps now that its pair kernels are ported;
-    what still raises on that step is a solver the port lacks (PGS)."""
+    what still raises on that step is a solver the port lacks (DANTZIG)."""
     _, tcfg, arrays, jmesh = _ridge_in_contact(3)
     mesh = bridge.trimesh_from_numpy(to_numpy(jmesh), device="cpu")
     state = make_batched_step_fn(tcfg, device="cpu", trimesh=mesh)(
         bridge.world_from_numpy(arrays, device="cpu"))
     assert bool(torch.isfinite(state.pos).all())
     with pytest.raises(NotImplementedError):
-        make_batched_step_fn(tcfg.replace(solver=SolverKind.PGS),
+        make_batched_step_fn(tcfg.replace(solver=SolverKind.DANTZIG),
                              device="cpu", trimesh=mesh)
 
 
