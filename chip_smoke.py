@@ -147,7 +147,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     and read after: the memory pass at 64 MB and 1 GB, the bf16 ``bmm``,
     the three kernels at the TPU probes' first trip counts, the shape menu;
     prints the measured GB/s and FP32 TFLOP/s beside the data sheet's.
-18. prints one JSON line of every kernel the run launched (each float64
+18. the bench's A/B levers (``solver_cm``, ``solver_matmul_dtype=
+    "bfloat16"``, both) on ``bench_config(64)``: card against CPU on the
+    bench scene (4 worlds settled 40 substeps on the CPU, 8 substeps on
+    each device, atol 1e-4), then 96 substeps of phase 4's settled
+    8192-world batch under the default and under each lever, body-steps/s
+    side by side, ``compact_rows_t`` once per substep on each path; prints
+    how bf16 products are taken on the card.
+19. DANTZIG in float64 (``tests/_traj_engine.py``'s ``make_cfg("dantzig")``:
+    the direct LCP solve, exact box clip, K=8, 96 rows): card against CPU
+    from phase 15's settled mini stack (atol 1e-9, tick and overflow
+    exact); world 0 of it in 1,024 worlds, 2 + 4 substeps, with ms a
+    substep, the pivot rounds of one substep's solve (max over worlds), its
+    host reads, and its launches under ``torch.profiler``; one substep
+    with a host read every 1, 2, 4 and 8 rounds, in turns; then phase 15's
+    settled ridge mesh in 1,024 worlds for 4 substeps under DANTZIG, the
+    float64 tile kernel once a substep.
+20. the hinge chain (``hinge_chain_scene``: a motorized, limited hinge and
+    a ball joint): card against CPU under the referee's PGS and DANTZIG in
+    float64 (atol 1e-9) and under ``core.config.hinge_chain_config`` (the
+    throughput policy, capacities 2x the JAX package's peaks) in float32
+    (atol 1e-4), 4 kicked worlds settled 40 substeps on the CPU; then 8,192
+    worlds under that JACOBI configuration (48 + 96 substeps, the
+    compaction kernel once a substep) and 1,024 worlds under PGS in float64
+    (2 + 4 substeps), each with body-steps/s, ms a substep and the
+    launches of one substep.
+21. prints one JSON line of every kernel the run launched (each float64
     instance as a sub-entry of its kernel, with its own launches), then the
     last line ``{"ok": true, "device": {...}}``.
 
@@ -221,6 +246,22 @@ CONF_SETTLE = 48             # CPU substeps before a card-vs-CPU comparison
 RIDGE_SETTLE = 64            # the ridge scene's bodies land at 50-70
 CONF_ATOL = 1e-9             # float64 card against float64 CPU
 RIDGE_SUBSTEPS = 16
+# the bench's A/B levers at full width, from phase 4's settled batch
+LEVERS = {"solver_cm": dict(solver_cm=True),
+          "bf16": dict(solver_matmul_dtype="bfloat16"),
+          "solver_cm_bf16": dict(solver_cm=True,
+                                 solver_matmul_dtype="bfloat16")}
+LEVER_SUBSTEPS = 96
+# DANTZIG in float64 at 1,024 worlds: the mini stack, then the ridge mesh
+DANTZIG_WARMUP = 2
+DANTZIG_SUBSTEPS = 4
+DANTZIG_RIDGE_SUBSTEPS = 4
+# the hinge chain: CPU settling, the throughput path's 144 substeps (the
+# horizon its capacities were sized over), PGS float64 at 1,024 worlds
+HINGE_SETTLE = 40
+HINGE_WARMUP = 48
+HINGE_SUBSTEPS = 96
+HINGE_PGS_SUBSTEPS = 4
 # the compaction at k past the index list: worlds of M = 4,096 columns
 WIDE_K_WORLDS = 1024
 # the probe kernels: trips of the short checks, names in the kernels line
@@ -377,45 +418,56 @@ def kicked(batch, seed):
     return batch.replace(linvel=batch.linvel + torch.where(moving, kick, 0.0))
 
 
-def settled_on_cpu(config, world, mesh, settle, kick_seed=None):
+def settled_on_cpu(config, world, mesh, settle, kick_seed=None,
+                   joints=None):
     """4 worlds of ``world`` (``kicked`` apart with ``kick_seed``, if
-    given) settled ``settle`` substeps on the CPU. ``mesh``: the scene's
-    static mesh on the CPU, or None."""
+    given) settled ``settle`` substeps on the CPU. ``mesh``, ``joints``:
+    the scene's static mesh and joint table on the CPU, or None."""
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
     batch = replicate(world, 4, device="cpu")
     if kick_seed is not None:
         batch = kicked(batch, kick_seed)
     return make_batched_step_fn(config, substeps=settle, device="cpu",
-                                trimesh=mesh)(batch)
+                                trimesh=mesh, joints=joints)(batch)
 
 
-def _card_matches_cpu(config, start, mesh, label, atol=1e-4):
+def _card_matches_cpu(config, start, mesh, label, atol=1e-4, joints=None):
     """8 substeps on each device from ``start``, a batch settled on the
-    CPU: pos/quat/linvel/angvel at ``atol``, tick and overflow exact.
-    ``mesh``: the scene's static mesh on the CPU, or None. Returns the
-    card's peak memory over its 8 substeps, in GB."""
+    CPU: pos/quat/linvel/angvel at ``atol``, tick and overflow exact; under
+    bf16 solver products the velocities within one bf16 spacing of the
+    field (2⁻⁸ of its largest |v|, if that is more): a float32 difference
+    of one spacing can carry a value across a bf16 rounding boundary.
+    ``mesh``, ``joints``: the scene's static mesh and joint table on the
+    CPU, or None. Returns the card's peak memory over its 8 substeps, in
+    GB."""
     import torch
     from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
 
     cpu = make_batched_step_fn(config, substeps=8, device="cpu",
-                               trimesh=mesh)(start)
+                               trimesh=mesh, joints=joints)(start)
     on_card = _to(start, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     card = make_batched_step_fn(
         config, substeps=8, device="cuda",
-        trimesh=None if mesh is None else mesh.to("cuda"))(on_card)
+        trimesh=None if mesh is None else mesh.to("cuda"),
+        joints=None if joints is None else joints.to("cuda"))(on_card)
     torch.cuda.synchronize()
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     worst = {}
     for name in ("pos", "quat", "linvel", "angvel"):
-        diff = (getattr(card, name).cpu() - getattr(cpu, name)).abs().max()
+        want = getattr(cpu, name)
+        diff = (getattr(card, name).cpu() - want).abs().max()
+        tol = atol
+        if (config.solver_matmul_dtype == "bfloat16"
+                and name in ("linvel", "angvel")):
+            tol = max(atol, 2.0 ** -8 * float(want.abs().max()))
         worst[name] = float(diff)
-        if not diff <= atol:
+        if not diff <= tol:
             raise AssertionError(f"{label}: card step differs from the CPU "
-                                 f"step in {name}: {float(diff)} > {atol}")
+                                 f"step in {name}: {float(diff)} > {tol}")
     for name in ("tick", "overflow"):
         if not torch.equal(getattr(card, name).cpu(), getattr(cpu, name)):
             raise AssertionError(f"{label}: card step {name} differs from "
@@ -1793,6 +1845,295 @@ def phase_device_probes(card):
     return {"device_probe": launches}, entries, report["measured"]
 
 
+def _timed_run(step, batch, label, tick):
+    """One launch of ``step`` on ``batch`` timed after the card is idle;
+    raises unless the result holds (``_check_batch``). Returns (batch,
+    seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = step(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _check_batch(batch, label, tick)
+    return batch, secs
+
+
+def bf16_products_on_card(config):
+    """The card's route for the solver's bf16 products (``solver._mm``) at
+    the bench's shapes over 8192 worlds, the gather (B, 2C, N)·(B, N, 8)
+    and the scatter (B, N, 2C)·(B, 2C, 8), on seeded bf16 operands: held
+    to the float32 product of the same operands at float32 roundoff (the
+    inner length times float32's epsilon, of Σ|a·b| an entry), and shown
+    to differ beyond that bound from a bf16 ``bmm``, whose result is
+    rounded to bf16. Prints each product's ms and the upcast's."""
+    import torch
+    from rl_ode_physics_tpu_torch.ops import solver
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    gen = torch.Generator("cuda").manual_seed(18)
+    c2, n = 2 * config.max_contacts, config.max_bodies
+    route = solver.bf16_product_route("cuda")
+    for name, (m, k) in (("gather", (c2, n)), ("scatter", (n, c2))):
+        a = torch.randn((WORLDS, m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        b = torch.randn((WORLDS, k, 8), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        got = solver._mm(a, b, torch.float32)
+        ref = torch.bmm(a.float(), b.float())
+        bound = k * torch.finfo(torch.float32).eps * torch.bmm(
+            a.float().abs(), b.float().abs())
+        err = (got - ref).abs()
+        rounded_err = (torch.bmm(a, b).float() - ref).abs()
+        if got.dtype != torch.float32 or not bool((err <= bound).all()):
+            raise AssertionError(
+                f"bf16 {name} product through {route!r}: dtype {got.dtype}, "
+                f"max error {float(err.max()):.3e} beyond float32 roundoff")
+        if not bool((rounded_err > bound).any()):
+            raise AssertionError(f"bf16 {name} product: a bf16 bmm stays "
+                                 f"within float32 roundoff; the check "
+                                 f"cannot tell the routes apart")
+        ms = cuda_ms(lambda: solver._mm(a, b, torch.float32))
+        upcast_ms = cuda_ms(lambda: torch.bmm(a.float(), b.float()))
+        log(f"bf16 {name} product {tuple(a.shape)}x{tuple(b.shape)} through "
+            f"{route!r}: max abs err {float(err.max()):.3e} against the "
+            f"float32 product (bound {float(bound.max()):.3e}), a bf16 bmm "
+            f"{float(rounded_err.max()):.3e}; {ms:.5f} ms, the upcast "
+            f"{upcast_ms:.5f} ms")
+        del a, b, got, ref, bound, err, rounded_err
+
+
+def phase_bench_levers(config, card, settled):
+    """The bench's A/B levers (``solver_cm``, bf16 solver products, both):
+    the card's bf16 product route at the bench's shapes, card against CPU
+    on the bench scene, then at full width: 96 substeps of the settled
+    8192-world batch of phase 4 under the default and under each lever,
+    body-steps/s side by side, the compaction kernel counted."""
+    from rl_ode_physics_tpu_torch.models.scenes import bench_world
+    from rl_ode_physics_tpu_torch.ops import compaction_kernel, solver
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+
+    bf16_products_on_card(config)
+    start = settled_on_cpu(config, bench_world(
+        config, num_bodies=BODIES, device="cpu"), None, 40)
+    for name, lever in LEVERS.items():
+        _card_matches_cpu(config.replace(**lever), start, None,
+                          f"bench scene, {name}")
+    kernel = compaction_kernel.compact_rows_t
+    dynamic = int((settled.inv_mass[0] > 0).sum())
+    tick = int(settled.tick[0]) + LEVER_SUBSTEPS
+    launches, rates = {}, {}
+    for name, lever in (("default", {}),) + tuple(LEVERS.items()):
+        step = make_batched_step_fn(config.replace(**lever),
+                                    substeps=LEVER_SUBSTEPS, device="cuda")
+        kernel.launches = 0
+        _, secs = _timed_run(step, settled, f"bench {name}", tick)
+        launches[f"bench_{name}"] = {"compact_rows_t": kernel.launches}
+        if kernel.launches != LEVER_SUBSTEPS:
+            raise AssertionError(f"bench {name}: compact_rows_t launched "
+                                 f"{kernel.launches} times in "
+                                 f"{LEVER_SUBSTEPS} substeps")
+        rates[name] = WORLDS * dynamic * LEVER_SUBSTEPS / secs
+        log(f"bench {name}: {WORLDS} worlds x {dynamic} dynamic bodies from "
+            f"the settled batch, {LEVER_SUBSTEPS} substeps in {secs:.3f} s "
+            f"({secs / LEVER_SUBSTEPS * 1e3:.3f} ms/substep): "
+            f"{rates[name]:.1f} body-steps/s on {card}; overflow 0, "
+            f"compact_rows_t launches {kernel.launches}")
+    log(f"bench levers, body-steps/s in one call: "
+        f"{ {k: round(v, 1) for k, v in rates.items()} }; bf16 products "
+        f"through {solver.bf16_product_route('cuda')!r}")
+    return launches
+
+
+def referee_dantzig_config():
+    """``tests/_traj_engine.py:30-39``'s ``make_cfg("dantzig")``, by value:
+    the direct LCP solve, exact box clipping, K=8, float64, 96 rows."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
+    return EngineConfig(**dict(CONF_CAPS, max_contacts=96), dtype="float64",
+                        solver=SolverKind.DANTZIG, exact_box_clip=True,
+                        max_contacts_per_pair=8, matmul_precision="highest")
+
+
+def _one_substep_profile(config, batch, mesh=None, joints=None):
+    """Launches and kernel time of one substep under ``torch.profiler``."""
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+    one = make_batched_step_fn(config, substeps=1, device="cuda",
+                               trimesh=mesh, joints=joints)
+    return _launches_of(lambda: one(batch))
+
+
+def phase_dantzig(card, stack, ridge):
+    """DANTZIG in float64: card against CPU on the settled mini stack, the
+    referee's DANTZIG configuration at 1,024 worlds (pivot rounds, host
+    reads and launches of a substep), and the ridge mesh under it with the
+    float64 tile kernel counted. The pivot rounds are those of the timed
+    substeps' own solves: ``lcp._pivot_solve`` is wrapped while they run,
+    and the host reads are one more a solve than its rounds (a read before
+    each round and one that finds every world done)."""
+    import torch
+    from rl_ode_physics_tpu_torch.ops import lcp
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, replicate, take_worlds)
+
+    config = referee_dantzig_config()
+    _card_matches_cpu(config, stack, None, "DANTZIG float64, mini stack",
+                      atol=CONF_ATOL)
+
+    batch = replicate(take_worlds(stack, 0, 1), CONF_WORLDS, device="cuda")
+    for fn in _hand_kernels():
+        fn.launches = 0
+    tick = int(stack.tick[0])
+    batch, warm_s = _timed_run(
+        make_batched_step_fn(config, substeps=DANTZIG_WARMUP, device="cuda"),
+        batch, "DANTZIG path", tick + DANTZIG_WARMUP)
+    pivot_solve, solves = lcp._pivot_solve, []
+
+    def counted(a_mat, b, valid, is_normal, *args):
+        lam, rounds = pivot_solve(a_mat, b, valid, is_normal, *args)
+        solves.append((rounds, valid & is_normal))
+        return lam, rounds
+
+    lcp._pivot_solve = counted
+    try:
+        batch, secs = _timed_run(
+            make_batched_step_fn(config, substeps=DANTZIG_SUBSTEPS,
+                                 device="cuda"),
+            batch, "DANTZIG path", tick + DANTZIG_WARMUP + DANTZIG_SUBSTEPS)
+    finally:
+        lcp._pivot_solve = pivot_solve
+    launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+    if any(launches.values()):
+        raise AssertionError(f"DANTZIG path launched hand kernels {launches}")
+    if len(solves) != DANTZIG_SUBSTEPS:
+        raise AssertionError(f"DANTZIG path: {len(solves)} pivot solves in "
+                             f"{DANTZIG_SUBSTEPS} substeps")
+    rounds = [r for r, _ in solves]
+    reads = [min(r + 1, lcp.MAX_PIVOT_ROUNDS) for r in rounds]
+    contacts = torch.stack([live.sum(1) for _, live in solves])
+    del solves
+    prof = _one_substep_profile(config, batch)
+    dynamic = int((stack.inv_mass[0] > 0).sum())
+    substep_ms = secs / DANTZIG_SUBSTEPS * 1e3
+    log(f"DANTZIG path (referee configuration, float64, {config.max_contacts}"
+        f" rows): {CONF_WORLDS} worlds x {dynamic} dynamic bodies of the "
+        f"settled mini stack, {DANTZIG_SUBSTEPS} substeps in {secs:.3f} s "
+        f"({substep_ms:.3f} ms/substep; warm-up {DANTZIG_WARMUP} substeps "
+        f"{warm_s:.3f} s): {CONF_WORLDS * dynamic * DANTZIG_SUBSTEPS / secs:.1f}"
+        f" body-steps/s on {card}; overflow 0; contacts per world "
+        f"{int(contacts.min())}-{int(contacts.max())}; pivot rounds of the "
+        f"timed substeps {rounds} (max over worlds), host reads {reads} "
+        f"(one a round and one more); one substep under torch.profiler: "
+        f"{prof['launches']} launches, {prof['device_ms']:.3f} ms of kernel "
+        f"time, idle {max(0.0, 1.0 - prof['device_ms'] / substep_ms):.3f} "
+        f"of the untraced substep; hand kernel launches {launches}")
+    del batch, contacts
+    torch.cuda.empty_cache()
+
+    state, mesh = ridge
+    mesh = mesh.to("cuda")
+    rbatch = replicate(take_worlds(state, 0, 1), CONF_WORLDS, device="cuda")
+    for fn in _hand_kernels():
+        fn.launches = 0
+    rbatch, rsecs = _timed_run(
+        make_batched_step_fn(config, substeps=DANTZIG_RIDGE_SUBSTEPS,
+                             device="cuda", trimesh=mesh),
+        rbatch, "DANTZIG ridge mesh",
+        int(state.tick[0]) + DANTZIG_RIDGE_SUBSTEPS)
+    rlaunches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+    want = {"compact_rows_t": 0,
+            "sphere_mesh_d2_tiles": DANTZIG_RIDGE_SUBSTEPS,
+            "sphere_mesh_d2": 0}
+    if rlaunches != want:
+        raise AssertionError(f"DANTZIG ridge mesh launches {rlaunches}, "
+                             f"expected {want}")
+    log(f"DANTZIG ridge mesh (float64): {CONF_WORLDS} worlds of the settled "
+        f"ridge scene, {DANTZIG_RIDGE_SUBSTEPS} substeps in {rsecs:.3f} s "
+        f"({rsecs / DANTZIG_RIDGE_SUBSTEPS * 1e3:.3f} ms/substep); overflow "
+        f"0; launches {rlaunches} (the float64 tile kernel once a substep)")
+    return {"dantzig_mini_stack": launches, "dantzig_ridge_mesh": rlaunches}
+
+
+def phase_hinge_chain(card):
+    """``hinge_chain_scene``, card against CPU under the referee's PGS and
+    DANTZIG in float64 and under ``hinge_chain_config`` (throughput JACOBI)
+    in float32; then 8,192 worlds under that JACOBI configuration and
+    1,024 under PGS in float64."""
+    import torch
+    from rl_ode_physics_tpu_torch.core.config import (
+        SolverKind, hinge_chain_config)
+    from rl_ode_physics_tpu_torch.models.scenes import hinge_chain_scene
+    from rl_ode_physics_tpu_torch.ops import joints as joint_ops
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, replicate)
+
+    jacobi = hinge_chain_config()
+    for label, config, atol in (
+            ("PGS float64", referee_config(), CONF_ATOL),
+            ("DANTZIG float64", referee_dantzig_config(), CONF_ATOL),
+            ("throughput JACOBI float32", jacobi, 1e-4)):
+        world, joints = hinge_chain_scene(config, device="cpu")
+        start = settled_on_cpu(config, world, None, HINGE_SETTLE,
+                               kick_seed=5, joints=joints)
+        _card_matches_cpu(config, start, None, f"hinge chain, {label}",
+                          atol=atol, joints=joints)
+
+    paths = {}
+    for label, config, worlds, warm, timed in (
+            ("hinge_chain_jacobi", jacobi, WORLDS, HINGE_WARMUP,
+             HINGE_SUBSTEPS),
+            ("hinge_chain_pgs_f64", referee_config(), CONF_WORLDS, 2,
+             HINGE_PGS_SUBSTEPS)):
+        world, joints = hinge_chain_scene(config, device="cuda")
+        batch = kicked(replicate(world, worlds, device="cuda"), 6)
+        for fn in _hand_kernels():
+            fn.launches = 0
+        batch, warm_s = _timed_run(
+            make_batched_step_fn(config, substeps=warm, device="cuda",
+                                 joints=joints), batch, label, warm)
+        batch, secs = _timed_run(
+            make_batched_step_fn(config, substeps=timed, device="cuda",
+                                 joints=joints), batch, label, warm + timed)
+        launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+        want = {"compact_rows_t": (warm + timed
+                                   if config.typed_buckets else 0),
+                "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"{want}")
+        prof = _one_substep_profile(config, batch, joints=joints)
+        # one joint pass alone: the batched one under JACOBI, the
+        # sequential one over the live rows under PGS
+        rows = joint_ops.joint_rows(batch, joints, config)
+        vel8 = torch.cat([batch.linvel, batch.angvel,
+                          torch.zeros_like(batch.linvel[..., :2])], -1)
+        lam = torch.zeros_like(rows["rhs"])
+        cfm = config.cfm / config.dt
+        if config.solver is SolverKind.PGS:
+            visit = joint_ops.live_joint_rows(rows)
+            joint_pass = _launches_of(lambda: joint_ops.joint_iteration_seq(
+                vel8, rows, lam, config.sor_omega, cfm, visit))
+            what = f"joint_iteration_seq over {len(visit)} live rows"
+        else:
+            joint_pass = _launches_of(lambda: joint_ops.joint_iteration(
+                vel8, rows, lam, config.jacobi_omega, cfm))
+            what = "joint_iteration"
+        dynamic = int((world.inv_mass[0] > 0).sum())
+        substep_ms = secs / timed * 1e3
+        log(f"{label}: {worlds} worlds x {dynamic} dynamic bodies, 2 joints "
+            f"each, {timed} substeps in {secs:.3f} s ({substep_ms:.3f} "
+            f"ms/substep; warm-up {warm} substeps {warm_s:.3f} s): "
+            f"{worlds * dynamic * timed / secs:.1f} body-steps/s on {card}; "
+            f"overflow 0; one substep under torch.profiler: "
+            f"{prof['launches']} launches, {prof['device_ms']:.3f} ms of "
+            f"kernel time, of which one {what} {joint_pass['launches']} "
+            f"launches ({config.solver_iterations} a substep); hand kernel "
+            f"launches {launches}")
+        paths[label] = launches
+        del batch
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     start = time.perf_counter()
     card = phase_device()
@@ -1825,6 +2166,7 @@ def main() -> int:
         lambda: make_batched_step_fn(config, substeps=1,
                                      device="cuda")(batch), "bench", 1,
         " (the earlier record on the bench mask: 0.02997 ms)")
+    bench_settled = batch            # phase 18 starts its levers from it
     del batch
     lap("4")
 
@@ -1897,6 +2239,19 @@ def main() -> int:
     by_path.update(probe_launches)
     kernels += probe_entries
     lap("17")
+
+    by_path.update(phase_bench_levers(config, card, bench_settled))
+    del bench_settled
+    lap("18")
+    dantzig = phase_dantzig(card, stack, ridge)
+    by_path.update(dantzig)
+    lap("19")
+    by_path.update(phase_hinge_chain(card))
+    lap("20")
+    # the float64 tile kernel on the DANTZIG ridge path
+    f64_ridge = dantzig["dantzig_ridge_mesh"]["sphere_mesh_d2_tiles"]
+    tiles["f64"]["launches"] += f64_ridge
+    tiles["f64"]["launches_by_path"]["dantzig_ridge_mesh"] = f64_ridge
 
     for entry in kernels:
         counts = {path: got[entry["name"]] for path, got in by_path.items()

@@ -427,3 +427,21 @@ def rollout_config(num_bodies: int = 64) -> EngineConfig:
         bucket_caps=((1, 1, 96), (1, 2, 96), (2, 2, 48)),
         pallas_compaction=True,
     )
+
+
+def hinge_chain_config() -> EngineConfig:
+    """The throughput policy sized for ``models/scenes.hinge_chain_scene``
+    (5 box slots: floor, anchor, two links, strike box): typed buckets with
+    the compaction through the kernel, capacities 2x the JAX package's
+    peaks over 144 substeps of 4 worlds kicked apart (box-box pairs 2,
+    contact rows 5; ``tests/test_torch_joints.py::
+    test_hinge_chain_throughput_capacities`` measures and checks them)."""
+    return EngineConfig.throughput(
+        max_bodies=8,
+        max_pair_candidates=8,
+        max_contacts=10,
+        enable_capsules=False,
+        enable_planes=False,
+        bucket_caps=((1, 1, 2), (1, 2, 2), (2, 2, 4)),
+        pallas_compaction=True,
+    )

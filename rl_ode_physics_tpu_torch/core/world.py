@@ -6,9 +6,11 @@ The port of ``rl_ode_physics_tpu/core/world.py:_step_impl`` (``:262-336``),
 the dense pipeline, the typed narrowphase (component-major or row-major)
 and the classic broadphase + narrowphase, each with an optional static
 trimesh (the dense pipeline hands a mesh step to the classic one, as the
-JAX step does). Every function takes a batch of worlds ``(B, …)``; the JAX
-package's ``vmap`` is the leading world axis here, and a diagnostics
-counter is a (B,) tensor, one value per world.
+JAX step does) and an optional ``JointSet`` (``ops/joints.py``), whose
+connected pairs every pair phase excludes and whose rows the solver
+relaxes beside the contacts. Every function takes a batch of worlds
+``(B, …)``; the JAX package's ``vmap`` is the leading world axis here, and
+a diagnostics counter is a (B,) tensor, one value per world.
 """
 
 from __future__ import annotations
@@ -18,32 +20,14 @@ import torch
 from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
 from rl_ode_physics_tpu_torch.core.state import WorldState
 from rl_ode_physics_tpu_torch.ops import broadphase, dense, integrator
+from rl_ode_physics_tpu_torch.ops import joints as joint_ops
 from rl_ode_physics_tpu_torch.ops import narrowphase
 from rl_ode_physics_tpu_torch.ops import solver as solver_ops
 from rl_ode_physics_tpu_torch.ops.trimesh import TriMesh, mesh_narrowphase
 
 
-def _check_supported(config: EngineConfig, trimesh=None) -> None:
-    """Raise for a config whose step the port does not have yet: the
-    DANTZIG solver, the component-major solver loop and bf16 selector
-    products (a dense step without a mesh runs its own solver)."""
-    config.validate()
-    if config.dense_pipeline and trimesh is None:
-        return
-    if config.solver not in (SolverKind.JACOBI, SolverKind.PGS):
-        raise NotImplementedError(
-            f"solver {config.solver.value!r} is not ported (JACOBI and PGS)")
-    if config.solver_cm:
-        raise NotImplementedError("the component-major solver loop "
-                                  "(solver_cm) is not ported")
-    if config.solver_matmul_dtype != "float32":
-        raise NotImplementedError(
-            f"solver_matmul_dtype={config.solver_matmul_dtype!r}: the port "
-            f"runs the selector products in float32")
-
-
 def step(state: WorldState, config: EngineConfig,
-         trimesh: TriMesh | None = None) -> WorldState:
+         trimesh: TriMesh | None = None, joints=None) -> WorldState:
     """One fixed substep for every world of the batch.
 
     Contacts come from the current positions; forces and gravity advance
@@ -51,27 +35,33 @@ def step(state: WorldState, config: EngineConfig,
     corrected velocities. Pairs and contacts dropped at a full capacity
     accumulate on ``state.overflow``. ``trimesh``: an optional static mesh,
     shared by every world, whose contacts merge into the same rows; its
-    sweep runs the hand-written kernel on CUDA tensors.
+    sweep runs the hand-written kernel on CUDA tensors. ``joints``: an
+    optional ``ops.joints.JointSet`` of bilateral constraints.
     """
-    _check_supported(config, trimesh)
-    return _step_impl(state, config, trimesh)
+    config.validate()
+    return _step_impl(state, config, trimesh, joints=joints)
 
 
 def step_with_diagnostics(state: WorldState, config: EngineConfig,
-                          trimesh: TriMesh | None = None):
+                          trimesh: TriMesh | None = None, joints=None):
     """``step`` that also returns the per-tick counters of every world:
     (state, {name: (B,) tensor}). The same ``_step_impl`` as ``step``, so
     diagnostics never run another pipeline. Counters: ``num_pairs``,
     ``num_contacts``, ``pair_overflow``, ``contact_overflow`` (int32),
     ``max_penetration``, ``kinetic_energy`` (the state's dtype) and
-    ``num_bodies`` (int32)."""
-    _check_supported(config, trimesh)
-    return _step_impl(state, config, trimesh, with_metrics=True)
+    ``num_bodies`` (int32); with joints under JACOBI also
+    ``joint_force_a``, ``joint_torque_a``, ``joint_force_b`` and
+    ``joint_torque_b`` (B, J, 3), ODE's joint feedback."""
+    config.validate()
+    return _step_impl(state, config, trimesh, with_metrics=True,
+                      joints=joints)
 
 
 def _step_impl(state: WorldState, config: EngineConfig,
-               trimesh: TriMesh | None, with_metrics: bool = False):
+               trimesh: TriMesh | None, with_metrics: bool = False,
+               joints=None):
     if config.dense_pipeline and trimesh is None:
+        # the dense pipeline has its own positional solve and no joints
         manifold = dense.dense_narrowphase(state, config)
         state = integrator.apply_external_forces(state, config)
         state = dense.dense_solve(state, manifold, config)
@@ -89,29 +79,44 @@ def _step_impl(state: WorldState, config: EngineConfig,
             max_penetration=torch.where(valid, depths, 0.0).flatten(1)
             .amax(1))
 
+    exclude = None
+    if joints is not None:
+        exclude = joint_ops.connected_mask(joints, state.num_slots)
     extra = None
     if trimesh is not None:
         extra = mesh_narrowphase(state, trimesh, config)
     if config.typed_buckets:
         # bucket drops are folded into contacts.overflow
-        contacts, num_pairs = narrowphase.narrowphase_typed(state, config,
-                                                            extra)
+        contacts, num_pairs = narrowphase.narrowphase_typed(
+            state, config, extra, exclude=exclude)
         pair_overflow = torch.zeros_like(state.overflow)
     else:
-        cand = broadphase.broadphase(state, config)
+        cand = broadphase.broadphase(state, config, exclude=exclude)
         contacts = narrowphase.narrowphase(state, cand, config, extra)
         num_pairs, pair_overflow = cand.count, cand.overflow
+    joints_rows = None
+    if joints is not None:
+        joints_rows = joint_ops.joint_rows(state, joints, config)
     # dropped pairs and rows accumulate on the state itself
     state = state.replace(
         overflow=state.overflow + contacts.overflow + pair_overflow)
     state = integrator.apply_external_forces(state, config)
-    state = solver_ops.solve(state, contacts, config)
+    joint_fb = None
+    if (joints_rows is not None and with_metrics
+            and config.solver is SolverKind.JACOBI):
+        # joint feedback from the solved joint impulses
+        state, jlam = solver_ops.solve_jacobi(
+            state, contacts, config, joints_rows=joints_rows,
+            return_joint_lam=True)
+        joint_fb = joint_ops.feedback(joints_rows, jlam, config.dt)
+    else:
+        state = solver_ops.solve(state, contacts, config, joints_rows)
     state = integrator.integrate_positions(state, config)
     if not with_metrics:
         return state
     if not torch.is_tensor(num_pairs):        # no bucket enabled
         num_pairs = torch.full_like(state.overflow, num_pairs)
-    return state, _base_metrics(
+    metrics = _base_metrics(
         state,
         num_pairs=num_pairs.to(torch.int32),
         num_contacts=contacts.count,
@@ -119,6 +124,9 @@ def _step_impl(state: WorldState, config: EngineConfig,
         contact_overflow=contacts.overflow,
         max_penetration=torch.where(contacts.valid, contacts.depth,
                                     0.0).amax(1))
+    if joint_fb is not None:
+        metrics.update({f"joint_{k}": v for k, v in joint_fb.items()})
+    return state, metrics
 
 
 def _base_metrics(state: WorldState, **counters):
@@ -135,16 +143,17 @@ def _base_metrics(state: WorldState, **counters):
 
 
 def make_step_fn(config: EngineConfig, substeps: int = 1,
-                 trimesh: TriMesh | None = None):
+                 trimesh: TriMesh | None = None, joints=None):
     """A function state → state that runs ``substeps`` substeps, with
-    ``trimesh`` as static scene geometry when given."""
-    _check_supported(config, trimesh)
+    ``trimesh`` as static scene geometry and ``joints`` as the joint table
+    when given."""
+    config.validate()
     if substeps < 1:
         raise ValueError(f"substeps={substeps} must be at least 1")
 
     def fn(state: WorldState) -> WorldState:
         for _ in range(substeps):
-            state = _step_impl(state, config, trimesh)
+            state = _step_impl(state, config, trimesh, joints=joints)
         return state
 
     return fn

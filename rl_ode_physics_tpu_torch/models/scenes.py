@@ -1,9 +1,9 @@
 """Scene builders: the reference arena, the BASELINE workloads and the
 conformance scenes.
 
-The port of ``rl_ode_physics_tpu/models/scenes.py`` but for
-``hinge_chain_scene``, which needs joints. Scenes are drawn from the repo's
-own ``RandStream`` on the host, so they are bitwise the JAX package's.
+The port of ``rl_ode_physics_tpu/models/scenes.py``. Scenes are drawn from
+the repo's own ``RandStream`` on the host, so they are bitwise the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -156,6 +156,37 @@ def ridge_mesh_scene(config: EngineConfig,
     mesh = build_trimesh(verts, tris, slot=mesh_slot, dtype=state.pos.dtype,
                          pad_to_multiple=128, device=device)
     return state, mesh
+
+
+def hinge_chain_scene(config: EngineConfig, device="cuda"):
+    """(state, JointSet): the joint-conformance scene. A two-link pendulum
+    (a motorized, limited HINGE to a static anchor, a BALL joint between
+    the links) swings down onto a dynamic box resting on the floor: anchor,
+    hinge angular, motor (vel 0, fmax > 0: joint friction) and limit rows
+    (the swing passes lo = -2.2), ball rows, joints beside contacts, and
+    the connected-pair exclusion (the links overlap at the ball anchor)."""
+    from rl_ode_physics_tpu_torch.ops.joints import (
+        add_ball, add_hinge, empty_joints, set_hinge_limits, set_hinge_motor)
+
+    b = WorldBuilder(config, 0)
+    b.add_body_map((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (100.0, 1.0, 100.0))
+    anchor = b.add_body_map((0.0, 4.0, 0.0), (0.0, 0.0, 0.0),
+                            (0.3, 0.3, 0.3))
+    # link A: long axis along +x, inner end at the anchor point
+    link_a = b.add_body(BodyType.BOX, (0.8, 4.0, 0.0), (1.6, 0.15, 0.15))
+    # link B: continues the chain along +x
+    link_b = b.add_body(BodyType.BOX, (2.4, 4.0, 0.0), (1.6, 0.15, 0.15))
+    # strike box under the swing path
+    b.add_body(BodyType.BOX, (0.3, 0.76, 0.0), (0.5, 0.5, 0.5))
+    state = b.finish(device)
+
+    j = empty_joints(4, dtype=state.pos.dtype, device=device)
+    j = add_hinge(j, state, 0, anchor, link_a, world_anchor=(0.0, 4.0, 0.0),
+                  world_axis=(0.0, 0.0, 1.0))
+    j = set_hinge_limits(j, 0, -2.2, 0.35)
+    j = set_hinge_motor(j, 0, vel=0.0, fmax=0.4)      # joint friction
+    j = add_ball(j, state, 1, link_a, link_b, world_anchor=(1.6, 4.0, 0.0))
+    return state, j
 
 
 def capsule_pile_world(config: EngineConfig, device="cuda") -> WorldState:

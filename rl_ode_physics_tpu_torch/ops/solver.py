@@ -1,11 +1,13 @@
 """Contact solver: batched projected Jacobi with mass splitting, and
-sequential projected Gauss-Seidel.
+sequential projected Gauss-Seidel; the dispatch to the direct LCP solve.
 
-The port of the JACOBI and PGS paths of ``rl_ode_physics_tpu/ops/solver.py``
-(``:54-331``, ``:334-545``, ``:636-765``): the row-major Jacobi loop with
-heavy-ball momentum, μ=∞ or finite μ, and per-body surface parameters; PGS
-in buffer row order (ODE QuickStep's ordering, the conformance solver);
-warm starting (``lam0``) and impulse outputs (``return_lam``) on both.
+The port of ``rl_ode_physics_tpu/ops/solver.py``: the Jacobi loop with
+heavy-ball momentum in its row-major and component-major (``solver_cm``)
+forms, with bf16 or float32 selector products; PGS in buffer row order
+(ODE QuickStep's ordering, the conformance solver); μ=∞, finite μ and
+per-body surface parameters; warm starting (``lam0``) and impulse outputs
+(``return_lam``); joint rows (``ops/joints.py``) after each contact sweep;
+``solve``, which also routes DANTZIG to ``ops/lcp.py``.
 
 Per contact row (normal n, arms r_a/r_b, bodies a, b), in impulse space:
     v_n    = (v_b + w_b × r_b − v_a − w_a × r_a) · n
@@ -18,9 +20,11 @@ from overshooting.
 Contact↔body data movement is the one-hot selector product of the JAX
 package, as ``torch.bmm``: the gather ``S @ vel`` and the scatter
 ``Sᵀ @ contrib``. Both are deterministic on the card, where an
-``index_add_`` would sum in an order that changes from run to run. A
-float32 matmul stays float32 on the card only with TF32 off, which is
-PyTorch's default; both solvers raise if it was turned on.
+``index_add_`` would sum in an order that changes from run to run. Their
+operands are in ``solver_matmul_dtype`` and their results in the state's
+dtype, as JAX's ``preferred_element_type``. A float32 matmul stays float32
+on the card only with TF32 off, which is PyTorch's default; the solvers
+raise if it was turned on.
 
 PGS is sequential over rows: row i reads the velocities row i − 1 wrote.
 Its loop runs in Python, a few dozen launches over (B,) tensors a row,
@@ -39,6 +43,7 @@ import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
 from rl_ode_physics_tpu_torch.core.state import WorldState, world_inv_inertia
+from rl_ode_physics_tpu_torch.ops import joints as joint_ops
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
 
 _EPS = 1e-9
@@ -282,34 +287,55 @@ def pack_solver_inputs(state: WorldState, contacts: Contacts,
     return s_mat, rowdata, halfop, vel, extras
 
 
-def _check_solver(state: WorldState, config: EngineConfig,
-                  joints_rows) -> None:
-    """Raise for what the port's solvers do not have: joint rows, the
-    component-major loop, bf16 selector products, and TF32 products."""
-    if joints_rows is not None:
-        raise NotImplementedError("joint rows are not ported")
-    if config.solver_cm:
-        raise NotImplementedError("the component-major solver loop "
-                                  "(solver_cm) is not ported")
-    if config.solver_matmul_dtype != "float32":
-        raise NotImplementedError(
-            f"solver_matmul_dtype={config.solver_matmul_dtype!r}: the port "
-            f"runs the selector products in float32")
+def _check_solver(state: WorldState) -> None:
+    """Raise if TF32 products are on: the selector products of a float32
+    solve must run in full float32."""
     if state.pos.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on: the "
                            "selector products must run in full float32")
 
 
+def bf16_product_route(device) -> str:
+    """How a product of two bf16 tensors is taken with a float32 result:
+    ``"out_dtype"`` on CUDA (``torch.bmm(..., out_dtype=torch.float32)``,
+    float32 accumulation) or ``"upcast"`` on the CPU, where that overload
+    raises (both operands to float32 first: their products are exact in
+    float32, so only the summation order differs)."""
+    return "out_dtype" if torch.device(device).type == "cuda" else "upcast"
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, f: torch.dtype) -> torch.Tensor:
+    """``a @ b`` batched with operands of the solver's product dtype and the
+    result in ``f``, as JAX's ``preferred_element_type=f``: a bf16 pair is
+    not rounded to bf16, float32 operands of a float64 state give a float64
+    result."""
+    if a.dtype == b.dtype == f:
+        return torch.bmm(a, b)
+    if (a.dtype == torch.bfloat16 and f == torch.float32
+            and bf16_product_route(a.device) == "out_dtype"):
+        return torch.bmm(a, b, out_dtype=f)
+    return torch.bmm(a.to(f), b.to(f))
+
+
 def solve_jacobi(state: WorldState, contacts: Contacts,
                  config: EngineConfig, lam0=None, return_lam: bool = False,
-                 joints_rows=None):
+                 joints_rows=None, return_joint_lam: bool = False):
     """Batched projected Jacobi with mass splitting, ``solver_iterations``
-    sweeps of the row-major loop. ``lam0``: (B, C, 3) initial impulses
-    (normal, t1, t2), applied to the velocities up front (warm start);
-    ``return_lam`` also returns the accumulated (B, C, 3) impulses. Joints
-    and the component-major loop (``solver_cm``) are not ported and
-    raise."""
-    _check_solver(state, config, joints_rows)
+    sweeps. ``lam0``: (B, C, 3) initial impulses (normal, t1, t2), applied
+    to the velocities up front (warm start); ``return_lam`` also returns
+    the accumulated (B, C, 3) impulses. ``joints_rows``
+    (``ops/joints.joint_rows``): a batched joint pass after each contact
+    sweep; ``return_joint_lam`` returns its (B, R) impulses instead.
+
+    ``solver_matmul_dtype="bfloat16"``: the selector, the velocities
+    gathered and the impulses scattered are rounded to bf16, and the
+    (2C, 8) response and J planes are stored in bf16; every product's
+    result and every other value stays in the state's dtype.
+    ``solver_cm``: the component-major loop, for a cold contact-only solve
+    that returns no impulses (otherwise the row-major loop runs)."""
+    if return_joint_lam and joints_rows is None:
+        raise ValueError("return_joint_lam=True requires joints_rows")
+    _check_solver(state)
     c = contacts.a.shape[1]
     f = state.linvel.dtype
 
@@ -330,8 +356,11 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
     cfm_term = config.cfm / config.dt
     mu_inf = math.isinf(config.mu)
 
-    s_mm = s_mat
+    mm_dtype = getattr(torch, config.solver_matmul_dtype)
+    s_mm = s_mat.to(mm_dtype)
     s_mm_t = s_mm.transpose(1, 2)
+    # the loop's (2C, 8) planes are stored in bf16 with bf16 products
+    plane_dt = mm_dtype if mm_dtype == torch.bfloat16 else f
 
     def _axis_contrib_op(axis_rows):
         """(B, C, 3) constraint axis → (B, 2C, 8) per-half-row Δv response
@@ -343,24 +372,95 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
         angz = h[..., 6:7] * ix + h[..., 7:8] * iy + h[..., 8:9] * iz
         return torch.cat(
             [lin_sc * ax_h, angx, angy, angz,
-             torch.zeros_like(ax_h[..., 0:2])], dim=-1)
-
-    k_op_n = _axis_contrib_op(n_ax)
-    if config.friction:
-        k_op_1 = _axis_contrib_op(t1_ax)
-        k_op_2 = _axis_contrib_op(t2_ax)
+             torch.zeros_like(ax_h[..., 0:2])], dim=-1).to(plane_dt)
 
     def _axis_j_op(axis_rows, rxa, rxb):
         """(B, C, 3) axis + arm crosses → (B, 2C, 8) J-row weight planes."""
         z2 = torch.zeros_like(axis_rows[..., 0:2])
         w_a = torch.cat([-axis_rows, -rxa, z2], dim=-1)
         w_b = torch.cat([axis_rows, rxb, z2], dim=-1)
-        return torch.cat([w_a, w_b], dim=1)
+        return torch.cat([w_a, w_b], dim=1).to(plane_dt)
 
+    k_op_n = _axis_contrib_op(n_ax)
     j_op_n = _axis_j_op(n_ax, rxa_n, rxb_n)
     if config.friction:
+        k_op_1, k_op_2 = _axis_contrib_op(t1_ax), _axis_contrib_op(t2_ax)
         j_op_1 = _axis_j_op(t1_ax, rxa_1, rxb_1)
         j_op_2 = _axis_j_op(t2_ax, rxa_2, rxb_2)
+
+    beta = float(config.jacobi_beta)
+    momentum = beta != 0.0
+    with_joints = joints_rows is not None
+
+    def friction_bound(lam_n, mu):
+        if config.per_body_surface:
+            return torch.where(torch.isinf(mu),
+                               torch.full_like(lam_n, torch.inf), mu * lam_n)
+        if mu_inf:
+            return torch.full_like(lam_n, torch.inf)
+        return config.mu * lam_n
+
+    def project(lam, dl, live_x, bound=None):
+        """λ + dl clamped (at 0 for a normal row, within ±bound for a
+        friction row) on the live rows: (the step taken, the new λ)."""
+        new = (torch.clamp_min(lam + dl, 0.0) if bound is None
+               else torch.clamp(lam + dl, -bound, bound))
+        dl = torch.where(live_x, new - lam, 0.0)
+        return dl, lam + dl
+
+    if (config.solver_cm and not with_joints and lam0 is None
+            and not return_lam):
+        # component-major: contacts along the last axis, planes (8, 2C),
+        # λ, d, target (1, C), the velocities (8, N); the same math
+        def t(x):
+            return x.transpose(1, 2).contiguous()
+
+        d_n_t, target_t, live_t = t(d_n), t(target), t(live)
+        j_t, k_t = [t(j_op_n)], [t(k_op_n)]
+        if config.friction:
+            d_t = (t(d_t1), t(d_t2))
+            j_t += [t(j_op_1), t(j_op_2)]
+            k_t += [t(k_op_1), t(k_op_2)]
+        mu_t = t(extras["mu"][..., None]) if config.per_body_surface else None
+
+        def dup_t(x):                                    # (B,1,C)→(B,1,2C)
+            return torch.cat([x, x], dim=2)
+
+        vel_t = t(vel0)                                  # (B, 8, N)
+        zc = torch.zeros_like(target_t)
+        lam = [zc] * (3 if config.friction else 1)
+        prev = list(lam)
+        for _ in range(config.solver_iterations):
+            if momentum:
+                mom = [beta * (x - p) for x, p in zip(lam, prev)]
+                prev = list(lam)
+            vh_t = _mm(vel_t.to(mm_dtype), s_mm_t, f)    # (B, 8, 2C)
+
+            def rel(jt):
+                r2 = torch.sum(jt * vh_t, 1, keepdim=True)   # (B, 1, 2C)
+                return r2[..., :c] + r2[..., c:]
+
+            dl = omega * (target_t - rel(j_t[0])
+                          - cfm_term * lam[0]) / d_n_t
+            if momentum:
+                dl = dl + mom[0]
+            dls = [None] * len(lam)
+            dls[0], lam[0] = project(lam[0], dl, live_t)
+            if config.friction:
+                bound = friction_bound(lam[0], mu_t)
+                for ax in (1, 2):
+                    dl = omega * (-rel(j_t[ax])
+                                  - cfm_term * lam[ax]) / d_t[ax - 1]
+                    if momentum:
+                        dl = dl + mom[ax]
+                    dls[ax], lam[ax] = project(lam[ax], dl, live_t, bound)
+            contrib = k_t[0] * dup_t(dls[0])
+            for ax in range(1, len(lam)):
+                contrib = contrib + k_t[ax] * dup_t(dls[ax])
+            vel_t = vel_t + _mm(contrib.to(mm_dtype), s_mm, f)   # (B, 8, N)
+        vel8 = t(vel_t)
+        return state.replace(linvel=vel8[..., 0:3].contiguous(),
+                             angvel=vel8[..., 3:6].contiguous())
 
     def scatter_dl(dl_n, dl_1=None, dl_2=None):
         """Per-axis impulse magnitudes (B, C, 1) → (B, N, 8) Δvel."""
@@ -369,15 +469,12 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
         contrib = k_op_n * dup(dl_n)
         if dl_1 is not None:
             contrib = contrib + k_op_1 * dup(dl_1) + k_op_2 * dup(dl_2)
-        return torch.bmm(s_mm_t, contrib)                       # (B, N, 8)
+        return _mm(s_mm_t, contrib.to(mm_dtype), f)              # (B, N, 8)
 
     def rel(j_op, vh):
         """Per-row relative velocity, halves folded: (B, C, 1)."""
         r2 = torch.sum(j_op * vh, -1, keepdim=True)             # (B, 2C, 1)
         return r2[:, :c] + r2[:, c:]
-
-    beta = float(config.jacobi_beta)
-    momentum = beta != 0.0
 
     zero = torch.zeros(contacts.valid.shape + (1,), dtype=f,
                        device=state.device)
@@ -393,6 +490,8 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
             vel0 = vel0 + scatter_dl(l_n)
     vel, lam_n, lam_t1, lam_t2 = vel0, l_n, l_1, l_2
     pn, p1, p2 = l_n, l_1, l_2
+    if with_joints:
+        jlam = torch.zeros_like(joints_rows["rhs"])
     for _ in range(config.solver_iterations):
         if momentum:
             # heavy-ball: extrapolate with the previous accepted step before
@@ -403,43 +502,36 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
         else:
             mom_n = mom_1 = mom_2 = 0.0
 
-        vh = torch.bmm(s_mm, vel)                               # (B, 2C, 8)
+        vh = _mm(s_mm, vel.to(mm_dtype), f)                     # (B, 2C, 8)
 
         dl_n = omega * (target - rel(j_op_n, vh)
                         - cfm_term * lam_n) / d_n + mom_n
-        new_n = torch.clamp_min(lam_n + dl_n, 0.0)
-        dl_n = torch.where(live, new_n - lam_n, 0.0)
-        lam_n = lam_n + dl_n
+        dl_n, lam_n = project(lam_n, dl_n, live)
 
         if config.friction:
-            if config.per_body_surface:
-                mu_c = extras["mu"][..., None]                  # (B, C, 1)
-                bound = torch.where(torch.isinf(mu_c),
-                                    torch.full_like(lam_n, torch.inf),
-                                    mu_c * lam_n)
-            elif mu_inf:
-                bound = torch.full_like(lam_n, torch.inf)
-            else:
-                bound = config.mu * lam_n
+            bound = friction_bound(
+                lam_n, extras["mu"][..., None] if config.per_body_surface
+                else None)
             dl_1 = omega * (-rel(j_op_1, vh)
                             - cfm_term * lam_t1) / d_t1 + mom_1
-            new_1 = torch.clamp(lam_t1 + dl_1, -bound, bound)
-            dl_1 = torch.where(live, new_1 - lam_t1, 0.0)
-            lam_t1 = lam_t1 + dl_1
-
+            dl_1, lam_t1 = project(lam_t1, dl_1, live, bound)
             dl_2 = omega * (-rel(j_op_2, vh)
                             - cfm_term * lam_t2) / d_t2 + mom_2
-            new_2 = torch.clamp(lam_t2 + dl_2, -bound, bound)
-            dl_2 = torch.where(live, new_2 - lam_t2, 0.0)
-            lam_t2 = lam_t2 + dl_2
+            dl_2, lam_t2 = project(lam_t2, dl_2, live, bound)
             dv = scatter_dl(dl_n, dl_1, dl_2)
         else:
             dv = scatter_dl(dl_n)
 
         vel = vel + dv
+        if with_joints:
+            # the bilateral rows after each contact sweep
+            vel, jlam = joint_ops.joint_iteration(vel, joints_rows, jlam,
+                                                  omega, cfm_term)
 
     out = state.replace(linvel=vel[..., 0:3].contiguous(),
                         angvel=vel[..., 3:6].contiguous())
+    if return_joint_lam:
+        return out, jlam
     if return_lam:
         return out, torch.cat([lam_n, lam_t1, lam_t2], dim=-1)
     return out
@@ -465,8 +557,10 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
     front (warm start); ``return_lam`` also returns the accumulated
     (B, C, 3) impulses. Each sweep stops at ``live_row_bound`` of the
     contacts: rows past it are dead in every world, and a dead row changes
-    nothing. Joints are not ported and raise."""
-    _check_solver(state, config, joints_rows)
+    nothing. ``joints_rows`` (``ops/joints.joint_rows``): a sequential
+    joint pass after each contact sweep, over the joint rows live in some
+    world (one more host read a solve)."""
+    _check_solver(state)
     feats = _direct_body_features(state, contacts)
     rows = _row_data(state, contacts, config, feats)
     bsz, c = contacts.a.shape
@@ -541,6 +635,11 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
         lam_t[i] += dls
         apply_pair(i, axis, dls)
 
+    if joints_rows is not None:
+        jlam = torch.zeros_like(joints_rows["rhs"])
+        visit = joint_ops.live_joint_rows(joints_rows)
+        pad = torch.zeros_like(vel[..., :2])
+
     for _ in range(config.solver_iterations):
         for i in range(rows_bound):
             # normal row (the residual includes ODE's CFM softening −cfm/h·λ)
@@ -565,6 +664,13 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
                     bound = config.mu * lam_n[i]
                 friction_row(i, axes[1][i], d_r[1], lam_t1, bound)
                 friction_row(i, axes[2][i], d_r[2], lam_t2, bound)
+        if joints_rows is not None:
+            # the bilateral rows after each contact sweep, sequential like
+            # it: the batched pass diverges on chains that share a body
+            vel8, jlam = joint_ops.joint_iteration_seq(
+                torch.cat([vel, pad], -1), joints_rows, jlam, omega,
+                cfm_term, visit)
+            vel = vel8[..., 0:6].contiguous()
 
     out = state.replace(linvel=vel[..., 0:3].contiguous(),
                         angvel=vel[..., 3:6].contiguous())
@@ -575,11 +681,26 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
 
 def solve(state: WorldState, contacts: Contacts,
           config: EngineConfig, joints_rows=None) -> WorldState:
-    """The contact solve of one substep: JACOBI or PGS; DANTZIG is not
-    ported and raises."""
+    """The contact solve of one substep: JACOBI, PGS or DANTZIG. With
+    ``joints_rows``, DANTZIG's direct contact solve is followed by
+    ``solver_iterations`` sequential joint passes at ω = 1."""
     if config.solver is SolverKind.PGS:
         return solve_pgs(state, contacts, config, joints_rows=joints_rows)
-    if config.solver is not SolverKind.JACOBI:
-        raise NotImplementedError(
-            f"solver {config.solver.value!r} is not ported (JACOBI and PGS)")
+    if config.solver is SolverKind.DANTZIG:
+        # imported here: ops/lcp builds on this module's row data
+        from rl_ode_physics_tpu_torch.ops.lcp import solve_dantzig
+        state = solve_dantzig(state, contacts, config)
+        if joints_rows is not None:
+            # iterative bilateral relaxation after the direct contact solve
+            vel8 = torch.cat([state.linvel, state.angvel,
+                              torch.zeros_like(state.linvel[..., :2])], -1)
+            jlam = torch.zeros_like(joints_rows["rhs"])
+            cfm_term = config.cfm / config.dt
+            visit = joint_ops.live_joint_rows(joints_rows)
+            for _ in range(config.solver_iterations):
+                vel8, jlam = joint_ops.joint_iteration_seq(
+                    vel8, joints_rows, jlam, 1.0, cfm_term, visit)
+            state = state.replace(linvel=vel8[..., 0:3].contiguous(),
+                                  angvel=vel8[..., 3:6].contiguous())
+        return state
     return solve_jacobi(state, contacts, config, joints_rows=joints_rows)

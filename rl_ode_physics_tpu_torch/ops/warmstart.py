@@ -63,7 +63,6 @@ def make_warm_step_fn(config: EngineConfig, trimesh=None):
     matched cached impulses, the cache refreshed from the solve. Like the
     JAX warm step it leaves ``state.overflow`` as it was.
     """
-    from rl_ode_physics_tpu_torch.core.world import _check_supported
     from rl_ode_physics_tpu_torch.ops import broadphase, integrator
     from rl_ode_physics_tpu_torch.ops import narrowphase as np_ops
     from rl_ode_physics_tpu_torch.ops import solver as solver_ops
@@ -71,7 +70,7 @@ def make_warm_step_fn(config: EngineConfig, trimesh=None):
 
     if config.solver not in (SolverKind.PGS, SolverKind.JACOBI):
         raise ValueError("warm starting supports PGS and JACOBI solvers")
-    _check_supported(config.replace(dense_pipeline=False), trimesh)
+    config.validate()
     solve = (solver_ops.solve_pgs if config.solver is SolverKind.PGS
              else solver_ops.solve_jacobi)
 

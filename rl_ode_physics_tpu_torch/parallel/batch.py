@@ -75,17 +75,22 @@ def _check_dense_fits(config: EngineConfig, batch: WorldState,
 
 
 def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
-                         chunk: int = 0, device="cuda", trimesh=None):
+                         chunk: int = 0, device="cuda", trimesh=None,
+                         joints=None):
     """A function batch → batch that runs ``substeps`` substeps.
 
     ``chunk``: step the batch in world-chunks of this size, one after the
     other, to bound peak device memory. The batch must lie on ``device``:
     the function raises rather than step it anywhere else. ``trimesh``: an
     optional static ``ops.trimesh.TriMesh`` on the same device, shared by
-    every world. On a card, a dense-pipeline batch whose intermediates
-    would not fit raises.
+    every world. ``joints``: an optional ``ops.joints.JointSet`` on the same
+    device, of one world (shared by every world) or of the whole batch
+    (with ``chunk``, it must be of one world). On a card, a dense-pipeline
+    batch whose intermediates would not fit raises.
     """
-    step_fn = make_step_fn(config, substeps, trimesh=trimesh)
+    if chunk and joints is not None and joints.kind.shape[0] != 1:
+        raise ValueError("chunk needs a joint table of one world")
+    step_fn = make_step_fn(config, substeps, trimesh=trimesh, joints=joints)
     want = torch.device(device)
 
     def fn(batch: WorldState) -> WorldState:

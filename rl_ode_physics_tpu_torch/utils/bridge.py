@@ -1,6 +1,6 @@
 """NumPy bridge between the JAX package's pytrees and the port's tensors.
 
-A JAX ``WorldState``, ``Contacts`` or ``WarmCache`` read out as a mapping
+A JAX ``WorldState``, ``Contacts``, ``WarmCache`` or ``JointSet`` read out as a mapping
 of field name to numpy array (``{f.name: np.asarray(getattr(s, f.name))}``)
 becomes the port's dataclass, and back; so does the dict of diagnostics
 counters that ``step_with_diagnostics`` returns. This is how state built or
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from rl_ode_physics_tpu_torch.core.state import WorldState
+from rl_ode_physics_tpu_torch.ops.joints import JointSet
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
 from rl_ode_physics_tpu_torch.ops.trimesh import TriMesh
 from rl_ode_physics_tpu_torch.ops.warmstart import WarmCache
@@ -119,6 +120,20 @@ def warmcache_from_numpy(arrays: Mapping[str, np.ndarray],
 def warmcache_to_numpy(cache: WarmCache,
                        world: Optional[int] = None) -> dict:
     return _to_numpy(cache, world)
+
+
+def joints_from_numpy(arrays: Mapping[str, np.ndarray],
+                      device="cuda") -> JointSet:
+    """The port's ``JointSet`` from numpy arrays of the JAX fields (``kind``
+    (J,) for one world's table, or (B, J))."""
+    batched = _is_batched(arrays, "kind", 1)
+    return JointSet(**{
+        f.name: _to_tensor(arrays[f.name], batched, device)
+        for f in dataclasses.fields(JointSet)})
+
+
+def joints_to_numpy(joints: JointSet, world: Optional[int] = None) -> dict:
+    return _to_numpy(joints, world)
 
 
 def metrics_from_numpy(metrics: Mapping[str, np.ndarray],

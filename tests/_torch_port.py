@@ -5,16 +5,22 @@ pytrees read out as numpy arrays for ``rl_ode_physics_tpu_torch.utils.bridge``.
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
+from threadpoolctl import threadpool_limits
 
 from rl_ode_physics_tpu.core.config import EngineConfig as JaxConfig
+from rl_ode_physics_tpu.core.config import SolverKind as JaxSolverKind
 from rl_ode_physics_tpu.core.state import WorldState as JaxWorldState
 from rl_ode_physics_tpu.core.world import make_step_fn as jax_make_step_fn
 from rl_ode_physics_tpu.models import scenes as jax_scenes
 from rl_ode_physics_tpu_torch.core.config import EngineConfig as TorchConfig
+from rl_ode_physics_tpu_torch.core.config import SolverKind as TorchSolverKind
 
 # 16 slots (12 bodies + the 4 arena geoms) with the bench's capacities as
 # bench._bucket_caps(16) and max_contacts=32 give them: throughput policy,
@@ -33,10 +39,40 @@ SMALL = dict(
 SMALL_BODIES = 12
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_cpu_thread():
+    """One CPU thread for torch and the BLAS/OpenMP pools (JAX's LAPACK
+    calls among them) while a module that imports this fixture runs. The
+    test workers share the cores, and a pool of a thread a core then
+    spins: a small dense solve or einsum ran 8-100x slower with every
+    core busy. One thread a worker keeps them at their solo speed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(threads)
+
+
+# the JAX side's subprocesses: XLA and LAPACK on one thread, for the same
+# reason (a float64 DANTZIG trajectory took 90 s instead of 10)
+SUBPROCESS_ENV = dict(
+    os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+    MKL_NUM_THREADS="1",
+    XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+               + " --xla_cpu_multi_thread_eigen=false"
+               " intra_op_parallelism_threads=1").strip())
+
+
 def configs(**overrides):
-    """(JAX config, port config) of the small throughput configuration."""
+    """(JAX config, port config) of the small throughput configuration; a
+    ``solver`` of either package's ``SolverKind`` is given to each side as
+    its own."""
     kw = dict(SMALL, **overrides)
-    return JaxConfig.throughput(**kw), TorchConfig.throughput(**kw)
+    jkw = dict(kw)
+    if "solver" in kw:
+        jkw["solver"] = JaxSolverKind(kw["solver"].value)
+        kw["solver"] = TorchSolverKind(kw["solver"].value)
+    return JaxConfig.throughput(**jkw), TorchConfig.throughput(**kw)
 
 
 def to_numpy(obj) -> dict:

@@ -26,6 +26,8 @@ through a monkeypatch of ``pallas_kernels.sphere_mesh_d2_tiles`` /
 """
 
 import functools
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -717,17 +719,46 @@ def test_batched_mesh_step_matches_jax(sel, interpret_pallas):
     assert (got["pos"][:, dyn, 1] > -0.5).all()
 
 
-def test_mesh_step_with_capsules_raises():
-    """A capsule on the mesh steps now that its pair kernels are ported;
-    what still raises on that step is a solver the port lacks (DANTZIG)."""
+def test_mesh_step_with_capsules_raises(tmp_path):
+    """A capsule on the mesh steps now that its pair kernels are ported,
+    and, now that the port has DANTZIG, the ridge mesh scene steps under it
+    like the JAX step (the name is the test's history). DANTZIG is held in
+    float64 (``tests/_traj_engine.py ridge_mesh … dantzig`` in a
+    subprocess, JAX's x64 mode being process-global): 16 steps within
+    1e-9. In float32 the direct solve's friction rows on a mesh amplify
+    roundoff to about 1e-5 of the velocities."""
     _, tcfg, arrays, jmesh = _ridge_in_contact(3)
     mesh = bridge.trimesh_from_numpy(to_numpy(jmesh), device="cpu")
     state = make_batched_step_fn(tcfg, device="cpu", trimesh=mesh)(
         bridge.world_from_numpy(arrays, device="cpu"))
     assert bool(torch.isfinite(state.pos).all())
-    with pytest.raises(NotImplementedError):
-        make_batched_step_fn(tcfg.replace(solver=SolverKind.DANTZIG),
-                             device="cpu", trimesh=mesh)
+
+    from test_torch_x64 import (REPO, SUBPROCESS_ENV, TOL, _config,
+                                _initial_state)
+    steps = 16
+    out = tmp_path / "ridge_dantzig.npz"
+    r = subprocess.run(
+        [sys.executable, str(REPO / "tests" / "_traj_engine.py"),
+         "ridge_mesh", str(out), str(steps), "dantzig"],
+        capture_output=True, text=True, timeout=600, cwd=str(REPO),
+        env=SUBPROCESS_ENV)
+    assert r.returncode == 0, r.stderr[-3000:]
+    data = np.load(out)
+    config = _config("dantzig")
+    assert config.solver is SolverKind.DANTZIG
+    tstate = _initial_state(data, config)
+    mesh = bridge.trimesh_from_numpy(
+        {k: data[f"mesh_{k}"] for k in ("v0", "e1", "e2", "normal", "slot")},
+        device="cpu")
+    step = make_batched_step_fn(config, device="cpu", trimesh=mesh)
+    for i in range(steps):
+        tstate = step(tstate)
+        for name in ("pos", "quat"):
+            err = float(np.abs(getattr(tstate, name)[0].numpy()
+                               - data[name][i]).max())
+            assert err <= TOL, (i, name, err)
+    assert int(tstate.overflow[0]) == 0
+    assert np.abs(data["pos"][-1] - data["init_pos"]).max() > 0.01
 
 
 def test_mesh_step_with_capsule_matches_jax(interpret_pallas):

@@ -2,14 +2,15 @@
 trajectories, on the CPU.
 
 JAX's x64 mode is process-global, so the JAX side runs the unedited helper
-``tests/_traj_engine.py <scene> <out.npz> <steps> pgs`` in a subprocess, as
-``tests/test_conformance_referee.py`` does: the conformance configuration
-(PGS in buffer row order, exact box clipping, K=8, float64), the scene's
-initial state, its mesh and the per-step ``pos``/``quat``. The port steps
-the same initial state, bridged from the npz, under the same configuration
-values, and must stay within 1e-9 of every step (measured: below 1e-15 over
-these steps). ``sphere_drop`` runs 72 steps, so that the sphere lands (at
-about step 63); the others 60.
+``tests/_traj_engine.py <scene> <out.npz> <steps> <solver>`` in a
+subprocess, as ``tests/test_conformance_referee.py`` does: the conformance
+configuration (PGS in buffer row order or the direct DANTZIG solve, exact
+box clipping, K=8, float64), the scene's initial state, its mesh or joint
+table and the per-step ``pos``/``quat``. The port steps the same initial
+state, bridged from the npz, under the same configuration values, and must
+stay within 1e-9 of every step (measured: below 1e-15 over the PGS runs).
+``sphere_drop`` runs 72 steps, so that the sphere lands (at about step
+63); the other PGS runs 60, the DANTZIG runs and the hinge chain 40.
 """
 
 import pathlib
@@ -25,9 +26,15 @@ from rl_ode_physics_tpu_torch.core.world import make_step_fn
 from rl_ode_physics_tpu_torch.models import scenes
 from rl_ode_physics_tpu_torch.utils import bridge
 
+from _torch_port import (  # noqa: F401  (an autouse fixture)
+    SUBPROCESS_ENV, single_cpu_thread)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TOL = 1e-9
-STEPS = {"sphere_drop": 72, "mini_stack": 60, "ridge_mesh": 60}
+# (scene, solver): steps
+RUNS = {("sphere_drop", "pgs"): 72, ("mini_stack", "pgs"): 60,
+        ("ridge_mesh", "pgs"): 60, ("mini_stack", "dantzig"): 40,
+        ("hinge_chain", "pgs"): 40, ("hinge_chain", "dantzig"): 40}
 
 # tests/_traj_engine.py:make_cfg("pgs"), by value
 CONFORMANCE = dict(max_bodies=16, max_pair_candidates=128, max_contacts=256,
@@ -36,26 +43,37 @@ CONFORMANCE = dict(max_bodies=16, max_pair_candidates=128, max_contacts=256,
                    matmul_precision="highest")
 
 
+def _config(solver):
+    """``tests/_traj_engine.py:make_cfg(solver)``, by value: DANTZIG's row
+    capacity is 96."""
+    if solver == "dantzig":
+        return EngineConfig(**dict(CONFORMANCE, max_contacts=96,
+                                   solver=SolverKind.DANTZIG))
+    return EngineConfig(**CONFORMANCE)
+
+
 @pytest.fixture(scope="module")
 def jax_trajectory(tmp_path_factory):
-    """scene → the JAX package's npz, each scene run once for the module."""
+    """(scene, solver) → the JAX package's npz, each run once for the
+    module."""
     runs = {}
 
-    def get(scene):
-        if scene not in runs:
-            runs[scene] = _jax_trajectory(scene,
-                                          tmp_path_factory.mktemp(scene))
-        return runs[scene]
+    def get(scene, solver="pgs"):
+        if (scene, solver) not in runs:
+            runs[scene, solver] = _jax_trajectory(
+                scene, solver, tmp_path_factory.mktemp(f"{scene}_{solver}"))
+        return runs[scene, solver]
 
     return get
 
 
-def _jax_trajectory(scene, tmp_path):
+def _jax_trajectory(scene, solver, tmp_path):
     out = tmp_path / f"{scene}.npz"
     r = subprocess.run(
         [sys.executable, str(REPO / "tests" / "_traj_engine.py"), scene,
-         str(out), str(STEPS[scene]), "pgs"],
-        capture_output=True, text=True, timeout=600, cwd=str(REPO))
+         str(out), str(RUNS[scene, solver]), solver],
+        capture_output=True, text=True, timeout=600, cwd=str(REPO),
+        env=SUBPROCESS_ENV)
     assert r.returncode == 0, r.stderr[-3000:]
     return np.load(out)
 
@@ -76,39 +94,65 @@ def _initial_state(data, config):
     return bridge.world_from_numpy(arrays, device="cpu")
 
 
-@pytest.mark.parametrize("scene", list(STEPS))
-def test_conformance_trajectory_matches_jax(scene, jax_trajectory):
-    config = EngineConfig(**CONFORMANCE)
-    data = jax_trajectory(scene)
+@pytest.mark.parametrize("scene,solver", [
+    pytest.param(scene, solver,
+                 id=scene if solver == "pgs" else f"{scene}-{solver}")
+    for scene, solver in RUNS])
+def test_conformance_trajectory_matches_jax(scene, solver, jax_trajectory):
+    config = _config(solver)
+    steps = RUNS[scene, solver]
+    data = jax_trajectory(scene, solver)
     state = _initial_state(data, config)
     assert state.pos.dtype == torch.float64
-    mesh = None
+    mesh = joints = None
     if "mesh_v0" in data.files:
         mesh = bridge.trimesh_from_numpy(
             {k: data[f"mesh_{k}"] for k in ("v0", "e1", "e2", "normal",
                                             "slot")}, device="cpu")
-    step = make_step_fn(config, substeps=1, trimesh=mesh)
+    if "jnt_kind" in data.files:
+        joints = bridge.joints_from_numpy(
+            {k[len("jnt_"):]: data[k] for k in data.files
+             if k.startswith("jnt_")}, device="cpu")
+        assert joints.anchor_a.dtype == torch.float64
+    step = make_step_fn(config, substeps=1, trimesh=mesh, joints=joints)
     worst = 0.0
-    for i in range(STEPS[scene]):
+    for i in range(steps):
         state = step(state)
         for name in ("pos", "quat"):
             err = float(np.abs(getattr(state, name)[0].numpy()
                                - data[name][i]).max())
             worst = max(worst, err)
-            assert err <= TOL, (scene, i, name, err)
+            assert err <= TOL, (scene, solver, i, name, err)
     assert int(state.overflow[0]) == 0
     # the bodies moved: the comparison is not of a scene at rest
     moved = np.abs(data["pos"][-1] - data["init_pos"]).max()
     assert moved > 0.05, moved
-    print(f"[x64:{scene}] max abs pos/quat err {worst:.3e} over "
-          f"{STEPS[scene]} steps")
+    print(f"[x64:{scene}:{solver}] max abs pos/quat err {worst:.3e} over "
+          f"{steps} steps")
+
+
+def test_port_hinge_chain_builds_the_npz_joints(jax_trajectory):
+    """The port's f64 ``hinge_chain_scene`` gives the JAX builder's initial
+    state and joint table bit for bit."""
+    config = _config("pgs")
+    data = jax_trajectory("hinge_chain")
+    state, joints = scenes.hinge_chain_scene(config, device="cpu")
+    want = _initial_state(data, config)
+    for name in ("pos", "quat", "inv_mass", "inv_inertia", "body_type",
+                 "size", "is_static"):
+        assert torch.equal(getattr(state, name), getattr(want, name)), name
+    got = bridge.joints_to_numpy(joints, 0)
+    for name, value in got.items():
+        ref = data[f"jnt_{name}"]
+        assert value.dtype == ref.dtype, name
+        assert np.array_equal(value, ref), name
 
 
 def test_port_scenes_build_the_npz_initial_state(jax_trajectory):
     """The port's own f64 scene builders give the JAX builders' initial
     state bit for bit (the map boxes' quaternions through float32, as the
     JAX builder computes them), and the same mesh."""
-    config = EngineConfig(**CONFORMANCE)
+    config = _config("pgs")
     data = jax_trajectory("ridge_mesh")
     state, mesh = scenes.ridge_mesh_scene(config, device="cpu")
     want = _initial_state(data, config)
