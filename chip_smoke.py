@@ -138,15 +138,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     per-triangle kernel once, each held to its plain version on that
     path's own tensors.
 17. the device probes: each probe kernel against its plain version at a
-    few trips (``probe_vpu`` and ``probe_mxu`` at A = 1, B = 1/16 bit for
-    bit, ``probe_mxu`` on random inputs at rtol 1e-5, ``probe_matmuls``'
-    acc within 4 float32 spacings and its checksum of all 384 columns at
-    rtol 1e-5, a product 1% off in its first 64 columns refused by that
-    check), then the probe path
-    ``utils/device_probe.run(quick=True)``, launch counts set to 0 before
-    and read after: the memory pass at 64 MB and 1 GB, the bf16 ``bmm``,
-    the three kernels at the TPU probes' first trip counts, the shape menu;
-    prints the measured GB/s and FP32 TFLOP/s beside the data sheet's.
+    few trips (``probe_vpu`` bit for bit; ``probe_mxu``, one cluster of 16
+    blocks, at A = 1, B = 1/16 bit for bit after 1, 2, 3, 7 and 64
+    products and on random inputs at rtol 1e-5; ``probe_matmuls`` at 1, 2
+    and 3 trips on random and on the TPU probe's inputs, its acc within 4
+    float32 spacings and its checksum of all 384 columns at rtol 1e-5, a
+    product 1% off in its first 64 columns refused by that check), the
+    cluster's size and ``cudaOccupancyMaxActiveClusters``, then the probe
+    path ``utils/device_probe.run(quick=True)``, launch counts set to 0
+    before and read after: the memory pass at 64 MB and 1 GB, the bf16
+    ``bmm``, the three kernels at the TPU probes' first trip counts, each
+    beside its library chain (``library_ms``), the shape menu; prints the
+    measured GB/s and FP32 TFLOP/s beside the data sheet's.
 18. the bench's A/B levers (``solver_cm``, ``solver_matmul_dtype=
     "bfloat16"``, both) on ``bench_config(64)``: card against CPU on the
     bench scene (4 worlds settled 40 substeps on the CPU, 8 substeps on
@@ -265,7 +268,14 @@ HINGE_PGS_SUBSTEPS = 4
 # the compaction at k past the index list: worlds of M = 4,096 columns
 WIDE_K_WORLDS = 1024
 # the probe kernels: trips of the short checks, names in the kernels line
-PROBE_CHECK_TRIPS = 2
+PROBE_CHECK_TRIPS = (1, 2, 3)
+# probe_mxu's products checked bit for bit: both buffers, many barriers
+PROBE_MXU_CHECK_STEPS = (1, 2, 3, 7, 64)
+# the PyTorch call a step of each probe's library chain (utils/device_probe)
+LIBRARY_CALLS = dict(
+    matmuls="torch.bmm(acc, S) a step, the product alone",
+    vpu="torch.addcmul a step, the fused chain",
+    mxu="torch.mm(acc, B*0.0625) a product")
 PROBE_NAMES = ("probe_kernel_matmuls", "probe_kernel_vpu", "probe_mxu_peak")
 # FP32 operations per (probe, triangle) pair, counted from the reference
 # arithmetic (rl_ode_physics_tpu/ops/pallas_kernels.py:89-105 with
@@ -1740,7 +1750,6 @@ def phase_device_probes(card):
     from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    trips = PROBE_CHECK_TRIPS
     vel = torch.randn((dp.MATMUL_WORLDS, pk.ROWS, pk.INNER), generator=gen,
                       device="cuda")
     s = torch.randn((dp.MATMUL_WORLDS, pk.INNER, pk.COLS), generator=gen,
@@ -1748,28 +1757,30 @@ def phase_device_probes(card):
     matmuls_err = 0.0
     for label, (v, w) in (("random", (vel, s)),
                           ("the TPU probe's", dp.matmuls_inputs())):
-        got = pk.probe_matmuls(v, w, trips)
-        want = pk.probe_matmuls_plain(v, w, trips)
-        errors = pk.matmuls_errors(v, got, want)
         # the check must refuse a product 1% off in its first 64 columns
         off = w.clone()
         off[..., :pk.INNER] *= 1.01
-        off_errors = pk.matmuls_errors(v, pk.probe_matmuls(v, off, trips),
-                                       want)
-        err = float((got[0] - want[0]).abs().max())
-        if not pk.matmuls_agree(errors) or pk.matmuls_agree(off_errors):
-            raise AssertionError(f"probe_matmuls on {label} inputs: {errors}; "
-                                 f"with the first 64 columns 1% off "
-                                 f"{off_errors}")
-        matmuls_err = max(matmuls_err, err)
-        log(f"probe_matmuls on {label} inputs, {trips} trips: acc within "
-            f"{errors['ulps']:.0f} float32 spacings of the plain version "
-            f"(max abs err {err:.3e}, increment rel err "
-            f"{errors['increment']:.3e}), checksum of all 384 columns rel err "
-            f"{errors['checksum']:.3e}; with the first 64 columns 1% off "
-            f"refused ({off_errors['ulps']:.0f} spacings, increment rel err "
-            f"{off_errors['increment']:.3e}, checksum rel err "
-            f"{off_errors['checksum']:.3e})")
+        for trips in PROBE_CHECK_TRIPS:
+            got = pk.probe_matmuls(v, w, trips)
+            want = pk.probe_matmuls_plain(v, w, trips)
+            errors = pk.matmuls_errors(v, got, want)
+            off_errors = pk.matmuls_errors(
+                v, pk.probe_matmuls(v, off, trips), want)
+            err = float((got[0] - want[0]).abs().max())
+            if not pk.matmuls_agree(errors) or pk.matmuls_agree(off_errors):
+                raise AssertionError(
+                    f"probe_matmuls on {label} inputs, {trips} trips: "
+                    f"{errors}; with the first 64 columns 1% off "
+                    f"{off_errors}")
+            matmuls_err = max(matmuls_err, err)
+            log(f"probe_matmuls on {label} inputs, {trips} trips: acc "
+                f"within {errors['ulps']:.0f} float32 spacings of the plain "
+                f"version (max abs err {err:.3e}, increment rel err "
+                f"{errors['increment']:.3e}), checksum of all 384 columns "
+                f"rel err {errors['checksum']:.3e}; with the first 64 "
+                f"columns 1% off refused ({off_errors['ulps']:.0f} spacings, "
+                f"increment rel err {off_errors['increment']:.3e}, checksum "
+                f"rel err {off_errors['checksum']:.3e})")
     for n in (3 * pk.VPU_THREADS, 12 * pk.VPU_THREADS):
         x = 0.5 + 1.5 * torch.rand((n,), generator=gen, device="cuda")
         if not torch.equal(pk.probe_vpu(x, 8), pk.probe_vpu_plain(x, 8)):
@@ -1780,10 +1791,15 @@ def phase_device_probes(card):
         log(f"probe_vpu on {n} values, 8 trips: bitwise the plain version; "
             f"the fmaf chain {fused:.3e} from the plain addcmul chain "
             f"(another rounding: timed only)")
+    cluster = pk.mxu_cluster_info()
+    log(f"probe_mxu: a cluster of {cluster['cluster']} blocks; "
+        f"cudaOccupancyMaxActiveClusters {cluster['max_active_clusters']}")
     a, b = dp.mxu_inputs()
-    if not torch.equal(pk.probe_mxu(a, b, 5), pk.probe_mxu_plain(a, b, 5)):
-        raise AssertionError("probe_mxu at A = 1, B = 1/16 differs from the "
-                             "plain version")
+    for steps in PROBE_MXU_CHECK_STEPS:
+        if not torch.equal(pk.probe_mxu(a, b, steps),
+                           pk.probe_mxu_plain(a, b, steps)):
+            raise AssertionError(f"probe_mxu at A = 1, B = 1/16 differs from "
+                                 f"the plain version after {steps} products")
     ra = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda")
     rb = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda") / 16
     got, ref = pk.probe_mxu(ra, rb, 3), pk.probe_mxu_plain(ra, rb, 3)
@@ -1792,9 +1808,10 @@ def phase_device_probes(card):
                           atol=pk.MATMUL_RTOL * float(ref.abs().max())):
         raise AssertionError(f"probe_mxu on random inputs: max abs err "
                              f"{mxu_err}")
-    log(f"probe_mxu: bitwise the plain version at A = 1, B = 1/16 (5 "
-        f"steps); on random inputs within rtol {pk.MATMUL_RTOL} (max abs err "
-        f"{mxu_err:.3e} of {float(ref.abs().max()):.3e})")
+    log(f"probe_mxu: bitwise the plain version at A = 1, B = 1/16 after "
+        f"{list(PROBE_MXU_CHECK_STEPS)} products; on random inputs within "
+        f"rtol {pk.MATMUL_RTOL} (max abs err {mxu_err:.3e} of "
+        f"{float(ref.abs().max()):.3e})")
 
     counters = (pk.probe_matmuls, pk.probe_vpu, pk.probe_mxu)
     for fn in counters:
@@ -1807,8 +1824,9 @@ def phase_device_probes(card):
                       for h in report["hbm"])
     log(f"device probes on {card}: memory {rates} (data sheet "
         f"{m['data_sheet_gb_per_s']:.0f}); FP32 "
-        f"{m['fp32_tflop_per_s_one_sm']:.4f} TFLOP/s on one SM, x132 = "
-        f"{m['fp32_tflop_per_s_x132']:.2f} TFLOP/s in the product chain, "
+        f"{m['fp32_tflop_per_s_per_sm']:.4f} TFLOP/s an SM on {m['sms']} "
+        f"SMs, x132 = {m['fp32_tflop_per_s_x132']:.2f} TFLOP/s in the "
+        f"product chain, "
         f"{m['fp32_fma_chain_tflop_per_s_one_sm']:.4f} x132 = "
         f"{m['fp32_fma_chain_tflop_per_s_x132']:.2f} TFLOP/s in the fused "
         f"multiply-add chain (data sheet "
@@ -1836,12 +1854,13 @@ def phase_device_probes(card):
             replaces=f"benchmarks/device_probe.py:{line}", launches=None,
             max_abs_err=err, ms=rep["ms"], plain_ms=plain[key],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-            library_ms=None,
+            library_ms=rep["library_ms"], library=LIBRARY_CALLS[key],
             timed_at={k: rep[k] for k in ("trips", "steps", "shape")
                       if k in rep}))
         log(f"{name}: kernel_ms={rep['ms']:.5f} plain_ms={plain[key]:.5f} "
             f"bound_ms={rep['bound_ms']:.5f} (FP32 operations on the SMs it "
-            f"runs on) library_ms=null")
+            f"runs on) library_ms={rep['library_ms']:.5f} "
+            f"({LIBRARY_CALLS[key]})")
     return {"device_probe": launches}, entries, report["measured"]
 
 

@@ -31,6 +31,7 @@ CHAIN = 16                  # dependent steps a trip (the TPU probes' chain)
 ROWS, INNER, COLS = 8, 64, 384          # probe_matmuls' (8, 64)·(64, 384)
 VPU_THREADS = 1024                      # probe_vpu's one block
 MXU_N = 256                             # probe_mxu's (256, 256) matrices
+MXU_CLUSTER = 16                        # probe_mxu's blocks, one an SM
 # how closely the products match their plain versions on random inputs
 MATMUL_RTOL = 1e-5
 # probe_matmuls' acc, in float32 spacings at the plain value: each step
@@ -44,6 +45,7 @@ FUNCTIONS = {
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "probe_mxu_launch":
         [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p],
+    "probe_mxu_cluster_info": [ctypes.c_void_p],
 }
 
 
@@ -126,7 +128,11 @@ def matmuls_agree(errors: dict) -> bool:
 
 def probe_matmuls(vel: torch.Tensor, s: torch.Tensor, trips: int):
     """vel (W, 8, 64), s (W, 64, 384) f32 → (acc (W, 8, 64), checksum (W,)
-    f64): one block a world, S_w in shared memory, f32 FMAs."""
+    f64): one block a world, S_w in registers, acc double-buffered in
+    shared memory, f32 FMAs: a thread for each column of acc summing all of
+    k in order (acc bit for bit the plain version's where the plain product
+    sums k in order), quads of threads for the other 320 columns (4
+    columns × 16 values of k a thread, the parts summed by shuffles)."""
     if vel.device.type == "cpu" and s.device.type == "cpu":
         return probe_matmuls_plain(vel, s, trips)
     _check_cuda(vel, s)
@@ -197,9 +203,22 @@ def probe_mxu_plain(a: torch.Tensor, b: torch.Tensor, steps: int):
     return acc
 
 
+def mxu_cluster_info() -> dict:
+    """``probe_mxu``'s cluster on the current card: its blocks and how many
+    such clusters the card holds at once (``cudaOccupancyMaxActiveClusters``,
+    0 when none can be placed)."""
+    info = (ctypes.c_int * 2)()
+    _raise_on(_library().probe_mxu_cluster_info(ctypes.addressof(info)),
+              "probe_mxu_cluster_info")
+    return dict(cluster=info[0], max_active_clusters=info[1])
+
+
 def probe_mxu(a: torch.Tensor, b: torch.Tensor, steps: int):
-    """a, b (256, 256) f32 → the chain's result, one block on one SM: acc
-    ping-pongs between two buffers in L2, B through shared memory."""
+    """a, b (256, 256) f32 → the chain's result, one cluster of 16 blocks on
+    16 SMs: block (i, j) computes output tile (i, j) of 64 × 64 from B's
+    column slab and acc's row band in its shared memory, and writes it into
+    the next band of its row's 4 blocks through distributed shared memory.
+    Raises where the card cannot place the cluster."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return probe_mxu_plain(a, b, steps)
     _check_cuda(a, b)

@@ -19,12 +19,19 @@ the H100 SXM data sheet's 3.35 TB/s; the kernels their FP32 operations at
 67 TFLOP/s times the share of the card's 132 SMs they run on (the
 multiply-then-add chain of ``probe_kernel_vpu`` at half that rate: the
 data sheet's counts a fused multiply-add as two operations of one
-instruction). One JSON
-object is printed, with the card's name and power limit and the measured
-memory rate and FP32 rates beside those data-sheet figures: one SM's
-(256, 256) product chain and its fused multiply-add chain, each times
-132. The entry point and the timed probes need a CUDA card; the tests run one trip of
-each plain probe (``hbm_trip``, ``bmm_trip``) and the kernels' plain
+instruction). Beside each kernel is its library chain, one PyTorch call a
+step, timed in the same process with TF32 off (``library_ms``):
+``torch.mm(acc, B·0.0625)`` for ``probe_mxu_peak`` (bit for bit its plain
+version: scaling by 2⁻⁴ is exact), ``torch.bmm(acc, S)`` for
+``probe_kernel_matmuls`` (the step's product alone, without the update and
+the checksum: a floor for any chain of library calls) and ``torch.addcmul``
+for the fused ``probe_kernel_vpu`` chain (its fused plain version). One
+JSON object is printed, with the card's name and power limit and the
+measured memory rate and FP32 rates beside those data-sheet figures: the
+(256, 256) product chain's rate per SM on the 16 SMs of its cluster, and
+one SM's fused multiply-add chain, each times 132. The entry point and the
+timed probes need a CUDA card; the tests run one trip of each plain probe
+(``hbm_trip``, ``bmm_trip``), the library chains and the kernels' plain
 versions on the CPU at small sizes.
 """
 
@@ -150,15 +157,49 @@ def matmuls_inputs(device="cuda"):
                        device=device))
 
 
+def _check_no_tf32() -> None:
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the library chains are timed in full float32: "
+                           "torch.backends.cuda.matmul.allow_tf32 is set")
+
+
+def matmuls_library_products(vel: torch.Tensor, s: torch.Tensor,
+                             trips: int) -> torch.Tensor:
+    """``probe_kernel_matmuls``' library chain: one ``torch.bmm(acc, S)`` a
+    step, ``trips`` × 16 of them, each the step's product alone (acc stays
+    ``vel``; the update and the checksum are left out, so its time is a
+    floor for any chain of library calls). Returns the last product."""
+    vh = torch.empty((vel.shape[0], pk.ROWS, pk.COLS), dtype=vel.dtype,
+                     device=vel.device)
+    for _ in range(trips * pk.CHAIN):
+        torch.bmm(vel, s, out=vh)
+    return vh
+
+
+def mxu_library_chain(a: torch.Tensor, b: torch.Tensor,
+                      steps: int) -> torch.Tensor:
+    """``probe_mxu_peak``'s chain as one ``torch.mm(acc, B·0.0625)`` a
+    product: bit for bit ``(acc @ B) · 0.0625``, since scaling by 2⁻⁴ is
+    exact."""
+    b16 = b * 0.0625
+    acc = a
+    for _ in range(steps):
+        acc = torch.mm(acc, b16)
+    return acc
+
+
 def probe_kernel_matmuls(trips: int, device="cuda", iters: int = 3) -> dict:
+    _check_no_tf32()
     vel, s = matmuls_inputs(device)
     ms = _cuda_ms(lambda: pk.probe_matmuls(vel, s, trips), iters)
+    library_ms = _cuda_ms(lambda: matmuls_library_products(vel, s, trips),
+                          iters)
     steps = trips * pk.CHAIN
     ops = 2 * MATMUL_WORLDS * pk.ROWS * pk.INNER * pk.COLS * steps
     return dict(trips=trips, ms=ms, worlds=MATMUL_WORLDS,
                 ns_per_dependent_product=ms * 1e6 / steps,
                 bound_ms=_fp32_bound_ms(ops, MATMUL_WORLDS),
-                bound_by="operations",
+                bound_by="operations", library_ms=library_ms,
                 tflop_per_s_per_sm=ops / MATMUL_WORLDS / ms / 1e9)
 
 
@@ -166,6 +207,8 @@ def probe_kernel_vpu(shape, trips: int, device="cuda", iters: int = 3,
                      fused: bool = False) -> dict:
     x = torch.ones(shape, device=device).reshape(-1)
     ms = _cuda_ms(lambda: pk.probe_vpu(x, trips, fused), iters)
+    # the library chain: the fused plain version, one torch.addcmul a step
+    library_ms = _cuda_ms(lambda: pk.probe_vpu_plain(x, trips, True), 2)
     steps = trips * pk.CHAIN
     ops = 2 * x.numel() * steps                  # a multiply and an add
     # the data sheet's rate counts a fused multiply-add as 2 operations in
@@ -174,7 +217,8 @@ def probe_kernel_vpu(shape, trips: int, device="cuda", iters: int = 3,
     bound_ms = _fp32_bound_ms(ops, 1) * (1 if fused else 2)
     return dict(shape=list(shape), trips=trips, fused=fused, ms=ms,
                 ns_per_op=ms * 1e6 / steps, bound_ms=bound_ms,
-                bound_by="operations", tflop_per_s_per_sm=ops / ms / 1e9)
+                bound_by="operations", library_ms=library_ms,
+                tflop_per_s_per_sm=ops / ms / 1e9)
 
 
 def mxu_inputs(device="cuda"):
@@ -185,12 +229,18 @@ def mxu_inputs(device="cuda"):
 
 
 def probe_mxu_peak(steps: int, device="cuda", iters: int = 2) -> dict:
+    """The (256, 256) chain on the ``pk.MXU_CLUSTER`` SMs of its cluster:
+    its bound on those SMs, its rate per SM and that rate × 132."""
+    _check_no_tf32()
     a, b = mxu_inputs(device)
     ms = _cuda_ms(lambda: pk.probe_mxu(a, b, steps), iters)
+    library_ms = _cuda_ms(lambda: mxu_library_chain(a, b, steps), iters)
     ops = 2 * pk.MXU_N ** 3 * steps
-    per_sm = ops / ms / 1e9
+    sms = pk.MXU_CLUSTER
+    per_sm = ops / sms / ms / 1e9
     return dict(steps=steps, ms=ms, ns_per_product=ms * 1e6 / steps,
-                bound_ms=_fp32_bound_ms(ops, 1), bound_by="operations",
+                sms=sms, bound_ms=_fp32_bound_ms(ops, sms),
+                bound_by="operations", library_ms=library_ms,
                 tflop_per_s_per_sm=per_sm, tflop_per_s_x132=per_sm * SMS)
 
 
@@ -200,6 +250,26 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def measured(out: dict) -> dict:
+    """The rates a report measured, beside the data sheet's: device memory
+    (the best pass and the 1 GB one), the (256, 256) chain's FP32 rate per
+    SM on the ``sms`` of its cluster and one SM's fused multiply-add chain,
+    each also × 132."""
+    mxu = out["mxu_peak"][-1]
+    fma = max((r["tflop_per_s_per_sm"] for r in out["kernel_vpu"]
+               if r["fused"]))
+    return dict(
+        memory_gb_per_s=max(h["gb_per_s"] for h in out["hbm"]),
+        memory_gb_per_s_past_l2=out["hbm"][-1]["gb_per_s"],
+        data_sheet_gb_per_s=HBM_BYTES_PER_S / 1e9,
+        fp32_tflop_per_s_per_sm=mxu["tflop_per_s_per_sm"],
+        sms=mxu["sms"],
+        fp32_tflop_per_s_x132=mxu["tflop_per_s_x132"],
+        fp32_fma_chain_tflop_per_s_one_sm=fma,
+        fp32_fma_chain_tflop_per_s_x132=fma * SMS,
+        data_sheet_fp32_tflop_per_s=FP32_OPS_PER_S / 1e12)
 
 
 def run(quick: bool = False, device="cuda") -> dict:
@@ -217,19 +287,9 @@ def run(quick: bool = False, device="cuda") -> dict:
                            for f in (False, True)],
                mxu_peak=[probe_mxu_peak(s, device)
                          for s in counts(MXU_STEPS)],
-               shape_menu=probe_shape_menu(device))
-    mxu = out["mxu_peak"][-1]
-    fma = max((r["tflop_per_s_per_sm"] for r in out["kernel_vpu"]
-               if r["fused"]))
-    out["measured"] = dict(
-        memory_gb_per_s=max(h["gb_per_s"] for h in out["hbm"]),
-        memory_gb_per_s_past_l2=out["hbm"][-1]["gb_per_s"],
-        data_sheet_gb_per_s=HBM_BYTES_PER_S / 1e9,
-        fp32_tflop_per_s_one_sm=mxu["tflop_per_s_per_sm"],
-        fp32_tflop_per_s_x132=mxu["tflop_per_s_x132"],
-        fp32_fma_chain_tflop_per_s_one_sm=fma,
-        fp32_fma_chain_tflop_per_s_x132=fma * SMS,
-        data_sheet_fp32_tflop_per_s=FP32_OPS_PER_S / 1e12)
+               shape_menu=probe_shape_menu(device),
+               mxu_cluster=pk.mxu_cluster_info())
+    out["measured"] = measured(out)
     return out
 
 

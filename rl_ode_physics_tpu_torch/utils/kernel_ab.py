@@ -6,6 +6,7 @@ Run on a machine with a CUDA card, from the root of the checkout::
     python3 -m rl_ode_physics_tpu_torch.utils.kernel_ab \\
         --mesh old=build/parent/sphere_mesh_d2.cu,-fmad=false --mesh new= \\
         --compact old=build/parent/compact_rows.cu --compact new= \\
+        --probe old=build/parent/device_probe.cu --probe new= \\
         [--resources] [--sass DIR] [--rounds 2]
 
 A variant is ``label=source[,nvcc flag...]``: a source file with the C
@@ -32,7 +33,16 @@ timer, beside them (a ``--mesh`` variant whose flags hold the word
 ``one-centre`` is a source from before the centres had a batch axis, and a
 query through it is one launch a centre); the compaction at B = 8,192 and
 B = 1,024 worlds, D = 10, M = 384, k = 64, a random mask of density 0.15,
-bf16 rounding.
+bf16 rounding; the device probes at the first trip counts of
+``utils/device_probe`` (``probe_matmuls`` at 256 trips on the TPU probe's
+inputs, ``probe_mxu`` at 4,096 products of A = 1, B = 1/16, ``probe_vpu``
+at (8, 384) and 1,024 trips), each variant first held to the plain
+versions: ``probe_matmuls`` by ``matmuls_agree`` at 1, 2 and 3 trips on
+random and on the TPU probe's inputs (a product 1% off refused),
+``probe_mxu`` bit for bit at A = 1, B = 1/16 after 1, 2, 3, 7 and 64
+products and at rtol 1e-5 on random inputs, ``probe_vpu`` bit for bit.
+With ``--sass``, a ``--probe`` variant also reports the FFMA instructions
+of each kernel in its listing (``ffma``).
 """
 
 from __future__ import annotations
@@ -244,6 +254,112 @@ def compact_variants(specs, args) -> dict:
                       "round_bf16": True}, "variants": result}
 
 
+def _ffma_counts(listing: str) -> dict:
+    """Kernel name → FFMA instructions in a ``cuobjdump -sass`` listing."""
+    counts, name = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "FFMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def probe_variants(specs, args) -> dict:
+    import torch
+    from rl_ode_physics_tpu_torch.ops import kernel_build
+    from rl_ode_physics_tpu_torch.ops import probe_kernels as pk
+    from rl_ode_physics_tpu_torch.utils import device_probe as dp
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w = dp.MATMUL_WORLDS
+    inputs = {
+        "random": (torch.randn((w, pk.ROWS, pk.INNER), generator=gen,
+                               device="cuda"),
+                   torch.randn((w, pk.INNER, pk.COLS), generator=gen,
+                               device="cuda")),
+        "tpu_probe": dp.matmuls_inputs()}
+    a1, b16 = dp.mxu_inputs()
+    ra = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda")
+    rb = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda") / 16
+    x = torch.ones(dp.VPU_SHAPES[0], device="cuda").reshape(-1)
+    stream = torch.cuda.current_stream().cuda_stream
+    trips, steps = dp.MATMULS_TRIPS[0], dp.MXU_STEPS[0]
+    vpu_trips = dp.VPU_TRIPS[0]
+    result = {}
+    calls = {"matmuls": {}, "mxu": {}, "vpu": {}}
+    for label, src, flags in (_variant(s, "device_probe.cu") for s in specs):
+        result[label] = {"source": str(src), "flags": list(flags)}
+        lib = kernel_build.load(
+            _build(src, flags, label, "device_probe", args, result[label]),
+            {name: argtypes for name, argtypes in pk.FUNCTIONS.items()
+             if name.endswith("_launch")})
+        if args.sass:
+            result[label]["ffma"] = _ffma_counts(
+                (Path(args.sass) / f"device_probe_{label}.sass").read_text())
+
+        def matmuls(vel, s, n, lib=lib, label=label):
+            out = torch.empty_like(vel)
+            checksum = torch.empty((vel.shape[0],), dtype=torch.float64,
+                                   device="cuda")
+            _raise_on(lib.probe_matmuls_launch(
+                vel.data_ptr(), s.data_ptr(), out.data_ptr(),
+                checksum.data_ptr(), vel.shape[0], n, stream), label)
+            return out, checksum
+
+        def mxu(a, b, n, lib=lib, label=label):
+            buf = torch.empty((2, pk.MXU_N, pk.MXU_N), device="cuda")
+            _raise_on(lib.probe_mxu_launch(a.data_ptr(), b.data_ptr(),
+                                           buf.data_ptr(), n, stream), label)
+            return buf[(n - 1) % 2]
+
+        def vpu(lib=lib, label=label, out=torch.empty_like(x)):
+            _raise_on(lib.probe_vpu_launch(x.data_ptr(), out.data_ptr(),
+                                           x.numel() // pk.VPU_THREADS,
+                                           vpu_trips, 0, stream), label)
+            return out
+
+        errors = result[label]["matmuls_errors"] = {}
+        for name, (vel, s) in inputs.items():
+            for n in (1, 2, 3):
+                want = pk.probe_matmuls_plain(vel, s, n)
+                got = pk.matmuls_errors(vel, matmuls(vel, s, n), want)
+                off = s.clone()
+                off[..., :pk.INNER] *= 1.01
+                refused = pk.matmuls_errors(vel, matmuls(vel, off, n), want)
+                if not pk.matmuls_agree(got) or pk.matmuls_agree(refused):
+                    raise AssertionError(f"{label}: probe_matmuls on {name} "
+                                         f"inputs, {n} trips: {got}; 1% off "
+                                         f"{refused}")
+                errors[f"{name}_trips{n}"] = got
+        for n in (1, 2, 3, 7, 64):
+            if not torch.equal(mxu(a1, b16, n), pk.probe_mxu_plain(a1, b16,
+                                                                   n)):
+                raise AssertionError(f"{label}: probe_mxu at A = 1, B = 1/16 "
+                                     f"differs after {n} products")
+        got, ref = mxu(ra, rb, 3), pk.probe_mxu_plain(ra, rb, 3)
+        if not torch.allclose(got, ref, rtol=pk.MATMUL_RTOL,
+                              atol=pk.MATMUL_RTOL * float(ref.abs().max())):
+            raise AssertionError(f"{label}: probe_mxu on random inputs, max "
+                                 f"abs err {float((got - ref).abs().max())}")
+        result[label]["mxu_max_abs_err"] = float((got - ref).abs().max())
+        if not torch.equal(vpu(), pk.probe_vpu_plain(x, vpu_trips)):
+            raise AssertionError(f"{label}: probe_vpu differs")
+        calls["matmuls"][label] = functools.partial(
+            matmuls, *inputs["tpu_probe"], trips)
+        calls["mxu"][label] = functools.partial(mxu, a1, b16, steps)
+        calls["vpu"][label] = vpu
+    for kernel, iters in (("matmuls", 5), ("mxu", 2), ("vpu", 10)):
+        for label, ms in _time_in_turns(calls[kernel], args.rounds,
+                                        iters).items():
+            result[label][f"{kernel}_ms"] = ms
+    return {"shape": {"matmuls_trips": trips, "worlds": w,
+                      "mxu_products": steps, "vpu_shape":
+                      list(dp.VPU_SHAPES[0]), "vpu_trips": vpu_trips},
+            "variants": result}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mesh", action="append", default=[],
@@ -252,6 +368,9 @@ def main() -> None:
     ap.add_argument("--compact", action="append", default=[],
                     metavar="LABEL=SOURCE[,FLAG...]",
                     help="a source with csrc/compact_rows.cu's interface")
+    ap.add_argument("--probe", action="append", default=[],
+                    metavar="LABEL=SOURCE[,FLAG...]",
+                    help="a source with csrc/device_probe.cu's launchers")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--resources", action="store_true")
     ap.add_argument("--sass", default=None, metavar="DIR")
@@ -268,6 +387,8 @@ def main() -> None:
         report["sphere_mesh_d2"] = mesh_variants(args.mesh, args)
     if args.compact:
         report["compact_rows_t"] = compact_variants(args.compact, args)
+    if args.probe:
+        report["device_probe"] = probe_variants(args.probe, args)
     print(json.dumps(report, indent=1))
 
 

@@ -519,32 +519,39 @@ def test_mesh_kernels_take_float64_on_card():
 
 @pytest.mark.cuda
 def test_probe_kernels_match_plain_versions_on_card():
-    """The multiply-then-add chain and the (256, 256) chain at A = 1,
-    B = 1/16 bit for bit; the (256, 256) chain on random inputs at
-    MATMUL_RTOL; the world products by ``matmuls_agree``, which refuses a
+    """The multiply-then-add chain bit for bit; the (256, 256) chain, one
+    cluster of 16 blocks, at A = 1, B = 1/16 bit for bit after 1, 2, 3, 7
+    and 64 products (both buffers, many cluster barriers) and on random
+    inputs at MATMUL_RTOL; the world products at 1, 2 and 3 trips on random
+    and on the TPU probe's inputs by ``matmuls_agree``, which refuses a
     product 1% off in its first 64 columns."""
     _require_card()
     from rl_ode_physics_tpu_torch.ops import probe_kernels as pk
+    from rl_ode_physics_tpu_torch.utils import device_probe as dp
     gen = torch.Generator(device="cuda").manual_seed(37)
     vel = torch.randn((8, pk.ROWS, pk.INNER), generator=gen, device="cuda")
     s = torch.randn((8, pk.INNER, pk.COLS), generator=gen, device="cuda")
-    before = pk.probe_matmuls.launches
-    got = pk.probe_matmuls(vel, s, 2)
-    assert pk.probe_matmuls.launches == before + 1
-    want = pk.probe_matmuls_plain(vel, s, 2)
-    assert pk.matmuls_agree(pk.matmuls_errors(vel, got, want))
-    off = s.clone()
-    off[..., :pk.INNER] *= 1.01
-    assert not pk.matmuls_agree(pk.matmuls_errors(
-        vel, pk.probe_matmuls(vel, off, 2), want))
+    for v, w in ((vel, s), dp.matmuls_inputs()):
+        off = w.clone()
+        off[..., :pk.INNER] *= 1.01
+        for trips in (1, 2, 3):
+            before = pk.probe_matmuls.launches
+            got = pk.probe_matmuls(v, w, trips)
+            assert pk.probe_matmuls.launches == before + 1
+            want = pk.probe_matmuls_plain(v, w, trips)
+            assert pk.matmuls_agree(pk.matmuls_errors(v, got, want))
+            assert not pk.matmuls_agree(pk.matmuls_errors(
+                v, pk.probe_matmuls(v, off, trips), want))
     for n in (3 * pk.VPU_THREADS, 12 * pk.VPU_THREADS):
         x = 0.5 + torch.rand((n,), generator=gen, device="cuda")
         assert torch.equal(pk.probe_vpu(x, 5), pk.probe_vpu_plain(x, 5))
         fused = pk.probe_vpu(x, 5, fused=True)
         assert torch.allclose(fused, pk.probe_vpu_plain(x, 5), rtol=1e-5)
-    a = torch.ones((pk.MXU_N, pk.MXU_N), device="cuda")
-    b = torch.full((pk.MXU_N, pk.MXU_N), 1.0 / 16.0, device="cuda")
-    for steps in (1, 2, 7):
+    cluster = pk.mxu_cluster_info()
+    assert cluster["cluster"] == pk.MXU_CLUSTER
+    assert cluster["max_active_clusters"] >= 1
+    a, b = dp.mxu_inputs()
+    for steps in (1, 2, 3, 7, 64):
         assert torch.equal(pk.probe_mxu(a, b, steps),
                            pk.probe_mxu_plain(a, b, steps))
     a = torch.randn((pk.MXU_N, pk.MXU_N), generator=gen, device="cuda")

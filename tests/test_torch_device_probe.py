@@ -10,6 +10,10 @@ against float64 sums, bf16 at its own rounding (2^-8). The wrappers take
 the plain versions for CPU tensors only and count no launch; a tensor on
 another device is refused. The kernels themselves are held to these plain
 versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+The library chains that ``utils/device_probe`` times beside the kernels
+compute the plain versions' values, and a numpy emulation of each
+kernel's order of summation (``csrc/device_probe.cu``) fits the
+tolerances the card's kernels are held to.
 """
 
 import numpy as np
@@ -180,3 +184,196 @@ def test_bounds_and_counts():
     assert [s[:4] for s in dp.SHAPE_MENU][:2] == [(2048, 8, 64, 384),
                                                  (2048, 8, 384, 64)]
     assert dp.MATMULS_TRIPS == (256, 4096) and dp.MXU_STEPS == (4096, 65536)
+
+
+def test_measured_fields():
+    """``measured`` reads the (256, 256) chain's rate per SM on the SMs of
+    its cluster and the fused chain's of one SM."""
+    out = dict(hbm=[dict(gb_per_s=2900.0), dict(gb_per_s=3000.0)],
+               kernel_vpu=[dict(fused=False, tflop_per_s_per_sm=0.25),
+                           dict(fused=True, tflop_per_s_per_sm=0.5)],
+               mxu_peak=[dict(tflop_per_s_per_sm=0.3, sms=pk.MXU_CLUSTER,
+                              tflop_per_s_x132=0.3 * 132)])
+    m = dp.measured(out)
+    assert m["fp32_tflop_per_s_per_sm"] == 0.3 and m["sms"] == 16
+    assert m["fp32_tflop_per_s_x132"] == pytest.approx(39.6)
+    assert m["fp32_fma_chain_tflop_per_s_x132"] == pytest.approx(66.0)
+    assert m["memory_gb_per_s"] == 3000.0
+    assert "fp32_tflop_per_s_one_sm" not in m
+    # the chain's bound on its 16 SMs at the first product count: 16.9 ms
+    ops = 2 * pk.MXU_N ** 3 * dp.MXU_STEPS[0]
+    assert dp._fp32_bound_ms(ops, pk.MXU_CLUSTER) == pytest.approx(
+        16.92, abs=0.01)
+
+
+# ---------------------------------------------------------------------------
+# the library chains
+# ---------------------------------------------------------------------------
+
+def test_mxu_library_chain_is_the_plain_chain_bitwise():
+    rng = np.random.default_rng(41)
+    a = torch.from_numpy(rng.normal(size=(pk.MXU_N, pk.MXU_N))
+                         .astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(pk.MXU_N, pk.MXU_N)) / 16)
+                         .astype(np.float32))
+    assert torch.equal(dp.mxu_library_chain(a, b, 3),
+                       pk.probe_mxu_plain(a, b, 3))
+
+
+def test_vpu_library_chain_is_one_addcmul_a_step(monkeypatch):
+    """The fused plain chain, which ``probe_kernel_vpu`` times as its
+    library chain, is one ``torch.addcmul`` a step and nothing else."""
+    x = torch.from_numpy(np.random.default_rng(43).uniform(
+        0.5, 2.0, 3 * pk.VPU_THREADS).astype(np.float32))
+    calls = []
+
+    def addcmul(*args, **kwargs):
+        calls.append(1)
+        return torch_addcmul(*args, **kwargs)
+
+    torch_addcmul = torch.addcmul
+    monkeypatch.setattr(torch, "addcmul", addcmul)
+    got = pk.probe_vpu_plain(x, 3, fused=True)
+    assert len(calls) == 3 * pk.CHAIN
+    np.testing.assert_allclose(got.numpy(), _numpy_chain(x.numpy(), 3, True),
+                               rtol=F32_ULP, atol=0)
+
+
+def test_bmm_product_is_the_plain_step_product():
+    """The library chain's one call a step is the plain version's product:
+    its first step's update and checksum come out of it exactly."""
+    rng = np.random.default_rng(47)
+    vel = torch.from_numpy(rng.normal(size=(3, pk.ROWS, pk.INNER))
+                           .astype(np.float32))
+    s = torch.from_numpy(rng.normal(size=(3, pk.INNER, pk.COLS))
+                         .astype(np.float32))
+    vh = dp.matmuls_library_products(vel, s, 1)
+    assert vh.shape == (3, pk.ROWS, pk.COLS)
+    acc, checksum = pk.probe_matmuls_plain(vel, s, 1)
+    # the plain chain's 16 steps, the first one taken from the library call
+    want, want_sum = vel + vh[..., :pk.INNER] * 1e-6, vh.sum(
+        (1, 2), dtype=torch.float64)
+    for _ in range(pk.CHAIN - 1):
+        step = torch.bmm(want, s)
+        want_sum += step.sum((1, 2), dtype=torch.float64)
+        want = want + step[..., :pk.INNER] * 1e-6
+    assert torch.equal(acc, want) and torch.equal(checksum, want_sum)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' orders of summation, emulated
+# ---------------------------------------------------------------------------
+
+def _fma32(a, b, c):
+    """fmaf in numpy: the product exact in float64, the sum rounded to
+    float64 and then to float32 (at most one float32 rounding away from a
+    fused multiply-add)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _matmuls_kernel_order(vel, s, trips):
+    """``probe_matmuls_kernel``'s arithmetic. The 64 columns of acc: one
+    sequential FMA chain over k a value (the plain product's order), acc +
+    vh · 1e-6 rounded as multiply, then add; the lane of column c adds its
+    8 rows in float32 for the checksum. The other 320 columns: lane g of a
+    quad sums k = 16m + 4g + e (m, e < 4) in that order by FMAs, the
+    quad's partials meet as (p0 + p1) + (p2 + p3), and each lane adds its
+    2 rows × 4 columns in float32, row by row. The checksum adds the
+    lanes' float32 sums in float64."""
+    acc = vel.astype(np.float32)
+    w = vel.shape[0]
+    checksum = np.zeros(w)
+    for _ in range(trips * pk.CHAIN):
+        vh = np.zeros((w, pk.ROWS, pk.INNER), np.float32)
+        for k in range(pk.INNER):
+            vh = _fma32(acc[:, :, k:k + 1], s[:, k:k + 1, :pk.INNER], vh)
+        column_sums = vh[:, 0]
+        for r in range(1, pk.ROWS):
+            column_sums = column_sums + vh[:, r]
+        parts = []
+        for g in range(4):
+            part = np.zeros((w, pk.ROWS, pk.COLS - pk.INNER), np.float32)
+            for m in range(4):
+                for e in range(4):
+                    k = 16 * m + 4 * g + e
+                    part = _fma32(acc[:, :, k:k + 1], s[:, k:k + 1, pk.INNER:],
+                                  part)
+            parts.append(part)
+        rest = (parts[0] + parts[1]) + (parts[2] + parts[3])
+        # (W, row pair, 2 rows, column group, 4 columns) → a lane's 8
+        lanes = rest.reshape(w, 4, 2, -1, 4).transpose(0, 1, 3, 2, 4) \
+            .reshape(w, 4, -1, 8)
+        eight = lanes[..., 0]
+        for i in range(1, 8):
+            eight = eight + lanes[..., i]
+        checksum += (column_sums.astype(np.float64).sum(1)
+                     + eight.astype(np.float64).sum((1, 2)))
+        acc = acc + vh * np.float32(1e-6)
+    return acc, checksum
+
+
+def _mxu_kernel_order(a, b, steps):
+    """``probe_mxu_kernel``'s arithmetic: every output four sequential FMA
+    chains, over each quarter of k = 0 .. 255, summed as (p0 + p1) +
+    (p2 + p3), then scaled by 0.0625."""
+    acc = a.astype(np.float32)
+    quarter = pk.MXU_N // 4
+    for _ in range(steps):
+        parts = []
+        for q in range(4):
+            t = np.zeros_like(acc)
+            for k in range(q * quarter, (q + 1) * quarter):
+                t = _fma32(acc[:, k:k + 1], b[k:k + 1, :], t)
+            parts.append(t)
+        acc = ((parts[0] + parts[1]) + (parts[2] + parts[3])) \
+            * np.float32(0.0625)
+    return acc
+
+
+@pytest.mark.parametrize("trips", [1, 2, 3])
+@pytest.mark.parametrize("inputs", ["random", "tpu-probe"])
+def test_matmuls_kernel_order_fits_the_tolerance(inputs, trips):
+    """The kernel's order of summation passes ``matmuls_agree`` against
+    the plain version on its own, so the card check does not pass by its
+    tolerance alone: acc is the plain version's bit for bit where the
+    plain product sums k in order by FMAs, as numpy's float64 emulation
+    of it does within a rounding; a product 1% off in the columns of acc
+    still fails."""
+    if inputs == "random":
+        rng = np.random.default_rng(53 + trips)
+        vel = rng.normal(size=(8, pk.ROWS, pk.INNER)).astype(np.float32)
+        s = rng.normal(size=(8, pk.INNER, pk.COLS)).astype(np.float32)
+    else:
+        vel, s = (x.numpy() for x in dp.matmuls_inputs("cpu"))
+    tv, ts = torch.from_numpy(vel), torch.from_numpy(s)
+    want = pk.probe_matmuls_plain(tv, ts, trips)
+    acc, checksum = _matmuls_kernel_order(vel, s, trips)
+    got = (torch.from_numpy(acc), torch.from_numpy(checksum))
+    errors = pk.matmuls_errors(tv, got, want)
+    assert pk.matmuls_agree(errors), errors
+    off = s.copy()
+    off[..., :pk.INNER] *= np.float32(1.01)
+    wrong = _matmuls_kernel_order(vel, off, trips)
+    assert not pk.matmuls_agree(pk.matmuls_errors(
+        tv, tuple(torch.from_numpy(x) for x in wrong), want))
+
+
+@pytest.mark.parametrize("inputs", ["random", "ones"])
+def test_mxu_kernel_order_fits_the_tolerance(inputs):
+    """Four FMA chains an output, one a quarter of k: within
+    ``MATMUL_RTOL`` of the plain version on random inputs (the card's
+    check), exactly it at A = 1, B = 1/16."""
+    if inputs == "random":
+        rng = np.random.default_rng(59)
+        a = rng.normal(size=(pk.MXU_N, pk.MXU_N)).astype(np.float32)
+        b = (rng.normal(size=(pk.MXU_N, pk.MXU_N)) / 16).astype(np.float32)
+    else:
+        a, b = (x.numpy() for x in dp.mxu_inputs("cpu"))
+    ref = pk.probe_mxu_plain(torch.from_numpy(a), torch.from_numpy(b), 3)
+    got = torch.from_numpy(_mxu_kernel_order(a, b, 3))
+    if inputs == "ones":
+        assert torch.equal(got, ref)
+    else:
+        assert torch.allclose(got, ref, rtol=pk.MATMUL_RTOL,
+                              atol=pk.MATMUL_RTOL * float(ref.abs().max()))
