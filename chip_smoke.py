@@ -153,7 +153,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 18. the bench's A/B levers (``solver_cm``, ``solver_matmul_dtype=
     "bfloat16"``, both) on ``bench_config(64)``: card against CPU on the
     bench scene (4 worlds settled 40 substeps on the CPU, 8 substeps on
-    each device, atol 1e-4), then 96 substeps of phase 4's settled
+    each device, atol 1e-4), then 48 substeps of phase 4's settled
     8192-world batch under the default and under each lever, body-steps/s
     side by side, ``compact_rows_t`` once per substep on each path; prints
     how bf16 products are taken on the card.
@@ -175,7 +175,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     compaction kernel once a substep) and 1,024 worlds under PGS in float64
     (2 + 4 substeps), each with body-steps/s, ms a substep and the
     launches of one substep.
-21. prints one JSON line of every kernel the run launched (each float64
+21. the game server (``net/``): the body API card against CPU on 4
+    worlds, every field bitwise; ``SimCore`` at the reference's 512 slots
+    under the CLI's configuration (``EngineConfig(max_bodies=512,
+    max_pair_candidates=2048, max_contacts=4096)``: classic, JACOBI 20) on
+    ``grass_plane_world``: 248 bodies of the M-key distribution
+    (``net.client.m_key_body``), 4 at each tick boundary over ticks 0-61, two
+    capsule players, one walking 60 ticks, to tick 480; overflow 0, the
+    intent log saved and replayed on the card to an equal
+    ``state_digest``, the state at tick 400 stepped 8 ticks on each device
+    (atol 1e-4), ms a tick over ticks 400-480, ticks/s against the 120 Hz
+    of ``PHYSICS_DT`` and the launches of one tick under
+    ``torch.profiler`` (no hand kernel: the classic path compacts with
+    the plain ``compact_rows``). The same intents under
+    ``EngineConfig.throughput`` at 512 slots (f32 selectors) live to tick
+    480, ms a tick over ticks 400-480 on the landed arena, the first 240
+    ticks replayed to the live run's digest at tick 240,
+    ``compact_rows_t`` once a tick (counted as the ``server_throughput``
+    path) and held to its plain version on the tensors of tick 481. A
+    ``GameServer`` on the native transport with two clients over loopback
+    UDP for 5 s (32 M-key spawns, 8 thrown spheres): both mirror every
+    body; ticks per wall second and ms a broadcast (``body_states`` +
+    encoding). Then the CLI's server (``--device cuda``) and a ``client
+    --spawn 3`` in subprocesses started together: the client mirrors 7
+    bodies.
+22. prints one JSON line of every kernel the run launched (each float64
     instance as a sub-entry of its kernel, with its own launches), then the
     last line ``{"ok": true, "device": {...}}``.
 
@@ -254,7 +278,7 @@ LEVERS = {"solver_cm": dict(solver_cm=True),
           "bf16": dict(solver_matmul_dtype="bfloat16"),
           "solver_cm_bf16": dict(solver_cm=True,
                                  solver_matmul_dtype="bfloat16")}
-LEVER_SUBSTEPS = 96
+LEVER_SUBSTEPS = 48
 # DANTZIG in float64 at 1,024 worlds: the mini stack, then the ridge mesh
 DANTZIG_WARMUP = 2
 DANTZIG_SUBSTEPS = 4
@@ -265,6 +289,22 @@ HINGE_SETTLE = 40
 HINGE_WARMUP = 48
 HINGE_SUBSTEPS = 96
 HINGE_PGS_SUBSTEPS = 4
+# the game server: the CLI's configuration at the reference's MAX_BODIES
+# (inc/body.h:6), 248 M-key bodies, 4 a tick over ticks 0-61 (252 bodies
+# overflow nothing in it; 508 do, ROADMAP C6), 2 capsule players
+SERVER_CAPS = dict(max_bodies=512, max_pair_candidates=2048,
+                   max_contacts=4096)
+SERVER_SPAWNS_PER_TICK = 4
+SERVER_SPAWN_TICKS = 62
+SERVER_WALK_TICKS = 60
+SERVER_TICKS = 480           # the bodies dropped from y <= 50 have landed
+SERVER_TIMED_FROM = 400      # ms a tick over ticks 400-480
+SERVER_THROUGHPUT_REPLAYED = 240   # the throughput session's replayed ticks
+PHYSICS_HZ = 120             # net/server.PHYSICS_DT
+SESSION_SECONDS = 5.0
+SESSION_SPAWNS = 32
+SESSION_THROWS = 8
+CLI_SERVER_SECONDS = 8
 # the compaction at k past the index list: worlds of M = 4,096 columns
 WIDE_K_WORLDS = 1024
 # the probe kernels: trips of the short checks, names in the kernels line
@@ -1925,7 +1965,7 @@ def bf16_products_on_card(config):
 def phase_bench_levers(config, card, settled):
     """The bench's A/B levers (``solver_cm``, bf16 solver products, both):
     the card's bf16 product route at the bench's shapes, card against CPU
-    on the bench scene, then at full width: 96 substeps of the settled
+    on the bench scene, then at full width: 48 substeps of the settled
     8192-world batch of phase 4 under the default and under each lever,
     body-steps/s side by side, the compaction kernel counted."""
     from rl_ode_physics_tpu_torch.models.scenes import bench_world
@@ -2153,6 +2193,332 @@ def phase_hinge_chain(card):
     return paths
 
 
+def _server_session(sim, ticks, timed_from, at_tick=None):
+    """Drive ``sim`` to ``ticks``: two capsule players join at tick 0,
+    SERVER_SPAWNS_PER_TICK bodies of the M-key distribution (``m_key_body``
+    from ``RandStream(0)``) spawn at each tick boundary of the first
+    SERVER_SPAWN_TICKS, player 0 walks for SERVER_WALK_TICKS. Ticks from
+    ``timed_from`` on are timed one by one, the card idle before and after
+    each; ``at_tick`` = (tick, fn) calls fn(sim) before that tick's
+    intents. Returns the timed ticks' ms."""
+    import torch
+    from rl_ode_physics_tpu_torch.net.client import m_key_body
+    from rl_ode_physics_tpu_torch.utils.prng import RandStream
+    rng = RandStream(0)
+    for pid in (0, 1):
+        if sim.player_join(pid) < 0:
+            raise AssertionError("server session: a player was not seated")
+    tick_ms = []
+    while sim.tick < ticks:
+        t = sim.tick
+        if at_tick is not None and t == at_tick[0]:
+            at_tick[1](sim)
+        if t < SERVER_SPAWN_TICKS:
+            for _ in range(SERVER_SPAWNS_PER_TICK):
+                if sim.spawn_body(*m_key_body(rng)) < 0:
+                    raise AssertionError("server session: a spawn was "
+                                         "dropped")
+        if t < SERVER_WALK_TICKS:
+            sim.player_move(0, (0.05 * t, 2.0, -3.0 + 0.05 * t))
+        if t >= timed_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.advance(1)
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            sim.advance(1)
+    return tick_ms
+
+
+def _tick_stats(tick_ms):
+    import statistics
+    mean = statistics.fmean(tick_ms)
+    return dict(mean_ms=mean, min_ms=min(tick_ms), max_ms=max(tick_ms),
+                stdev_ms=statistics.pstdev(tick_ms), ticks_per_s=1e3 / mean)
+
+
+def body_api_sequence(device):
+    """The body API on 4 worlds of the arena with 8 slots (4 free): every
+    function, with and without ``auto_mass``, a slot per world as a (B,)
+    tensor, and one more spawn than there are free slots. Returns the
+    batch and the slots each spawn returned."""
+    import torch
+    from rl_ode_physics_tpu_torch.core import world as w
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models.scenes import grass_plane_world
+    from rl_ode_physics_tpu_torch.parallel.batch import replicate
+
+    cfg = EngineConfig(max_bodies=8, max_pair_candidates=32, max_contacts=64)
+    b = replicate(grass_plane_world(cfg, device=device), 4, device=device)
+    per_world = torch.tensor([4, 5, 6, 7], device=device)
+    slots = []
+    b, s = w.add_body(b, 1, (0.0, 1.0, 0.0), (0.3, 0.0, 0.0))
+    slots.append(s)
+    b, s = w.add_body(b, torch.tensor([1, 2, 3, 2], device=device),
+                      (0.5, 2.0, -1.0), (0.3, 0.7, 0.9),
+                      quat=(0.5, 0.5, -0.5, 0.5), linvel=(1.0, 0.0, -2.0),
+                      angvel=(0.0, 3.0, 0.0), auto_mass=True, density=1.3)
+    slots.append(s)
+    b, s = w.add_body_map(b, (1.0, 0.5, 1.0), (0.1, -0.2, 0.3),
+                          (2.0, 0.5, 1.0), color=(9, 8, 7, 255))
+    slots.append(s)
+    b, s = w.add_body(b, 2, (0.0, 3.0, 0.0), (0.4, 0.4, 0.4),
+                      kinematic=True, auto_mass=True)
+    slots.append(s)
+    b, s = w.add_body(b, 1, (0.0, 4.0, 0.0), (0.2, 0.0, 0.0))   # full
+    slots.append(s)
+    b = w.release_body(b, per_world)
+    b, s = w.add_body(b, 3, (0.0, 5.0, 0.0), (0.2, 0.6, 0.0),
+                      auto_mass=True, density=0.7, color=(1, 2, 3, 4))
+    slots.append(s)
+    b = w.set_body_pose(b, per_world, pos=(1.0, 2.0, 3.0),
+                        quat=(0.0, 1.0, 0.0, 0.0), linvel=(0.5, 0.5, 0.5),
+                        angvel=(-1.0, 0.0, 1.0))
+    b = w.set_body_surface(b, 5, friction=0.4, restitution=0.6)
+    b = w.add_force(b, per_world, (1.0, -2.0, 3.0))
+    b = w.add_force(b, 6, (0.25, 0.25, 0.25))
+    b = w.add_torque(b, -1, (0.0, 0.0, 9.0))
+    return b, torch.stack(slots)
+
+
+def _cli_session() -> str:
+    """``python -m rl_ode_physics_tpu_torch.net server --device cuda
+    --duration CLI_SERVER_SECONDS`` and a ``client --spawn 3`` for as long,
+    in subprocesses started together: each takes seconds to import torch,
+    and a client started only once the server prints would spend its own
+    import in the server's serving window. Raises unless the client
+    mirrored 7 bodies (4 arena boxes and its 3); returns their lines."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cli = [sys.executable, "-m", "rl_ode_physics_tpu_torch.net"]
+    duration = ["--port", str(port), "--duration", str(CLI_SERVER_SECONDS)]
+    server = subprocess.Popen(cli + ["server", "--device", "cuda"] + duration,
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    client = subprocess.Popen(cli + ["client", "--spawn", "3"] + duration,
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    try:
+        said, _ = client.communicate(timeout=120)
+        out, _ = server.communicate(timeout=120)
+    finally:
+        for proc in (client, server):
+            proc.kill()
+            proc.wait()
+    first = out.splitlines()[0] if out else ""
+    if (server.returncode != 0 or "Server started" not in first
+            or "mirrored 7 bodies" not in said):
+        raise AssertionError(f"CLI: server rc {server.returncode} {out}; "
+                             f"client rc {client.returncode} {said}")
+    return f"{first.strip()} {said.strip()}"
+
+
+def phase_game_server(card):
+    """The game server (``net/``) on the card: the body API card against
+    CPU; SimCore at 512 slots under the CLI's classic policy (480 ticks,
+    replayed bitwise, card against CPU at tick 400) and under the
+    throughput policy (480 ticks, the first 240 replayed bitwise, the
+    compaction kernel once a tick); a loopback session of ``GameServer``
+    on the native transport with two clients; the CLI in subprocesses."""
+    import dataclasses
+    import torch
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.net import native_transport, protocol
+    from rl_ode_physics_tpu_torch.net import replay as replay_m
+    from rl_ode_physics_tpu_torch.net.client import GameClient
+    from rl_ode_physics_tpu_torch.net.server import GameServer, SimCore
+
+    # 1. the body API, card against CPU, every field bitwise
+    card_b, card_slots = body_api_sequence("cuda")
+    cpu_b, cpu_slots = body_api_sequence("cpu")
+    if not torch.equal(card_slots.cpu(), cpu_slots):
+        raise AssertionError("body API: slots differ between card and CPU")
+    for f in dataclasses.fields(cpu_b):
+        if not torch.equal(getattr(card_b, f.name).cpu(),
+                           getattr(cpu_b, f.name)):
+            raise AssertionError(f"body API: {f.name} differs between card "
+                                 f"and CPU")
+    log(f"body API on 4 worlds of 8 slots: every field bitwise card against "
+        f"CPU; slots per spawn {cpu_slots.tolist()}")
+
+    # 2. SimCore at full width, the CLI's configuration
+    config = EngineConfig(**SERVER_CAPS)
+    intents = ROOT / "build" / "server_intents.jsonl"
+    intents.parent.mkdir(parents=True, exist_ok=True)
+    for fn in _hand_kernels():
+        fn.launches = 0
+    held = {}
+
+    def card_against_cpu(sim):
+        held["start"] = _to(sim.world, "cpu")
+
+    sim = SimCore(config, seed=0, player_capsules=True, device="cuda")
+    t0 = time.perf_counter()
+    tick_ms = _server_session(sim, SERVER_TICKS, SERVER_TIMED_FROM,
+                              at_tick=(SERVER_TIMED_FROM, card_against_cpu))
+    live_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+    if any(launches.values()):
+        raise AssertionError(f"server, CLI policy: hand kernel launches "
+                             f"{launches}, expected none")
+    if sim.check_overflow():
+        raise AssertionError(f"server, CLI policy: overflow "
+                             f"{int(sim.world.overflow[0])}")
+    _check_batch(sim.world, "server, CLI policy", SERVER_TICKS)
+    bodies = int(sim.world.active.sum())
+    prof = _launches_of(lambda: sim._step1(sim.world))
+    replay_m.save_log(sim.intent_log, str(intents))
+    t0 = time.perf_counter()
+    again = replay_m.replay(replay_m.load_log(str(intents)), SERVER_TICKS,
+                            config, seed=0, player_capsules=True,
+                            device="cuda")
+    replay_s = time.perf_counter() - t0
+    if again.state_digest() != sim.state_digest():
+        raise AssertionError("server, CLI policy: the replay's digest "
+                             "differs from the live run's")
+    _card_matches_cpu(config, held.pop("start"), None,
+                      f"server, CLI policy, tick {SERVER_TIMED_FROM}")
+    stats = _tick_stats(tick_ms)
+    log(f"server, CLI policy ({SERVER_CAPS}, JACOBI "
+        f"{config.solver_iterations}, classic): {bodies} active slots "
+        f"({SERVER_SPAWNS_PER_TICK * SERVER_SPAWN_TICKS} M-key bodies, 2 "
+        f"capsule players, 4 arena geoms), {SERVER_TICKS} ticks live in "
+        f"{live_s:.2f} s, replayed from the saved intent log in "
+        f"{replay_s:.2f} s: digests equal, overflow 0; ticks "
+        f"{SERVER_TIMED_FROM}-{SERVER_TICKS}: {stats['mean_ms']:.3f} ms a "
+        f"tick (min {stats['min_ms']:.3f}, max {stats['max_ms']:.3f}, "
+        f"stdev {stats['stdev_ms']:.3f}), {stats['ticks_per_s']:.2f} ticks/s "
+        f"against the {PHYSICS_HZ} Hz of PHYSICS_DT on {card}; one tick "
+        f"under torch.profiler: {prof['launches']} launches, "
+        f"{prof['device_ms']:.3f} ms of kernel time; hand kernel launches "
+        f"{launches}")
+    del sim, again
+    torch.cuda.empty_cache()
+
+    # 3. the same intents under the throughput policy: live to tick 480, so
+    # that ticks 400-480 are timed on the landed arena as under the CLI's
+    # policy; the first SERVER_THROUGHPUT_REPLAYED ticks replayed
+    tconfig = EngineConfig.throughput(**SERVER_CAPS)
+    for fn in _hand_kernels():
+        fn.launches = 0
+    sim = SimCore(tconfig, seed=0, player_capsules=True, device="cuda")
+    tick_ms = _server_session(sim, SERVER_TICKS, SERVER_TIMED_FROM, at_tick=(
+        SERVER_THROUGHPUT_REPLAYED,
+        lambda s: held.update(digest=s.state_digest())))
+    t0 = time.perf_counter()
+    again = replay_m.replay(sim.intent_log, SERVER_THROUGHPUT_REPLAYED,
+                            tconfig, seed=0, player_capsules=True,
+                            device="cuda")
+    replay_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+    want = {"compact_rows_t": SERVER_TICKS + SERVER_THROUGHPUT_REPLAYED,
+            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0}
+    if launches != want:
+        raise AssertionError(f"server, throughput policy: launches "
+                             f"{launches}, expected {want}")
+    if again.state_digest() != held["digest"]:
+        raise AssertionError("server, throughput policy: the replay's "
+                             "digest differs from the live run's at tick "
+                             f"{SERVER_THROUGHPUT_REPLAYED}")
+    if sim.check_overflow():
+        raise AssertionError(f"server, throughput policy: overflow "
+                             f"{int(sim.world.overflow[0])}")
+    _check_batch(sim.world, "server, throughput policy", SERVER_TICKS)
+    prof = _launches_of(lambda: sim._step1(sim.world))
+    stats_t = _tick_stats(tick_ms)
+    log(f"server, throughput policy ({tconfig.selector_dtype} selectors): "
+        f"{SERVER_TICKS} ticks live, the first {SERVER_THROUGHPUT_REPLAYED} "
+        f"replayed in {replay_s:.2f} s: digests equal at tick "
+        f"{SERVER_THROUGHPUT_REPLAYED}, overflow 0; ticks "
+        f"{SERVER_TIMED_FROM}-{SERVER_TICKS}: {stats_t['mean_ms']:.3f} ms a "
+        f"tick (min {stats_t['min_ms']:.3f}, max {stats_t['max_ms']:.3f}, "
+        f"stdev {stats_t['stdev_ms']:.3f}), {stats_t['ticks_per_s']:.2f} "
+        f"ticks/s on {card}; one tick under torch.profiler: "
+        f"{prof['launches']} launches, {prof['device_ms']:.3f} ms of kernel "
+        f"time; hand kernel launches {launches}")
+    on_path = compaction_on_path_data(lambda: sim.advance(1),
+                                      "server_throughput", 1)
+    del sim, again
+    torch.cuda.empty_cache()
+
+    # 4. a live session over loopback UDP on the native transport
+    server = GameServer(config, port=0, max_players=4, device="cuda")
+    clients = []
+    try:
+        if not isinstance(server.host, native_transport.NativeHost):
+            raise AssertionError("the native transport did not serve")
+        server.sim.advance(1)
+        clients = [GameClient(("127.0.0.1", server.host.port),
+                              max_bodies=config.max_bodies, max_players=4,
+                              seed=i) for i in range(2)]
+        spawned = thrown = 0
+        t_start = t_prev = time.monotonic()
+        tick0 = server.sim.tick
+        while time.monotonic() - t_start < SESSION_SECONDS:
+            server.pump(0.002)
+            now = time.monotonic()
+            server.tick(now - t_prev)
+            for c in clients:
+                c.pump(0.001)
+                c.update(now - t_prev)
+            t_prev = now
+            while clients[0].connected and spawned < SESSION_SPAWNS:
+                clients[0].spawn_random()
+                spawned += 1
+            while clients[1].connected and thrown < SESSION_THROWS:
+                clients[1].throw_sphere()
+                thrown += 1
+        wall_s = time.monotonic() - t_start
+        ticks = server.sim.tick - tick0
+        active = int(server.sim.world.active.sum())
+        # the last spawns' snapshot: a broadcast, then 50 ms of pumping
+        deadline = time.monotonic() + 5.0
+        mirrored = []
+        while time.monotonic() < deadline and mirrored != [active, active]:
+            server.broadcast()
+            for _ in range(10):
+                server.pump(0.002)
+                for c in clients:
+                    c.pump(0.003)
+            mirrored = [int((c.bodies["type"] != 0).sum()) for c in clients]
+        if spawned != SESSION_SPAWNS or thrown != SESSION_THROWS:
+            raise AssertionError(f"session: {spawned} spawns, {thrown} "
+                                 f"throws sent")
+        if active != 4 + SESSION_SPAWNS + SESSION_THROWS:
+            raise AssertionError(f"session: {active} active slots")
+        if mirrored != [active, active]:
+            raise AssertionError(f"session: clients mirror {mirrored} of "
+                                 f"{active} bodies")
+        if any("dropped" in line for line in server.log):
+            raise AssertionError(f"session: {server.log}")
+        bcast = []
+        for _ in range(60):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            protocol.encode_update_bodies(server.sim.body_states())
+            bcast.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for c in clients:
+            c.close()
+        server.close()
+    bcast_ms = sum(bcast) / len(bcast)
+    log(f"session on the native transport: 2 clients, {spawned} M-key "
+        f"spawns and {thrown} thrown spheres, {ticks} sim ticks in "
+        f"{wall_s:.2f} s of wall time ({ticks / wall_s:.2f} ticks/s), both "
+        f"clients mirror all {active} bodies, no spawn dropped; a "
+        f"broadcast's body_states + encoding {bcast_ms:.3f} ms (min "
+        f"{min(bcast):.3f}, max {max(bcast):.3f}, 60 calls)")
+
+    # 5. the CLI's server and client in subprocesses
+    log(f"CLI: {_cli_session()}")
+    return {"server_cli": {}, "server_throughput": want}, on_path, dict(
+        cli=stats, throughput=stats_t, session_ticks_per_s=ticks / wall_s,
+        broadcast_ms=bcast_ms)
+
+
 def main() -> int:
     start = time.perf_counter()
     card = phase_device()
@@ -2267,6 +2633,10 @@ def main() -> int:
     lap("19")
     by_path.update(phase_hinge_chain(card))
     lap("20")
+    server_launches, compaction["on_server_path_data"], _ = (
+        phase_game_server(card))
+    by_path.update(server_launches)
+    lap("21")
     # the float64 tile kernel on the DANTZIG ridge path
     f64_ridge = dantzig["dantzig_ridge_mesh"]["sphere_mesh_d2_tiles"]
     tiles["f64"]["launches"] += f64_ridge

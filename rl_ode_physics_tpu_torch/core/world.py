@@ -11,6 +11,14 @@ connected pairs every pair phase excludes and whose rows the solver
 relaxes beside the contacts. Every function takes a batch of worlds
 ``(B, …)``; the JAX package's ``vmap`` is the leading world axis here, and
 a diagnostics counter is a (B,) tensor, one value per world.
+
+The body API of ``rl_ode_physics_tpu/core/world.py:52-226`` (``add_body``,
+``add_body_map``, ``release_body``, ``set_body_pose``,
+``set_body_surface``, ``add_force``, ``add_torque``) acts on every world of
+the batch as ``jax.vmap`` of the JAX function does with the same arguments:
+a value is given once for every world, or with a leading world axis. A slot
+is written by a one-hot ``torch.where`` over the slot axis, so no function
+reads a tensor back to the host.
 """
 
 from __future__ import annotations
@@ -18,12 +26,168 @@ from __future__ import annotations
 import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
-from rl_ode_physics_tpu_torch.core.state import WorldState
+from rl_ode_physics_tpu_torch.core.state import (
+    U32_MASK, BodyType, CollMask, WorldState, box_mass, capsule_mass,
+    default_mass, sphere_mass)
 from rl_ode_physics_tpu_torch.ops import broadphase, dense, integrator
 from rl_ode_physics_tpu_torch.ops import joints as joint_ops
 from rl_ode_physics_tpu_torch.ops import narrowphase
 from rl_ode_physics_tpu_torch.ops import solver as solver_ops
 from rl_ode_physics_tpu_torch.ops.trimesh import TriMesh, mesh_narrowphase
+from rl_ode_physics_tpu_torch.utils import quat as quat_m
+
+
+# ---------------------------------------------------------------------------
+# Body management
+# ---------------------------------------------------------------------------
+
+def _free_slot(state: WorldState):
+    """(slot, found), each (B,): every world's lowest free slot, like the
+    reference's linear scan (``src/main.c:696-699``), as an int32 that is
+    -1 where the world is full. ``torch.argmax`` takes no bool tensor on
+    CUDA, hence the uint8 mask."""
+    free = (~state.active).to(torch.uint8)
+    slot = torch.argmax(free, dim=-1).to(torch.int32)
+    found = free.amax(-1) > 0
+    return torch.where(found, slot, -1), found
+
+
+def _slot_mask(state: WorldState, slot) -> torch.Tensor:
+    """(B or 1, N) bool, true at ``slot`` (an int, or a (B,) tensor) of each
+    world. A negative slot counts from the end, as a JAX index does."""
+    n = state.num_slots
+    ids = torch.arange(n, device=state.device)
+    if isinstance(slot, int):
+        return (ids == (slot + n if slot < 0 else slot))[None]
+    slot = torch.as_tensor(slot, device=state.device).reshape(-1, 1)
+    return ids == torch.where(slot < 0, slot + n, slot)
+
+
+def _per_world(arr: torch.Tensor, value) -> torch.Tensor:
+    """``value`` for a field like ``arr`` in its dtype, with a world axis:
+    (B or 1, *per-slot shape)."""
+    t = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
+    return t[None] if t.dim() == arr.dim() - 2 else t
+
+
+def _set_slot(state: WorldState, mask: torch.Tensor, add: bool = False,
+              **fields) -> WorldState:
+    """Write (or, with ``add``, add) each field's value where ``mask``
+    (B or 1, N) is true."""
+    updates = {}
+    for name, value in fields.items():
+        arr = getattr(state, name)
+        v = _per_world(arr, value).unsqueeze(1)
+        m = mask.reshape(mask.shape + (1,) * (arr.dim() - 2))
+        updates[name] = torch.where(m, arr + v if add else v, arr)
+    return state.replace(**updates)
+
+
+def add_body(state: WorldState, body_type, pos, size, quat=None, *,
+             category=int(CollMask.OBJ),
+             collide=int(CollMask.OBJ) | int(CollMask.MAP),
+             kinematic=False, color=(255, 255, 255, 255),
+             linvel=(0.0, 0.0, 0.0), angvel=(0.0, 0.0, 0.0),
+             auto_mass: bool = False, density: float = 1.0):
+    """Spawn a dynamic (or kinematic) body in every world; returns (state,
+    slot), ``slot`` a (B,) int32 tensor, -1 in a world with no free slot,
+    which is left untouched.
+
+    Defaults mirror the reference's ``AddBody(…, CMASK_OBJ, CMASK_OBJ |
+    CMASK_MAP, …)`` call (``src/main.c:181``): ODE's dBodyCreate default
+    mass (m=1, I=identity); ``auto_mass=True`` computes the density-based
+    mass of the body's shape instead.
+    """
+    slot, found = _free_slot(state)
+    dtype, device = state.pos.dtype, state.device
+    size = _per_world(state.size, size)                       # (B|1, 3)
+    body_type = _per_world(state.body_type, body_type)        # (B|1,)
+    if quat is None:
+        quat = quat_m.identity(dtype, device)
+
+    if auto_mass:
+        m_s, i_s = sphere_mass(size[..., 0], density)
+        m_b, i_b = box_mass(size, density)
+        m_c, i_c = capsule_mass(size[..., 0], size[..., 1], density)
+        is_s = body_type == int(BodyType.SPHERE)
+        is_b = body_type == int(BodyType.BOX)
+        mass = torch.where(is_s, m_s, torch.where(is_b, m_b, m_c))
+        inertia = torch.where(is_s[..., None], i_s,
+                              torch.where(is_b[..., None], i_b, i_c))
+    else:
+        mass, inertia = default_mass(dtype, device)
+
+    if kinematic:
+        inv_mass = torch.zeros_like(mass)
+        inv_inertia = torch.zeros_like(inertia)
+    else:
+        inv_mass, inv_inertia = 1.0 / mass, 1.0 / inertia
+
+    state = _set_slot(
+        state, _slot_mask(state, slot) & found[:, None],
+        pos=pos, quat=quat, size=size, linvel=linvel, angvel=angvel,
+        force=(0.0, 0.0, 0.0), torque=(0.0, 0.0, 0.0),
+        inv_mass=inv_mass, inv_inertia=inv_inertia, body_type=body_type,
+        category=category, collide=collide, is_static=False,
+        is_kinematic=bool(kinematic), color=color)
+    return state, slot
+
+
+def add_body_map(state: WorldState, pos, rot_euler, size,
+                 color=(80, 80, 80, 255)):
+    """Static box geom for the arena in every world — ``AddBodyMap``
+    (``src/main.c:735``): ``is_static`` with zero inverse mass and inertia,
+    oriented by Euler XYZ angles like ``GetTransformMatV``. Returns
+    (state, slot) as ``add_body`` does."""
+    slot, found = _free_slot(state)
+    # the angles' quaternion is computed where they are given: a tuple on
+    # the host, as WorldBuilder does, so a world on the card gets the bits
+    # a world on the CPU gets
+    q = quat_m.from_euler_xyz(torch.as_tensor(rot_euler,
+                                              dtype=state.pos.dtype))
+    state = _set_slot(
+        state, _slot_mask(state, slot) & found[:, None],
+        pos=pos, quat=q, size=size,
+        linvel=(0.0, 0.0, 0.0), angvel=(0.0, 0.0, 0.0),
+        force=(0.0, 0.0, 0.0), torque=(0.0, 0.0, 0.0),
+        inv_mass=0.0, inv_inertia=(0.0, 0.0, 0.0),
+        body_type=int(BodyType.BOX), category=int(CollMask.MAP),
+        collide=int(CollMask.ALL) & U32_MASK, is_static=True,
+        is_kinematic=False, color=color)
+    return state, slot
+
+
+def release_body(state: WorldState, slot) -> WorldState:
+    """Free a slot (``ReleaseBody``, ``src/main.c:763``): type → NULL."""
+    return _set_slot(state, _slot_mask(state, slot),
+                     body_type=int(BodyType.NULL))
+
+
+def set_body_pose(state: WorldState, slot, pos=None, quat=None,
+                  linvel=None, angvel=None) -> WorldState:
+    """dBodySetPosition/Rotation/LinearVel analog for one slot; used for
+    kinematic bodies (player capsules) driven by external targets."""
+    fields = dict(pos=pos, quat=quat, linvel=linvel, angvel=angvel)
+    return _set_slot(state, _slot_mask(state, slot),
+                     **{k: v for k, v in fields.items() if v is not None})
+
+
+def set_body_surface(state: WorldState, slot, friction=None,
+                     restitution=None) -> WorldState:
+    """Per-body contact surface parameters (used when
+    ``EngineConfig.per_body_surface`` is on)."""
+    fields = dict(friction=friction, restitution=restitution)
+    return _set_slot(state, _slot_mask(state, slot),
+                     **{k: v for k, v in fields.items() if v is not None})
+
+
+def add_force(state: WorldState, slot, force) -> WorldState:
+    """dBodyAddForce analog (accumulator, cleared by the integrator)."""
+    return _set_slot(state, _slot_mask(state, slot), add=True, force=force)
+
+
+def add_torque(state: WorldState, slot, torque) -> WorldState:
+    return _set_slot(state, _slot_mask(state, slot), add=True, torque=torque)
 
 
 def step(state: WorldState, config: EngineConfig,

@@ -41,7 +41,8 @@ actions, and splits one control step of ``PhysicsEnv`` into its substeps,
 idle share.
 
 Nothing here runs on the main path; it calls the same functions the step
-calls.
+calls, except ``MetricsLog``, the server's ring buffer of per-tick
+diagnostics (``net/server.SimCore(diagnostics=True)``).
 """
 
 from __future__ import annotations
@@ -51,7 +52,44 @@ import json
 import subprocess
 import sys
 import time
+from collections import deque
 from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+
+class MetricsLog:
+    """Ring buffer of per-tick diagnostics rows (host-side), the port of
+    ``rl_ode_physics_tpu/utils/profiling.py:82-107``. A row holds world 0
+    of the (B,) counters of ``step_with_diagnostics``, read in one
+    device-to-host copy."""
+
+    def __init__(self, capacity: int = 4096):
+        self.rows = deque(maxlen=capacity)
+
+    def append(self, tick: int, metrics: dict) -> None:
+        import torch
+        values = torch.stack([v[0].to(torch.float64)
+                              for v in metrics.values()]).cpu().tolist()
+        row = {"tick": int(tick)}
+        row.update(zip(metrics, values))
+        self.rows.append(row)
+
+    def last(self) -> Optional[dict]:
+        return self.rows[-1] if self.rows else None
+
+    def summary(self) -> dict:
+        if not self.rows:
+            return {}
+        keys = [k for k in self.rows[0] if k != "tick"]
+        return {
+            k: {
+                "mean": float(np.mean([r[k] for r in self.rows])),
+                "max": float(np.max([r[k] for r in self.rows])),
+            }
+            for k in keys
+        }
 
 
 def _timed(fn, repeats: int):

@@ -38,12 +38,23 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (inverse for unit quaternions)."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
 def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vector(s) v by unit quaternion(s) q (two cross products)."""
     w = q[..., 0:1]
     u = q[..., 1:4]
     t = 2.0 * torch.linalg.cross(u, v, dim=-1)
     return v + w * t + torch.linalg.cross(u, t, dim=-1)
+
+
+def rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the inverse of unit quaternion q (world → body frame)."""
+    return rotate(conj(q), v)
 
 
 def to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -62,6 +73,56 @@ def to_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return r.reshape(r.shape[:-1] + (3, 3))
+
+
+def from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """3×3 rotation matrix → unit quaternion, (..., 3, 3) → (..., 4).
+
+    Branch-free Shepperd extraction: all four candidates are computed and
+    the one whose pivot of (tr, m00, m11, m22) is largest is kept, the
+    first on ties (``torch.argmax`` keeps the first maximum, as
+    ``jnp.argmax`` does).
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                      1.0 + m11 - m00 - m22, 1.0 + m22 - m00 - m11], dim=-1)
+    qw = torch.sqrt(torch.clamp_min(qw, 1e-12)) * 0.5
+
+    c0 = torch.stack([qw[..., 0],
+                      (m21 - m12) / (4.0 * qw[..., 0]),
+                      (m02 - m20) / (4.0 * qw[..., 0]),
+                      (m10 - m01) / (4.0 * qw[..., 0])], dim=-1)
+    c1 = torch.stack([(m21 - m12) / (4.0 * qw[..., 1]),
+                      qw[..., 1],
+                      (m01 + m10) / (4.0 * qw[..., 1]),
+                      (m02 + m20) / (4.0 * qw[..., 1])], dim=-1)
+    c2 = torch.stack([(m02 - m20) / (4.0 * qw[..., 2]),
+                      (m01 + m10) / (4.0 * qw[..., 2]),
+                      qw[..., 2],
+                      (m12 + m21) / (4.0 * qw[..., 2])], dim=-1)
+    c3 = torch.stack([(m10 - m01) / (4.0 * qw[..., 3]),
+                      (m02 + m20) / (4.0 * qw[..., 3]),
+                      (m12 + m21) / (4.0 * qw[..., 3]),
+                      qw[..., 3]], dim=-1)
+
+    piv = torch.stack([tr, m00, m11, m22], dim=-1)
+    best = torch.argmax(piv, dim=-1)[..., None]
+    out = torch.where(best == 0, c0,
+          torch.where(best == 1, c1,
+          torch.where(best == 2, c2, c3)))
+    return normalize(out)
+
+
+def from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Unit axis + angle (rad) → quaternion."""
+    half = 0.5 * angle
+    s = torch.sin(half)
+    return torch.cat([torch.cos(half)[..., None], axis * s[..., None]],
+                     dim=-1)
 
 
 def from_euler_xyz(rot: torch.Tensor) -> torch.Tensor:

@@ -750,3 +750,127 @@ def test_joint_step_is_bitwise_repeatable_on_card():
     a, b = step(batch), step(batch)
     for field in ("pos", "quat", "linvel", "angvel"):
         assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+def _body_api_sequence(device):
+    """Every body-API function on 4 arena worlds of 8 slots (4 free), with
+    and without ``auto_mass``, a slot per world as a (B,) tensor, and one
+    more spawn than there are free slots."""
+    from rl_ode_physics_tpu_torch.core import world as w
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models.scenes import grass_plane_world
+    cfg = EngineConfig(max_bodies=8, max_pair_candidates=32, max_contacts=64)
+    b = replicate(grass_plane_world(cfg, device=device), 4, device=device)
+    per_world = torch.tensor([4, 5, 6, 7], device=device)
+    slots = []
+    for kind, auto in ((1, False), (2, True), (3, True), (1, True),
+                       (2, False)):
+        b, s = w.add_body(b, kind, (0.1 * kind, 2.0, -0.5), (0.3, 0.6, 0.9),
+                          quat=(0.5, 0.5, -0.5, 0.5), linvel=(1.0, 0.0, 2.0),
+                          auto_mass=auto, density=1.3, kinematic=kind == 3)
+        slots.append(s)
+    b = w.release_body(b, per_world)
+    b, s = w.add_body_map(b, (1.0, 0.5, 1.0), (0.1, -0.2, 0.3),
+                          (2.0, 0.5, 1.0))
+    slots.append(s)
+    b = w.set_body_pose(b, per_world, pos=(1.0, 2.0, 3.0),
+                        angvel=(-1.0, 0.0, 1.0))
+    b = w.set_body_surface(b, 5, friction=0.4, restitution=0.6)
+    b = w.add_force(b, per_world, (1.0, -2.0, 3.0))
+    b = w.add_torque(b, -1, (0.0, 0.0, 9.0))
+    return b, torch.stack(slots)
+
+
+@pytest.mark.cuda
+def test_body_api_card_matches_cpu_bitwise():
+    _require_card()
+    import dataclasses
+    card, card_slots = _body_api_sequence("cuda")
+    cpu, cpu_slots = _body_api_sequence("cpu")
+    assert torch.equal(card_slots.cpu(), cpu_slots)
+    assert cpu_slots[4].tolist() == [-1, -1, -1, -1]
+    for f in dataclasses.fields(cpu):
+        assert torch.equal(getattr(card, f.name).cpu(),
+                           getattr(cpu, f.name)), f.name
+
+
+def _server_session(sim, ticks=120):
+    """Two capsule players (one walking) and 24 M-key spawns, 2 a tick."""
+    from rl_ode_physics_tpu_torch.net.client import GameClient
+    from rl_ode_physics_tpu_torch.utils.prng import RandStream
+    rng = RandStream(0)
+    for pid in (0, 1):
+        sim.player_join(pid)
+    while sim.tick < ticks:
+        t = sim.tick
+        for _ in range(2 if t < 12 else 0):
+            pos = (rng.double(-4.0, 4.0), rng.double(2.0, 6.0),
+                   rng.double(-4.0, 4.0))
+            kind = 2 if rng.randint(0, 2) == 0 else 1
+            assert sim.spawn_body(kind, GameClient._identity_t16(pos),
+                                  (rng.double(0.2, 0.6),) * 3,
+                                  rng.color()) >= 0
+        if t < 40:
+            sim.player_move(0, (0.05 * t, 2.0, -3.0))
+        sim.advance(1)
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["cli", "throughput"])
+def test_replay_is_bitwise_on_card(policy):
+    """A session on the card and its replay from the intent log end in the
+    same bits; the card's state stays within 1e-4 of the CPU's."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.net import replay
+    from rl_ode_physics_tpu_torch.net.server import SimCore
+    caps = dict(max_bodies=64, max_pair_candidates=256, max_contacts=512)
+    config = (EngineConfig(**caps) if policy == "cli"
+              else EngineConfig.throughput(**caps))
+    live = _server_session(SimCore(config, seed=0, player_capsules=True,
+                                   device="cuda"))
+    assert live.world.pos.is_cuda and live.check_overflow() == 0
+    again = replay.replay(live.intent_log, live.tick, config, seed=0,
+                          player_capsules=True, device="cuda")
+    assert again.state_digest() == live.state_digest()
+    cpu = replay.replay(live.intent_log, live.tick, config, seed=0,
+                        player_capsules=True, device="cpu")
+    np.testing.assert_allclose(live.body_states()["transform"],
+                               cpu.body_states()["transform"], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_loopback_session_on_card():
+    """A ``GameServer`` on the card and the native transport: a client's
+    spawn is mirrored back from the card's snapshots."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.net import native_transport
+    from rl_ode_physics_tpu_torch.net.client import GameClient
+    from rl_ode_physics_tpu_torch.net.server import GameServer
+    server = GameServer(EngineConfig(max_bodies=32, max_pair_candidates=128,
+                                     max_contacts=256), port=0,
+                        max_players=4, device="cuda")
+    client = GameClient(("127.0.0.1", server.host.port), max_bodies=32,
+                        max_players=4)
+    try:
+        assert isinstance(server.host, native_transport.NativeHost)
+        for _ in range(200):
+            server.pump(0.005)
+            client.pump(0.005)
+            if client.connected:
+                break
+        assert client.connected
+        for _ in range(3):
+            client.spawn_random()
+        for _ in range(60):
+            server.tick(1.0 / 60.0)
+            server.pump(0.002)
+            client.pump(0.01)
+        assert int(server.sim.world.active.sum()) == 7
+        assert int((client.bodies["type"] != 0).sum()) == 7
+    finally:
+        client.close()
+        server.close()
