@@ -199,7 +199,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     encoding). Then the CLI's server (``--device cuda``) and a ``client
     --spawn 3`` in subprocesses started together: the client mirrors 7
     bodies.
-22. prints one JSON line of every kernel the run launched (each float64
+22. the world axis over a mesh (``parallel/mesh.py``): ``tests/
+    test_mesh.py``'s batch (``stack_world`` of 10 bodies, seed 3, in 16
+    worlds raised 0.013 m a world index; ``EngineConfig(16, 64, 128)``, 3
+    substeps) stepped unsharded on the card, on ``make_mesh()`` and on a
+    mesh of ``[cuda:0, cuda:0]`` under both step functions' names, every
+    field bitwise; on a mesh of ``["cpu", "cuda:0"]`` each shard stays on
+    its device and the result is within 1e-4 of the card's. Then
+    ``utils/multichip_scaling.run`` at mesh sizes 1 and 2 (two shards of
+    the one card: the card's machine has one), body-steps/s a shard and ms
+    an ES train step, beside ``make_batched_step_fn`` on the same work
+    (with one substep's launches under ``torch.profiler``);
+    ``compact_rows_t`` counted as the ``sharded`` path and held to its
+    plain version on that path's own tensors (one substep of two shards of
+    64 worlds stepped 64 substeps).
+23. the ES trainer (``examples/rl_training.py``): one train step on the
+    card against the CPU from the same noise (pop 12, horizon 8; rtol
+    1e-4, atol 1e-5); the learning check of ``tests/test_rl_training.py``
+    (pop 12, horizon 25, 6 iterations: the mean reward rises by more than
+    0.15 and ends above -3.3); pop 4,096 (8,192 worlds), horizon 25, one
+    warm-up step and 2 timed: ms a train step and env-steps/s, then the
+    launches and kernel time of one more under ``torch.profiler``.
+24. BASELINE's bar on the card: the referee's configuration steps one
+    world of ``sphere_drop`` (72 steps: it lands at about step 63),
+    ``mini_stack`` (60) and ``hinge_chain`` (40) on the card, and the
+    port's float64 referee (``testing/referee.py``) the same initial
+    states on the host: max relative position error <= 1e-5, max
+    quaternion error <= 1e-3; both printed with each side's seconds.
+25. the examples: ``articulated`` for 8 ticks and ``rl_rollout`` at 256
+    worlds and 60 steps on the card, their lines checked; the minimal
+    server and client in subprocesses started together (the client
+    receives id 0 and a roster of 1).
+26. prints one JSON line of every kernel the run launched (each float64
     instance as a sub-entry of its kernel, with its own launches), then the
     last line ``{"ok": true, "device": {...}}``.
 
@@ -305,6 +336,26 @@ SESSION_SECONDS = 5.0
 SESSION_SPAWNS = 32
 SESSION_THROWS = 8
 CLI_SERVER_SECONDS = 8
+# the mesh: tests/test_mesh.py's batch, and multichip_scaling.py's rows at
+# mesh sizes 1 and 2 (two shards of the one card)
+MESH_CAPS = dict(max_bodies=16, max_pair_candidates=64, max_contacts=128)
+MESH_BATCH_WORLDS = 16
+MESH_BATCH_SUBSTEPS = 3
+SCALING_DEVICES = ("cuda:0", "cuda:0")
+# the ES trainer: card against CPU, the learning check, the full width
+ES_CHECK_POP, ES_CHECK_HORIZON = 12, 8
+ES_LEARN_POP, ES_LEARN_HORIZON, ES_LEARN_ITERS = 12, 25, 6
+ES_FULL_POP, ES_FULL_HORIZON, ES_FULL_TIMED = 4096, 25, 2
+# the card's float64 engine against the port's referee: (scene, steps);
+# the sphere lands at about step 63
+REFEREE_RUNS = (("sphere_drop", 72), ("mini_stack", 60), ("hinge_chain", 40))
+REFEREE_POS_TOL = 1e-5       # BASELINE's relative trajectory error bar
+REFEREE_QUAT_TOL = 1e-3
+# the examples: articulated's ticks, rl_rollout's worlds and steps, the
+# minimal client's seconds
+EXAMPLE_TICKS = 8
+EXAMPLE_ROLLOUT = (256, 60)
+MINIMAL_CLIENT_SECONDS = 8
 # the compaction at k past the index list: worlds of M = 4,096 columns
 WIDE_K_WORLDS = 1024
 # the probe kernels: trips of the short checks, names in the kernels line
@@ -2519,6 +2570,278 @@ def phase_game_server(card):
         broadcast_ms=bcast_ms)
 
 
+def mesh_batch(device):
+    """``tests/test_mesh.py``'s batch: ``stack_world(10 bodies, seed 3)`` in
+    16 worlds, each world's dynamic bodies raised by 0.013 m a world
+    index."""
+    import torch
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models.scenes import stack_world
+    from rl_ode_physics_tpu_torch.parallel.batch import replicate
+    config = EngineConfig(**MESH_CAPS)
+    w = stack_world(config, num_bodies=10, seed=3, device=device)
+    b = replicate(w, MESH_BATCH_WORLDS, device=device)
+    bump = torch.arange(MESH_BATCH_WORLDS, dtype=b.pos.dtype,
+                        device=b.device) * 0.013
+    lift = (bump[:, None] * (b.inv_mass > 0))[..., None]
+    return config, b.replace(pos=b.pos + torch.nn.functional.pad(
+        lift, (1, 1)))
+
+
+def phase_mesh(card):
+    """The world axis over a mesh (``parallel/mesh.py``): the mesh test's
+    batch sharded three ways against the unsharded step, bitwise, and on a
+    mesh of the CPU and the card within 1e-4; ``multichip_scaling`` at mesh
+    sizes 1 and 2 (two shards on the one card), ``compact_rows_t`` counted
+    as the ``sharded`` path; then the kernel held to its plain version on
+    that path's own tensors."""
+    import dataclasses
+    import torch
+    from rl_ode_physics_tpu_torch.models.scenes import bench_world
+    from rl_ode_physics_tpu_torch.ops import compaction_kernel
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, replicate)
+    from rl_ode_physics_tpu_torch.parallel.mesh import (
+        gather_batch, make_mesh, make_shard_map_step_fn,
+        make_sharded_step_fn, shard_batch)
+    from rl_ode_physics_tpu_torch.utils import multichip_scaling
+
+    config, batch = mesh_batch("cuda")
+    ref = make_batched_step_fn(config, substeps=MESH_BATCH_SUBSTEPS,
+                               device="cuda")(batch)
+    for label, devices, make in (
+            ("make_mesh() (every card)", None, make_sharded_step_fn),
+            ("[cuda:0, cuda:0]", ["cuda:0", "cuda:0"], make_sharded_step_fn),
+            ("[cuda:0, cuda:0] (shard_map name)", ["cuda:0", "cuda:0"],
+             make_shard_map_step_fn)):
+        mesh = make_mesh(devices)
+        out = make(config, mesh, substeps=MESH_BATCH_SUBSTEPS)(
+            shard_batch(batch, mesh))
+        got = gather_batch(out, "cuda")
+        for f in dataclasses.fields(got):
+            if not torch.equal(getattr(got, f.name), getattr(ref, f.name)):
+                raise AssertionError(f"mesh {label}: {f.name} differs from "
+                                     f"the unsharded step")
+        log(f"mesh {label}: {len(out)} shard(s) of "
+            f"{out[0].num_worlds} worlds, {MESH_BATCH_SUBSTEPS} substeps: "
+            f"bitwise the unsharded step on the card")
+    mesh = make_mesh(["cpu", "cuda:0"])
+    out = make_sharded_step_fn(config, mesh, substeps=MESH_BATCH_SUBSTEPS)(
+        shard_batch(batch, mesh))
+    if [s.device.type for s in out] != ["cpu", "cuda"]:
+        raise AssertionError("mesh [cpu, cuda:0]: a shard left its device")
+    got = gather_batch(out, "cuda")
+    moving = ("pos", "quat", "linvel", "angvel")
+    worst = _same("mesh [cpu, cuda:0]",
+                  {name: getattr(got, name) for name in moving},
+                  {name: getattr(ref, name).cpu() for name in moving}, 1e-4)
+    for f in dataclasses.fields(got):
+        if f.name not in moving and not torch.equal(getattr(got, f.name),
+                                                    getattr(ref, f.name)):
+            raise AssertionError(f"mesh [cpu, cuda:0]: {f.name} differs from "
+                                 f"the unsharded step")
+    log(f"mesh [cpu, cuda:0]: each shard stepped on its own device, within "
+        f"{worst:.3e} of the card's unsharded step (atol 1e-4)")
+
+    compaction_kernel.compact_rows_t.launches = 0
+    rows = multichip_scaling.run(list(SCALING_DEVICES))
+    launches = compaction_kernel.compact_rows_t.launches
+    want = sum((1 + multichip_scaling.REPS) * r["substeps"] * r["devices"]
+               for r in rows["stepping"])
+    if launches != want:
+        raise AssertionError(f"sharded path: compact_rows_t launched "
+                             f"{launches} times, {want} expected")
+    for step_r, train_r in zip(rows["stepping"], rows["training"]):
+        shards = step_r["devices"]
+        note = (" (shards of ONE card, not cards)" if shards > 1 else "")
+        log(f"multichip_scaling d={shards}{note}: "
+            f"{step_r['bodysteps_per_sec_per_device']:.1f} body-steps/s a "
+            f"shard ({step_r['substep_ms']:.3f} ms a substep), ES train step "
+            f"{train_r['train_step_s'] * 1e3:.1f} ms "
+            f"({train_r['per_device_slowdown_vs_1dev']:.2f}x d=1) on {card}")
+    log(json.dumps(rows))
+
+    # the d=1 row against make_batched_step_fn on the same work: what the
+    # mesh's wrapping costs
+    sconfig = multichip_scaling.scaling_config()
+    world = bench_world(sconfig, num_bodies=60, device="cuda")
+    row = rows["stepping"][0]
+    worlds, substeps = row["worlds_per_device"], row["substeps"]
+    plain = make_batched_step_fn(sconfig, substeps=substeps, device="cuda")
+    batch = plain(replicate(world, worlds, device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(multichip_scaling.REPS):
+        batch = plain(batch)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / multichip_scaling.REPS
+    rate = worlds * int((world.inv_mass > 0).sum()) * substeps / secs
+    one = make_batched_step_fn(sconfig, substeps=1, device="cuda")
+    traced = _launches_of(lambda: one(batch))
+    log(f"make_batched_step_fn on the same {worlds} worlds x {substeps} "
+        f"substeps: {rate:.1f} body-steps/s (the mesh of one card: "
+        f"{row['bodysteps_per_sec_per_device']:.1f}, "
+        f"{row['bodysteps_per_sec_per_device'] / rate:.3f}x); one substep "
+        f"under torch.profiler: {traced['launches']} launches, "
+        f"{traced['device_ms']:.3f} ms of kernel time (idle "
+        f"{1 - traced['device_ms'] / (secs / substeps * 1e3):.1%} of the "
+        f"untraced substep)")
+
+    two = make_mesh(list(SCALING_DEVICES))
+    shards = shard_batch(replicate(world, worlds * two.size, device="cuda"),
+                         two)
+    shards = make_sharded_step_fn(sconfig, two, substeps=64)(shards)
+    on_path = compaction_on_path_data(
+        lambda: make_sharded_step_fn(sconfig, two)(shards), "sharded",
+        two.size)
+    return {"compact_rows_t": launches}, on_path
+
+
+def phase_es(card):
+    """The ES trainer (``examples/rl_training.py``): one train step on the
+    card against the CPU from the same noise; the learning check of
+    ``tests/test_rl_training.py``; 8,192 worlds timed."""
+    import torch
+    from rl_ode_physics_tpu_torch.examples.rl_training import make_trainer
+
+    pop, horizon = ES_CHECK_POP, ES_CHECK_HORIZON
+    gen = torch.Generator().manual_seed(1)
+    ew = torch.randn((pop, 6, 2), generator=gen) * 0.1
+    eb = torch.randn((pop, 2), generator=gen) * 0.1
+    results = {}
+    for device in ("cpu", "cuda"):
+        params, step = make_trainer(pop=pop, horizon=horizon, device=device)
+        results[device] = step.step_with_noise(params, ew.to(device),
+                                               eb.to(device))
+    (cpu_p, cpu_r), (card_p, card_r) = results["cpu"], results["cuda"]
+    worst = 0.0
+    for want, got in zip(cpu_p + (cpu_r,), card_p + (card_r,)):
+        got = got.cpu()
+        worst = max(worst, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"ES step: card differs from the CPU by "
+                                 f"{float((got - want).abs().max())}")
+    log(f"ES train step (pop {pop}, horizon {horizon}), card against CPU from "
+        f"the same noise: max abs diff {worst:.3e} (rtol 1e-4, atol 1e-5); "
+        f"mean reward {float(card_r):.5f}")
+
+    params, step = make_trainer(pop=ES_LEARN_POP, horizon=ES_LEARN_HORIZON,
+                                device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rewards = []
+    for _ in range(ES_LEARN_ITERS):
+        params, mean_r = step(params, gen)
+        rewards.append(float(mean_r))
+    if not (rewards[-1] > rewards[0] + 0.15 and rewards[-1] > -3.3):
+        raise AssertionError(f"ES learning check: rewards {rewards}")
+    log(f"ES learning check (pop {ES_LEARN_POP}, horizon {ES_LEARN_HORIZON}):"
+        f" mean rewards {[round(r, 3) for r in rewards]}")
+
+    params, step = make_trainer(pop=ES_FULL_POP, horizon=ES_FULL_HORIZON,
+                                device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params, mean_r = step(params, gen)                 # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(ES_FULL_TIMED):
+        params, mean_r = step(params, gen)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / ES_FULL_TIMED
+    if not (torch.isfinite(mean_r) and all(torch.isfinite(p).all()
+                                           for p in params)):
+        raise AssertionError("ES at full width: non-finite result")
+    worlds = 2 * ES_FULL_POP
+    traced = _launches_of(lambda: step(params, gen))
+    log(f"ES at full width: pop {ES_FULL_POP} ({worlds} worlds), horizon "
+        f"{ES_FULL_HORIZON}, 2 substeps a control step: {secs * 1e3:.1f} ms "
+        f"a train step (warm-up {warm_s:.2f} s), "
+        f"{worlds * ES_FULL_HORIZON / secs:.1f} env-steps/s, mean reward "
+        f"{float(mean_r):.4f} on {card}; one train step under "
+        f"torch.profiler: {traced['launches']} launches, "
+        f"{traced['device_ms']:.1f} ms of kernel time (idle "
+        f"{1 - traced['device_ms'] / (secs * 1e3):.1%} of the untraced "
+        f"step)")
+
+
+def phase_referee(card):
+    """BASELINE's bar on the card: the conformance configuration steps one
+    world of each scene on the card, the port's float64 referee steps the
+    same initial state on the host; max relative position error <= 1e-5,
+    max quaternion error <= 1e-3."""
+    from rl_ode_physics_tpu_torch.testing import conformance
+    if conformance.conformance_config() != referee_config():
+        raise AssertionError("conformance_config() is not the referee's "
+                             "configuration")
+    for scene, steps in REFEREE_RUNS:
+        got = conformance.compare(scene, steps, device="cuda")
+        if not (got["pos_err"] <= REFEREE_POS_TOL
+                and got["quat_err"] <= REFEREE_QUAT_TOL):
+            raise AssertionError(f"referee {scene}: {got}")
+        log(f"referee {scene}, {steps} steps (B=1, float64, PGS): max rel "
+            f"pos err {got['pos_err']:.3e} (bar {REFEREE_POS_TOL}), max abs "
+            f"quat err {got['quat_err']:.3e}; card {got['engine_s']:.2f} s "
+            f"({got['engine_s'] / steps * 1e3:.1f} ms a step), referee "
+            f"{got['referee_s']:.2f} s on the host")
+
+
+def _minimal_pair() -> str:
+    """``examples.minimal_server`` and ``examples.minimal_client`` in
+    subprocesses started together; raises unless the client received id 0
+    and a roster of 1. Returns the client's lines."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mod = [sys.executable, "-m", "rl_ode_physics_tpu_torch.examples."]
+    server = subprocess.Popen(
+        mod[:2] + [mod[2] + "minimal_server", str(port)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    client = subprocess.Popen(
+        mod[:2] + [mod[2] + "minimal_client", str(port),
+                   str(MINIMAL_CLIENT_SECONDS)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        said, _ = client.communicate(timeout=120)
+    finally:
+        for proc in (client, server):
+            proc.kill()
+            proc.wait()
+    if (client.returncode != 0 or "RECEIVED ID: 0" not in said
+            or "roster size 1" not in said):
+        raise AssertionError(f"minimal pair: client rc {client.returncode} "
+                             f"{said}")
+    return " / ".join(said.split("\n")).strip(" /")
+
+
+def phase_examples(card):
+    """The example programs: ``articulated`` and ``rl_rollout`` on the
+    card, their printed lines checked; the minimal server and client."""
+    import contextlib
+    import io
+    from rl_ode_physics_tpu_torch.examples import articulated, rl_rollout
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        articulated.main(EXAMPLE_TICKS, "cuda")
+    lines = out.getvalue().splitlines()
+    if len(lines) != EXAMPLE_TICKS + 1 or not lines[-1].startswith(
+            "DONE: arm swept"):
+        raise AssertionError(f"articulated: {lines}")
+    log(f"articulated {EXAMPLE_TICKS} ticks on the card: {lines[-2]} / "
+        f"{lines[-1]}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rl_rollout.main(*EXAMPLE_ROLLOUT, "cuda")
+    said = out.getvalue()
+    if "env-steps/sec" not in said or "actor height spread" not in said:
+        raise AssertionError(f"rl_rollout: {said}")
+    log(f"rl_rollout {EXAMPLE_ROLLOUT[0]} worlds x {EXAMPLE_ROLLOUT[1]} "
+        f"steps on {card}: " + " / ".join(said.strip().splitlines()))
+    log(f"minimal server and client: {_minimal_pair()}")
+
+
 def main() -> int:
     start = time.perf_counter()
     card = phase_device()
@@ -2637,6 +2960,14 @@ def main() -> int:
         phase_game_server(card))
     by_path.update(server_launches)
     lap("21")
+    by_path["sharded"], compaction["on_sharded_path_data"] = phase_mesh(card)
+    lap("22 (mesh)")
+    phase_es(card)
+    lap("23 (ES)")
+    phase_referee(card)
+    lap("24 (referee)")
+    phase_examples(card)
+    lap("25 (examples)")
     # the float64 tile kernel on the DANTZIG ridge path
     f64_ridge = dantzig["dantzig_ridge_mesh"]["sphere_mesh_d2_tiles"]
     tiles["f64"]["launches"] += f64_ridge

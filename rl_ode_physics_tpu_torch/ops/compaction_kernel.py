@@ -85,7 +85,7 @@ def compact_rows_t(mask: torch.Tensor, payload_t: torch.Tensor, k: int,
     overflow = torch.empty((b,), dtype=torch.int32, device=mask.device)
     launch = getattr(_library(), _LAUNCHERS[payload_t.dtype])
     with torch.cuda.device(mask.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
         err = launch(
             mask.data_ptr(), payload_t.data_ptr(), rows_t.data_ptr(),
             valid.data_ptr(), count.data_ptr(), overflow.data_ptr(),

@@ -115,7 +115,7 @@ def sphere_mesh_d2_tiles(probes: torch.Tensor, v0t: torch.Tensor,
     launch = getattr(_library(), "sphere_mesh_d2_tiles_launch"
                      + _SUFFIX[probes.dtype])
     with torch.cuda.device(probes.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(probes.device).cuda_stream
         err = launch(
             probes.data_ptr(), v0t.data_ptr(), e1t.data_ptr(),
             e2t.data_ptr(), out.data_ptr(), p, t, stream)
@@ -145,7 +145,7 @@ def sphere_mesh_d2(centers: torch.Tensor, v0t: torch.Tensor,
     launch = getattr(_library(), "sphere_mesh_d2_batch_launch"
                      + _SUFFIX[centers.dtype])
     with torch.cuda.device(centers.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(centers.device).cuda_stream
         err = launch(
             centers.data_ptr(), v0t.data_ptr(), e1t.data_ptr(),
             e2t.data_ptr(), out.data_ptr(), c, t, stream)

@@ -75,9 +75,15 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _stream(device) -> int:
+def _launch(name: str, device, *args) -> None:
+    """Call the launcher ``name`` with ``args`` and the current stream of
+    ``device``, that card made current for the call: a launcher enqueues
+    on the calling thread's current device, and ``probe_mxu``'s opt-in to
+    192 KB of shared memory and a 16-block cluster, set at each launch, is
+    an attribute of that device."""
     with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(getattr(_library(), name + "_launch")(*args, stream), name)
 
 
 # ---------------------------------------------------------------------------
@@ -145,10 +151,8 @@ def probe_matmuls(vel: torch.Tensor, s: torch.Tensor, trips: int):
         raise ValueError(f"{w} worlds, {trips} trips")
     out = torch.empty_like(vel)
     checksum = torch.empty((w,), dtype=torch.float64, device=vel.device)
-    err = _library().probe_matmuls_launch(
-        vel.data_ptr(), s.data_ptr(), out.data_ptr(), checksum.data_ptr(), w,
-        trips, _stream(vel.device))
-    _raise_on(err, "probe_matmuls")
+    _launch("probe_matmuls", vel.device, vel.data_ptr(), s.data_ptr(),
+            out.data_ptr(), checksum.data_ptr(), w, trips)
     probe_matmuls.launches += 1
     return out, checksum
 
@@ -184,9 +188,8 @@ def probe_vpu(x: torch.Tensor, trips: int, fused: bool = False):
     if trips < 0:
         raise ValueError(f"{trips} trips")
     out = torch.empty_like(x)
-    err = _library().probe_vpu_launch(x.data_ptr(), out.data_ptr(), per,
-                                      trips, int(fused), _stream(x.device))
-    _raise_on(err, "probe_vpu")
+    _launch("probe_vpu", x.device, x.data_ptr(), out.data_ptr(), per, trips,
+            int(fused))
     probe_vpu.launches += 1
     return out
 
@@ -229,10 +232,8 @@ def probe_mxu(a: torch.Tensor, b: torch.Tensor, steps: int):
         raise ValueError(f"steps={steps}: at least 1")
     buf = torch.empty((2, MXU_N, MXU_N), dtype=torch.float32,
                       device=a.device)
-    err = _library().probe_mxu_launch(a.data_ptr(), b.data_ptr(),
-                                      buf.data_ptr(), steps,
-                                      _stream(a.device))
-    _raise_on(err, "probe_mxu")
+    _launch("probe_mxu", a.device, a.data_ptr(), b.data_ptr(),
+            buf.data_ptr(), steps)
     probe_mxu.launches += 1
     return buf[(steps - 1) % 2]
 

@@ -1,9 +1,10 @@
 """Batches of independent worlds.
 
 The port of ``rl_ode_physics_tpu/parallel/batch.py``: ``replicate`` tiles
-one world into a batch, ``make_batched_step_fn`` steps the batch. There is
-no cross-world communication, so a batch is a leading axis on every
-tensor.
+one world into a batch, ``batched_step`` steps every world of it once and
+``make_batched_step_fn`` steps it ``substeps`` times. There is no
+cross-world communication, so a batch is a leading axis on every tensor
+(``parallel/mesh.py`` splits that axis over cards).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import U32_MASK, WorldState
-from rl_ode_physics_tpu_torch.core.world import make_step_fn
+from rl_ode_physics_tpu_torch.core.world import make_step_fn, step
 from rl_ode_physics_tpu_torch.ops.dense import LIVE_PAIR_TENSORS
 
 
@@ -36,6 +37,11 @@ def replicate(state: WorldState, num_worlds: int, reseed: bool = True,
         idx = torch.arange(num_worlds, dtype=torch.int64, device=batch.device)
         batch = batch.replace(rng_state=(batch.rng_state + idx) & U32_MASK)
     return batch
+
+
+def batched_step(batch: WorldState, config: EngineConfig) -> WorldState:
+    """One substep for every world in the batch."""
+    return step(batch, config)
 
 
 def take_worlds(batch: WorldState, start: int, stop: int) -> WorldState:

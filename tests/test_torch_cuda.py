@@ -874,3 +874,76 @@ def test_loopback_session_on_card():
     finally:
         client.close()
         server.close()
+
+
+def _mesh_test_batch(device, worlds=16):
+    """``tests/test_mesh.py``'s batch: ``stack_world`` of 10 bodies (seed 3)
+    in ``worlds`` worlds, each world's dynamic bodies raised 0.013 m a
+    world index."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models.scenes import stack_world
+    config = EngineConfig(max_bodies=16, max_pair_candidates=64,
+                          max_contacts=128)
+    b = replicate(stack_world(config, num_bodies=10, seed=3, device=device),
+                  worlds, device=device)
+    bump = torch.arange(worlds, dtype=b.pos.dtype, device=b.device) * 0.013
+    lift = (bump[:, None] * (b.inv_mass > 0))[..., None]
+    return config, b.replace(pos=b.pos + torch.nn.functional.pad(
+        lift, (1, 1)))
+
+
+@pytest.mark.cuda
+def test_mesh_of_two_shards_on_the_card_is_bitwise_unsharded():
+    """Two shards of the one card, under both step functions' names: every
+    field bitwise the unsharded step's."""
+    _require_card()
+    import dataclasses
+    from rl_ode_physics_tpu_torch.parallel import mesh as pmesh
+    config, batch = _mesh_test_batch("cuda")
+    ref = make_batched_step_fn(config, substeps=3, device="cuda")(batch)
+    mesh = pmesh.make_mesh(["cuda:0", "cuda:0"])
+    for make in (pmesh.make_sharded_step_fn, pmesh.make_shard_map_step_fn):
+        got = pmesh.gather_batch(make(config, mesh, substeps=3)(
+            pmesh.shard_batch(batch, mesh)))
+        for f in dataclasses.fields(got):
+            assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), (
+                f.name)
+
+
+@pytest.mark.cuda
+def test_mesh_of_the_cpu_and_the_card_keeps_each_shard_on_its_device():
+    """A mesh of the CPU and the card: each shard is stepped on its own
+    device (an operation mixing them would raise), within 1e-4 of the
+    card's unsharded step."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.parallel import mesh as pmesh
+    config, batch = _mesh_test_batch("cuda")
+    ref = make_batched_step_fn(config, substeps=3, device="cuda")(batch)
+    mesh = pmesh.make_mesh(["cpu", "cuda:0"])
+    out = pmesh.make_sharded_step_fn(config, mesh, substeps=3)(
+        pmesh.shard_batch(batch, mesh))
+    assert [s.device for s in out] == list(mesh.devices)
+    got = pmesh.gather_batch(out, "cuda")
+    for field in ("pos", "quat", "linvel", "angvel"):
+        diff = (getattr(got, field) - getattr(ref, field)).abs().max()
+        assert float(diff) <= 1e-4, field
+    for field in ("tick", "overflow", "body_type"):
+        assert torch.equal(getattr(got, field), getattr(ref, field))
+
+
+@pytest.mark.cuda
+def test_es_train_step_card_matches_cpu():
+    """One ES train step (pop 12, horizon 8) on the card and on the CPU from
+    the same noise: parameters and mean reward at rtol 1e-4, atol 1e-5."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.examples.rl_training import make_trainer
+    gen = torch.Generator().manual_seed(1)
+    ew = torch.randn((12, 6, 2), generator=gen) * 0.1
+    eb = torch.randn((12, 2), generator=gen) * 0.1
+    results = []
+    for device in ("cpu", "cuda"):
+        params, step = make_trainer(pop=12, horizon=8, device=device)
+        new, r = step.step_with_noise(params, ew.to(device), eb.to(device))
+        results.append([t.cpu() for t in new + (r,)])
+    for want, got in zip(*results):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
