@@ -94,7 +94,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     max_contacts=192)``, defaults otherwise: JACOBI 20 sweeps, K=8,
     capsules and planes), ``capsule_stack_world(num_bodies=64, seed=7)``:
     one world settled 480 substeps on the card (the bodies fall 20-50 m),
-    replicated into 8192 worlds, one warm-up launch of 24 substeps and 3
+    replicated into 8192 worlds, one warm-up launch of 24 substeps and 2
     timed launches of 48; zero overflow, finite state, no body under the
     floor; prints body-steps/s, ms/substep and peak memory. The JAX
     classic pipeline reaches no Pallas kernel, so this path launches none
@@ -230,7 +230,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     worlds and 60 steps on the card, their lines checked; the minimal
     server and client in subprocesses started together (the client
     receives id 0 and a roster of 1).
-26. prints one JSON line of every kernel the run launched (each float64
+26. the measurement tools of ``utils/``, each at a small size, its
+    numbers on a line of its own with the card's name and power limit, and
+    its hand-kernel launches counted as a path of its own
+    (``tool_<name>``): ``capacity_audit`` at 64 slots under both policies,
+    seeds 42 and 7 for 96 substeps (2 chunks of 50): overflow 0 and each
+    signature a key of ``benchmarks/audited_capacities.json``, the peaks
+    beside the TPU registry's, ``compact_rows_t`` launched;
+    ``tpu_default_conformance`` for 200 steps: its five numbers finite, and
+    the card's trajectory against the port's CPU over the same steps;
+    ``profile_step`` on 2,048 worlds x 8 substeps of the bench: its top 15
+    rows, at least 90% of the device time mapped to a ``file:line`` of the
+    port, ``compact_rows`` a row with a source; ``solver_iter`` at 512
+    worlds (samples of 5 solves); ``teapot_bench --standin`` at 64 worlds,
+    ``sphere_mesh_d2_tiles`` launched; ``rl_rollout_bench`` at 512 worlds,
+    one timed rollout, ``compact_rows_t`` launched; ``phase_timings`` on the
+    bench batch (8192 worlds settled 48 substeps). On each of the four
+    ``tool_*`` paths the kernel's wrapper is caught during the tool's run,
+    and once the counts are read the last tensors the tool handed it are
+    held to its plain version (as on every earlier path's own data) and
+    timed; the kernels line carries them as ``on_tool_<name>_data``.
+27. prints one JSON line of every kernel the run launched (each float64
     instance as a sub-entry of its kernel, with its own launches), then the
     last line ``{"ok": true, "device": {...}}``.
 
@@ -257,6 +277,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from rl_ode_physics_tpu_torch.models.workloads import (  # noqa: E402
+    CAPSULE_BODIES, CAPSULE_SETTLE, MESH_SPHERES, ROLLOUT_ACTORS,
+    ROLLOUT_RAYS, ROLLOUT_SUBSTEPS, capsule_config, mesh_config, mesh_world,
+    mini_config, rollout_env, seeded_actions, standin_mesh)
 
 # H100 SXM data-sheet peaks: device-memory rate (bytes/s) and the FP32 and
 # FP64 rates outside the tensor cores (operations/s)
@@ -270,24 +296,17 @@ TIMED_LAUNCHES = 3
 
 # the trimesh path: teapot_bench.py's workload at 16x its worlds
 MESH_WORLDS = 1024
-MESH_SPHERES = 15
 MESH_WARMUP_SUBSTEPS = 96
 MESH_SUBSTEPS_PER_LAUNCH = 48
 MESH_TIMED_LAUNCHES = 3
-MESH_CELLS = 67              # 2·67² = 8,978 triangles, padded to 9,216
 # the rollout path: rl_rollout_bench.py's defaults
-ROLLOUT_ACTORS = [4, 5]
-ROLLOUT_RAYS = 16
-ROLLOUT_SUBSTEPS = 2
 ROLLOUT_HORIZON = 16
 ROLLOUT_TIMED = 4
 # the capsule-stack path: BASELINE config 2 through the classic pipeline
 CAPSULE_WORLDS = 8192
-CAPSULE_BODIES = 64              # capsule_stack_world: 63 boxes/spheres + capsule
-CAPSULE_SETTLE = 480             # one world, through the fall onto the pile
 CAPSULE_WARMUP = 24
 CAPSULE_SUBSTEPS_PER_LAUNCH = 48
-CAPSULE_TIMED_LAUNCHES = 3
+CAPSULE_TIMED_LAUNCHES = 2
 # the mini-stack path: benchmarks/tpu_default_conformance.py's engine/scene
 MINI_WORLDS = 8192
 MINI_SUBSTEPS_PER_LAUNCH = 96
@@ -356,6 +375,20 @@ REFEREE_QUAT_TOL = 1e-3
 EXAMPLE_TICKS = 8
 EXAMPLE_ROLLOUT = (256, 60)
 MINIMAL_CLIENT_SECONDS = 8
+# the measurement tools (phase 26): capacity_audit's seeds and substeps,
+# tpu_default_conformance's steps, profile_step's (worlds, substeps) and
+# table rows, solver_iter's, teapot_bench's and rl_rollout_bench's worlds,
+# phase_timings' settling substeps
+TOOL_AUDIT_SEEDS = (42, 7)
+TOOL_AUDIT_SUBSTEPS = 96
+TOOL_CONFORMANCE_STEPS = 200
+TOOL_PROFILE = (2048, 8)
+TOOL_PROFILE_ROWS = 15
+TOOL_SOLVER_WORLDS = 512
+TOOL_SOLVER_SOLVES = 5
+TOOL_TEAPOT_WORLDS = 64
+TOOL_ROLLOUT_WORLDS = 512
+TOOL_TIMINGS_SETTLE = 48
 # the compaction at k past the index list: worlds of M = 4,096 columns
 WIDE_K_WORLDS = 1024
 # the probe kernels: trips of the short checks, names in the kernels line
@@ -644,18 +677,22 @@ def phase_main_path(config, card):
 
 def caught_calls(module, name, drive):
     """Run ``drive()`` with the kernel wrapper ``module.<name>`` wrapped once
-    more, so that the arguments of every call it gets are kept; return them,
-    one tuple of all the wrapper's parameters per call."""
+    more, so that the arguments of its calls are kept; return how many
+    calls it got and the last one's arguments (a tuple of all the wrapper's
+    parameters), or None."""
+    import functools
     import inspect
     import torch
     wrapped = getattr(module, name)
     signature = inspect.signature(wrapped)
-    caught = []
+    caught = [0, None]
 
+    @functools.wraps(wrapped)
     def catching(*args, **kwargs):
         bound = signature.bind(*args, **kwargs)
         bound.apply_defaults()
-        caught.append(tuple(bound.arguments.values()))
+        caught[0] += 1
+        caught[1] = tuple(bound.arguments.values())
         return wrapped(*args, **kwargs)
 
     # a wrapper counts its launches on the module's name for it
@@ -670,20 +707,28 @@ def caught_calls(module, name, drive):
     return caught
 
 
+def _caught_last(module, name, drive, path, calls):
+    """The last call's arguments of ``caught_calls``; raises unless the
+    wrapper got ``calls`` calls (any number but 0 when None)."""
+    n, last = caught_calls(module, name, drive)
+    if not n or (calls is not None and n != calls):
+        raise AssertionError(f"{path}: {calls} substeps called {name} {n} "
+                             f"times")
+    return n, last
+
+
 def compaction_on_path_data(drive, path, calls, earlier=""):
     """``compact_rows_t`` on the mask and payload that a settled main path
-    hands it: ``drive()`` runs the path on (``calls`` substeps) with the
-    kernel's wrapper caught; the last call's tensors are then held to the
-    plain version, exactly, and both are timed on them alone. ``earlier``:
-    an earlier record of that time, printed beside it."""
+    hands it: ``drive()`` runs the path on (``calls`` substeps; None: a
+    tool's whole run) with the kernel's wrapper caught; the last call's
+    tensors are then held to the plain version, exactly, and both are timed
+    on them alone. ``earlier``: an earlier record of that time, printed
+    beside it."""
     from rl_ode_physics_tpu_torch.ops import compaction, compaction_kernel
     from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
 
-    caught = caught_calls(compaction_kernel, "compact_rows_t", drive)
-    if len(caught) != calls:
-        raise AssertionError(f"{path}: {calls} substeps called "
-                             f"compact_rows_t {len(caught)} times")
-    mask, payload, k, sel = caught[-1]
+    n, (mask, payload, k, sel) = _caught_last(
+        compaction_kernel, "compact_rows_t", drive, path, calls)
     b, d, m = payload.shape
     compaction_equals_plain(mask, payload, k, sel, f"the {path} path's data")
     kernel_ms = cuda_ms(
@@ -698,7 +743,7 @@ def compaction_on_path_data(drive, path, calls, earlier=""):
         f"sector_floor_ms={floors['sector_floor_ms']:.5f} floor_64b_ms="
         f"{floors['floor_64b_ms']:.5f}{earlier}")
     return dict(floors, ms=kernel_ms, plain_ms=plain_ms, max_abs_err=0.0,
-                shape=[b, d, m, k])
+                shape=[b, d, m, k], calls=n)
 
 
 def d2_errors(got, ref, what):
@@ -762,11 +807,8 @@ def tiles_on_path_data(drive, path, calls):
     from rl_ode_physics_tpu_torch.ops import trimesh as tm
     from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
 
-    caught = caught_calls(mesh_kernels, "sphere_mesh_d2_tiles", drive)
-    if len(caught) != calls:
-        raise AssertionError(f"{path}: {calls} substeps called "
-                             f"sphere_mesh_d2_tiles {len(caught)} times")
-    probes, *tris = caught[-1]
+    n, (probes, *tris) = _caught_last(
+        mesh_kernels, "sphere_mesh_d2_tiles", drive, path, calls)
     p, t = probes.shape[0], tris[0].shape[1]
     got = mesh_kernels.sphere_mesh_d2_tiles(probes, *tris)
     ref = tm.sphere_mesh_d2_tiles_plain(probes, *tris)
@@ -788,55 +830,7 @@ def tiles_on_path_data(drive, path, calls):
         f"{bound['bytes_ms']:.5f})")
     return dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=abs_err,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                shape=[p, t])
-
-
-def standin_mesh():
-    """The teapot's stand-in: a 67×67-cell heightfield over a 12 m square
-    in the grid layout of ``tests/test_trimesh.py``, heights
-    ``0.3·sin(x)·cos(z)``: 8,978 triangles, which ``build_trimesh`` pads
-    to the teapot's 9,216."""
-    import numpy as np
-    n = MESH_CELLS
-    xs = np.linspace(-6.0, 6.0, n + 1)
-    verts = np.array([[x, 0.3 * np.sin(x) * np.cos(z), z]
-                      for z in xs for x in xs], np.float64)
-    tris = []
-    for r in range(n):
-        for c in range(n):
-            i = r * (n + 1) + c
-            tris.append([i, i + 1, i + n + 1])
-            tris.append([i + 1, i + n + 2, i + n + 1])
-    return verts, np.array(tris, np.int64)
-
-
-def mesh_config():
-    from rl_ode_physics_tpu_torch.core.config import EngineConfig
-    return EngineConfig.throughput(
-        max_bodies=16, max_pair_candidates=64, max_contacts=128,
-        enable_planes=False, enable_capsules=False, pallas_compaction=True)
-
-
-def mesh_world(config, verts, tris, device):
-    """``teapot_bench.py:42-56``: the mesh in slot 0 and 15 spheres of
-    radius 0.25 from ``RandStream(3)`` above it. Returns (world, mesh)."""
-    from rl_ode_physics_tpu_torch.core.state import BodyType
-    from rl_ode_physics_tpu_torch.models.builder import WorldBuilder
-    from rl_ode_physics_tpu_torch.ops.trimesh import build_trimesh
-    from rl_ode_physics_tpu_torch.utils.prng import RandStream
-
-    top = float(verts[:, 1].max())
-    b = WorldBuilder(config, 0)
-    slot = b.add_body_map((0, 0, 0), (0, 0, 0), (0, 0, 0))
-    b.body_type[slot] = int(BodyType.TRIMESH)
-    rng = RandStream(3)
-    for _ in range(MESH_SPHERES):
-        b.add_body(BodyType.SPHERE,
-                   (rng.double(-1.5, 1.5), top + rng.double(0.5, 3.0),
-                    rng.double(-1.5, 1.5)),
-                   (0.25, 0.0, 0.0))
-    return b.finish(device), build_trimesh(verts, tris, slot=slot,
-                                           device=device)
+                shape=[p, t], calls=n)
 
 
 def ridge_box_world(config, device):
@@ -1097,34 +1091,6 @@ def phase_mesh_kernels(batch, config, mesh, sphere_centers, floor_ms):
     return [tiles, one]
 
 
-def rollout_env(config, worlds, device):
-    """``rl_rollout_bench.py``'s environment: the bench world, actor slots
-    4 and 5 (the first box and the first sphere) observed alone, a
-    horizontal fan of 16 lidar rays on each."""
-    import numpy as np
-    from rl_ode_physics_tpu_torch.models.env import PhysicsEnv
-    from rl_ode_physics_tpu_torch.models.scenes import bench_world
-
-    ang = np.linspace(0, 2 * np.pi, ROLLOUT_RAYS, endpoint=False)
-    fan = np.stack([np.cos(ang), np.zeros_like(ang), np.sin(ang)], -1)
-    return PhysicsEnv(
-        config,
-        lambda cfg, seed: bench_world(cfg, num_bodies=BODIES, seed=seed,
-                                      device=device),
-        actor_slots=ROLLOUT_ACTORS, num_worlds=worlds,
-        substeps=ROLLOUT_SUBSTEPS, lidar_dirs=fan, obs_slots=ROLLOUT_ACTORS,
-        device=device)
-
-
-def seeded_actions(shape, seed, device):
-    """0.5 x standard normal forces and torques, from numpy so that every
-    device gets the same ones."""
-    import numpy as np
-    import torch
-    return torch.from_numpy(0.5 * np.random.default_rng(seed).standard_normal(
-        shape, dtype=np.float32)).to(device)
-
-
 def phase_rollout_card_vs_cpu(config):
     """4 worlds settled 40 substeps on the CPU, then 4 control steps of the
     env on each device under the same actions."""
@@ -1337,15 +1303,6 @@ def phase_pipelines_card_vs_cpu():
         config, "cpu"), None, 24), None, "plane scene, component-major K=8")
 
 
-def capsule_config():
-    """BASELINE config 2 as ``tests/test_physics.py:222-238`` runs it: the
-    classic pipeline at ``EngineConfig``'s defaults, capacities 1.5x the
-    peaks the JAX package reaches on this scene (PERF.md)."""
-    from rl_ode_physics_tpu_torch.core.config import EngineConfig
-    return EngineConfig(max_bodies=68, max_pair_candidates=192,
-                        max_contacts=192)
-
-
 def _hand_kernels():
     from rl_ode_physics_tpu_torch.ops import compaction_kernel, mesh_kernels
     return (compaction_kernel.compact_rows_t,
@@ -1429,13 +1386,6 @@ def phase_capsule_main_path(config, card):
     if peak_gb > 40.0:
         raise AssertionError(f"capsule-stack path: peak {peak_gb:.1f} GB, "
                              f"step it in world chunks")
-
-
-def mini_config():
-    """``benchmarks/tpu_default_conformance.py:49-53``'s engine."""
-    from rl_ode_physics_tpu_torch.core.config import EngineConfig
-    return EngineConfig.throughput(max_bodies=16, max_pair_candidates=128,
-                                   max_contacts=256)
 
 
 def phase_mini_main_path(config, card):
@@ -2842,10 +2792,153 @@ def phase_examples(card):
     log(f"minimal server and client: {_minimal_pair()}")
 
 
+def _tool_run(drive, kernel=None, path=None):
+    """``drive()`` with every hand kernel's count set to 0 just before it;
+    returns (its result, {kernel: launches}, seconds, on_path). With
+    ``kernel`` (a name of ``_hand_kernels``), that wrapper is caught during
+    the run, and once the counts are read its last call's tensors are held
+    to the plain version on the card (``compaction_on_path_data``,
+    ``tiles_on_path_data``): ``on_path`` is that check's record, else
+    None. Raises unless the kernel launched once a call."""
+    import torch
+    ran = {}
+
+    def counted():
+        for fn in _hand_kernels():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ran["out"] = drive()
+        torch.cuda.synchronize()
+        ran["secs"] = time.perf_counter() - t0
+        ran["counts"] = {fn.__name__: fn.launches for fn in _hand_kernels()
+                         if fn.launches}
+
+    if kernel is None:
+        counted()
+        return ran["out"], ran["counts"], ran["secs"], None
+    check = {"compact_rows_t": compaction_on_path_data,
+             "sphere_mesh_d2_tiles": tiles_on_path_data}[kernel]
+    on_path = check(counted, path, None)
+    if ran["counts"].get(kernel) != on_path["calls"]:
+        raise AssertionError(f"{path}: {on_path['calls']} calls of {kernel} "
+                             f"but launches {ran['counts']}")
+    return ran["out"], ran["counts"], ran["secs"], on_path
+
+
+def phase_tools(card):
+    """The measurement tools of ``utils/`` on the card at small sizes, each
+    with its hand-kernel launches counted as a path of its own
+    (``tool_<name>``), and that kernel held to its plain version on the
+    last tensors the tool's own run handed it. Returns ({path: launches},
+    {path: the kernel's record on the path's data})."""
+    import numpy as np
+    import torch
+    from rl_ode_physics_tpu_torch.core.config import bench_config
+    from rl_ode_physics_tpu_torch.models.scenes import bench_world
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, replicate)
+    from rl_ode_physics_tpu_torch.testing import conformance
+    from rl_ode_physics_tpu_torch.utils import (
+        capacity_audit, profile_step, rl_rollout_bench, solver_iter,
+        teapot_bench, tpu_default_conformance)
+    from rl_ode_physics_tpu_torch.utils.profiling import phase_timings
+
+    by_path, on_path = {}, {}
+    registry = capacity_audit.load_registry()
+    path = "tool_capacity_audit"
+    entries, counts, secs, on_path[path] = _tool_run(lambda: (
+        capacity_audit.audit(64, TOOL_AUDIT_SUBSTEPS, TOOL_AUDIT_SEEDS,
+                             "cuda")), "compact_rows_t", path)
+    by_path[path] = counts
+    for e in entries:
+        if e["overflow"] or e["signature"] not in registry:
+            raise AssertionError(f"capacity_audit {e['label']}: overflow "
+                                 f"{e['overflow']}, signature "
+                                 f"{e['signature']} in the registry: "
+                                 f"{e['signature'] in registry}")
+        log(f"capacity_audit 64 slots, {e['label']}, seeds "
+            f"{list(TOOL_AUDIT_SEEDS)} x {TOOL_AUDIT_SUBSTEPS} substeps (whole "
+            f"chunks of {capacity_audit.CHUNK}) on {card}: contacts "
+            f"{e['peak_contacts']}/{e['max_contacts']}, pairs "
+            f"{e['peak_pairs']} of caps {e['caps']}, overflow 0; "
+            f"{capacity_audit.compare_line(e)}; {counts}, {secs:.1f} s")
+
+    steps = TOOL_CONFORMANCE_STEPS
+    r, _, secs, _ = _tool_run(lambda: (
+        tpu_default_conformance.run(steps, "default", "cuda")))
+    numbers = ("max_rel_pos_err", "late_height_err", "first_divergence_step",
+               "sorted_heights_err", "late_motion")
+    if not all(math.isfinite(r[k]) for k in numbers):
+        raise AssertionError(f"tpu_default_conformance: {r}")
+    cfg = tpu_default_conformance.throughput_config()
+    pos_cpu, _, _ = conformance.engine_trajectory(
+        conformance.build("mini_stack", cfg, "cpu")[0], cfg, steps)
+    gap = float(np.abs(r["pos_e"] - pos_cpu).max())
+    log(f"{tpu_default_conformance.line(r)} on {card}; card against the "
+        f"port's CPU over the {steps} steps: max |dx| {gap:.3e}; card "
+        f"{r['engine_s']:.2f} s, referee {r['referee_s']:.2f} s, "
+        f"{secs:.1f} s")
+
+    worlds, substeps = TOOL_PROFILE
+    path = "tool_profile_step"
+    p, counts, secs, on_path[path] = _tool_run(lambda: (
+        profile_step.profile(worlds, substeps, "bench", "cuda")),
+        "compact_rows_t", path)
+    by_path[path] = counts
+    log(profile_step.report(p, top=TOOL_PROFILE_ROWS))
+    if p["mapped_share"] < 0.9:
+        raise AssertionError(f"profile_step: {p['mapped_share']:.1%} of the "
+                             f"device time mapped to the port's source")
+    if not any("compact_rows" in row["op"] and row["source"] != "?"
+               for row in p["rows"]):
+        raise AssertionError("profile_step: no compact_rows row with a "
+                             "source line")
+    log(f"profile_step bench {worlds} worlds x {substeps} substeps on "
+        f"{card}: {p['total_ms']:.3f} ms of device time a substep, "
+        f"{p['mapped_share']:.1%} mapped; "
+        f"{counts}, {secs:.1f} s")
+
+    r, _, secs, _ = _tool_run(lambda: solver_iter.run(
+        TOOL_SOLVER_WORLDS, "cuda", solves=TOOL_SOLVER_SOLVES))
+    log(f"solver_iter on {card}: {json.dumps(r)}, {secs:.1f} s")
+
+    verts, tris = teapot_bench.mesh_geometry(standin=True)
+    path = "tool_teapot_bench"
+    r, counts, secs, on_path[path] = _tool_run(lambda: teapot_bench.run(
+        TOOL_TEAPOT_WORLDS, verts, tris, "cuda"), "sphere_mesh_d2_tiles",
+        path)
+    by_path[path] = counts
+    log(f"teapot_bench --standin on {card}: {json.dumps(r)}; {counts}, "
+        f"{secs:.1f} s")
+
+    settings = rl_rollout_bench.settings(
+        {"BENCH_WORLDS": str(TOOL_ROLLOUT_WORLDS), "BENCH_REPEATS": "1"})
+    path = "tool_rl_rollout_bench"
+    r, counts, secs, on_path[path] = _tool_run(lambda: (
+        rl_rollout_bench.run(**settings, device="cuda")), "compact_rows_t",
+        path)
+    by_path[path] = counts
+    log(f"rl_rollout_bench {TOOL_ROLLOUT_WORLDS} worlds on {card}: "
+        f"{json.dumps(r)}; {counts}, {secs:.1f} s")
+
+    config = bench_config(64)
+    batch = replicate(bench_world(config, num_bodies=BODIES, device="cuda"),
+                      WORLDS, device="cuda")
+    batch = make_batched_step_fn(config, substeps=TOOL_TIMINGS_SETTLE)(batch)
+    torch.cuda.synchronize()
+    r, _, secs, _ = _tool_run(lambda: phase_timings(batch, config))
+    if not all(math.isfinite(v) and v > 0 for v in r.values()):
+        raise AssertionError(f"phase_timings: {r}")
+    log(f"phase_timings, the bench batch ({WORLDS} worlds settled "
+        f"{TOOL_TIMINGS_SETTLE} substeps) on {card}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r.items())
+        + f"; {secs:.1f} s")
+    return by_path, on_path
+
+
 def main() -> int:
     start = time.perf_counter()
     card = phase_device()
-    sys.path.insert(0, str(ROOT))
     import torch
     from rl_ode_physics_tpu_torch.core.config import (
         bench_config, rollout_config)
@@ -2968,6 +3061,12 @@ def main() -> int:
     lap("24 (referee)")
     phase_examples(card)
     lap("25 (examples)")
+    tool_launches, on_tool_paths = phase_tools(card)
+    by_path.update(tool_launches)
+    for path, record in on_tool_paths.items():
+        entry = compaction if path != "tool_teapot_bench" else tiles
+        entry[f"on_{path}_data"] = record
+    lap("26 (tools)")
     # the float64 tile kernel on the DANTZIG ridge path
     f64_ridge = dantzig["dantzig_ridge_mesh"]["sphere_mesh_d2_tiles"]
     tiles["f64"]["launches"] += f64_ridge

@@ -376,14 +376,18 @@ def bench_bucket_caps(num_bodies: int) -> tuple:
     return ((1, 1, ss), (1, 2, sb), (2, 2, bb))
 
 
-def bench_config(num_bodies: int = 64) -> EngineConfig:
-    """The configuration ``bench.bench_config(num_bodies)`` resolves to with
-    no environment overrides: the throughput policy (heavy-ball Jacobi, 8
-    sweeps, omega 1.3, beta 0.9, typed buckets, K=4) with the bench's
-    capacities, spheres and boxes only, and ``pallas_compaction=True``: the
-    bench run with ``BENCH_PALLAS_COMPACT=1``, whose contact compaction runs
-    through the kernel (the same numbers as the default path)."""
-    return EngineConfig.throughput(
+def bench_config(num_bodies: int = 64, parity: bool = False) -> EngineConfig:
+    """The configuration ``bench.bench_config(num_bodies, parity)`` resolves
+    to with no environment overrides: the throughput policy (heavy-ball
+    Jacobi, 8 sweeps, omega 1.3, beta 0.9, typed buckets, K=4) with the
+    bench's capacities, spheres and boxes only, and
+    ``pallas_compaction=True``: the bench run with
+    ``BENCH_PALLAS_COMPACT=1``, whose contact compaction runs through the
+    kernel (the same numbers as the default path). ``parity=True``: the
+    bench's ODE-parity line (``bench.py:220-226``), plain Jacobi (omega 1,
+    beta 0, 20 sweeps) with ``2 * num_bodies`` contact rows (1,024 at 512
+    slots, the capacity ``benchmarks/audited_capacities.json`` signs)."""
+    config = EngineConfig.throughput(
         solver=SolverKind.JACOBI,
         solver_iterations=8,
         jacobi_omega=1.3,
@@ -406,6 +410,11 @@ def bench_config(num_bodies: int = 64) -> EngineConfig:
         solver_cm=False,
         sap_window=0,
     )
+    if parity:
+        config = config.replace(
+            solver_iterations=20, jacobi_omega=1.0, jacobi_beta=0.0,
+            max_contacts=2 * num_bodies)
+    return config
 
 
 def rollout_config(num_bodies: int = 64) -> EngineConfig:

@@ -58,8 +58,9 @@ def build(scene: str, config: EngineConfig, device="cuda"):
 
 def engine_trajectory(state, config: EngineConfig, steps: int, joints=None,
                       trimesh=None):
-    """(pos (T, N, 3), quat (T, N, 4)) float64 numpy arrays of world 0 over
-    ``steps`` steps of the port's engine, on the state's device."""
+    """(pos (T, N, 3), quat (T, N, 4), final state): the positions and
+    quaternions of world 0 over ``steps`` steps of the port's engine, on the
+    state's device, as float64 numpy arrays, and the state after them."""
     step = make_step_fn(config, substeps=1, joints=joints, trimesh=trimesh)
     pos, quat = [], []
     for _ in range(steps):
@@ -67,7 +68,7 @@ def engine_trajectory(state, config: EngineConfig, steps: int, joints=None,
         pos.append(state.pos[0])
         quat.append(state.quat[0])
     return (torch.stack(pos).cpu().double().numpy(),
-            torch.stack(quat).cpu().double().numpy())
+            torch.stack(quat).cpu().double().numpy(), state)
 
 
 def referee_trajectory(init: dict, steps: int, joints=(), mesh=None):
@@ -93,12 +94,16 @@ def max_rel_err(pos_e, pos_r, active) -> float:
     return float(rel.max())
 
 
-def compare(scene: str, steps: int, device="cuda") -> dict:
-    """The port's engine on ``device`` and the referee, ``steps`` steps of
-    ``scene`` from the same initial state: their largest relative position
-    error, largest absolute quaternion error, and the seconds each took
-    (the engine's after a ``synchronize``)."""
-    config = conformance_config()
+def trajectories(scene: str, steps: int, device="cuda",
+                 config: EngineConfig | None = None) -> dict:
+    """The port's engine under ``config`` (default
+    ``conformance_config()``) on ``device`` and the referee, ``steps`` steps
+    of ``scene`` from the same initial state: their (T, N, 3) positions and
+    (T, N, 4) quaternions as float64 numpy arrays (``pos_e``, ``quat_e``,
+    ``pos_r``, ``quat_r``), the initial state as the referee reads it
+    (``init``), the engine's final state (``final``), and the seconds each
+    side took (the engine's after a ``synchronize``)."""
+    config = config or conformance_config()
     state, joints, mesh = build(scene, config, device)
     init = state_to_numpy(state)
     ref_joints = () if joints is None else jointset_to_numpy(joints)
@@ -107,15 +112,29 @@ def compare(scene: str, steps: int, device="cuda") -> dict:
             else (lambda: None))
     sync()
     t0 = time.perf_counter()
-    pos_e, quat_e = engine_trajectory(state, config, steps, joints, mesh)
+    pos_e, quat_e, final = engine_trajectory(state, config, steps, joints,
+                                             mesh)
     sync()
     engine_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pos_r, quat_r = referee_trajectory(init, steps, ref_joints, ref_mesh)
     referee_s = time.perf_counter() - t0
-    active = init["body_type"] != 0
+    return dict(pos_e=pos_e, quat_e=quat_e, pos_r=pos_r, quat_r=quat_r,
+                init=init, final=final, engine_s=engine_s,
+                referee_s=referee_s)
+
+
+def compare(scene: str, steps: int, device="cuda",
+            config: EngineConfig | None = None) -> dict:
+    """The port's engine under ``config`` (default ``conformance_config()``)
+    on ``device`` and the referee, ``steps`` steps of ``scene`` from the
+    same initial state: their largest relative position error, largest
+    absolute quaternion error, and the seconds each took (the engine's
+    after a ``synchronize``)."""
+    t = trajectories(scene, steps, device, config)
+    active = t["init"]["body_type"] != 0
     return dict(
         scene=scene, steps=steps,
-        pos_err=max_rel_err(pos_e, pos_r, active),
-        quat_err=float(np.abs(quat_e - quat_r)[:, active, :].max()),
-        engine_s=engine_s, referee_s=referee_s)
+        pos_err=max_rel_err(t["pos_e"], t["pos_r"], active),
+        quat_err=float(np.abs(t["quat_e"] - t["quat_r"])[:, active, :].max()),
+        engine_s=t["engine_s"], referee_s=t["referee_s"])

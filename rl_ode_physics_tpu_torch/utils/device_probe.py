@@ -39,11 +39,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import torch
 
 from rl_ode_physics_tpu_torch.ops import probe_kernels as pk
+from rl_ode_physics_tpu_torch.utils.timing import card_label
 
 # H100 SXM data sheet: device-memory rate (bytes/s), FP32 rate outside the
 # tensor cores (operations/s), streaming multiprocessors
@@ -244,14 +244,6 @@ def probe_mxu_peak(steps: int, device="cuda", iters: int = 2) -> dict:
                 tflop_per_s_per_sm=per_sm, tflop_per_s_x132=per_sm * SMS)
 
 
-def card() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def measured(out: dict) -> dict:
     """The rates a report measured, beside the data sheet's: device memory
     (the best pass and the 1 GB one), the (256, 256) chain's FP32 rate per
@@ -301,7 +293,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("device_probe needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    report = dict(card=card(), device=torch.cuda.get_device_name(0))
+    report = dict(card=card_label(), device=torch.cuda.get_device_name(0))
     report.update(run(args.quick))
     print(json.dumps(report, indent=1))
 

@@ -26,8 +26,8 @@ name and power limit.
 ``cuobjdump -sass`` listing to ``DIR/<kernel>_<label>.sass``.
 
 Shapes: the tile kernel on 1,024 x 16 x 3 = 49,152 random probes within 1 m
-above the 9,216-triangle mesh of ``chip_smoke.py``; the per-triangle kernel
-on queries of the first 1, 15, 64 and 15,360 of them (``query_ms``), one
+above the 9,216-triangle mesh of ``models/workloads.py``; the per-triangle
+kernel on queries of the first 1, 15, 64 and 15,360 of them (``query_ms``), one
 launch a query, with ``launch_floor_ms``, an empty kernel under the same
 timer, beside them (a ``--mesh`` variant whose flags hold the word
 ``one-centre`` is a source from before the centres had a batch axis, and a
@@ -52,7 +52,6 @@ import ctypes
 import functools
 import json
 import subprocess
-import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -125,8 +124,7 @@ def _raise_on(err: int, label: str) -> None:
 
 def mesh_variants(specs, args) -> dict:
     import torch
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import standin_mesh
+    from rl_ode_physics_tpu_torch.models.workloads import standin_mesh
     from rl_ode_physics_tpu_torch.ops import kernel_build, mesh_kernels
     from rl_ode_physics_tpu_torch.ops import trimesh as tm
     from rl_ode_physics_tpu_torch.utils.timing import launch_floor_ms
@@ -376,13 +374,8 @@ def main() -> None:
     ap.add_argument("--sass", default=None, metavar="DIR")
     args = ap.parse_args()
 
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab needs a CUDA card")
-    report = {"card": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()}
+    from rl_ode_physics_tpu_torch.utils.timing import require_card
+    report = {"card": require_card("kernel_ab")}
     if args.mesh:
         report["sphere_mesh_d2"] = mesh_variants(args.mesh, args)
     if args.compact:

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 
 WEYL = np.uint32(0xE120FC15)
+MIX1 = np.uint32(0x4A39B70D)
+MIX2 = np.uint32(0x12FAD5C9)
 
 
 def _mulhilo32(a, b_const: int):
@@ -32,9 +34,9 @@ def _mulhilo32(a, b_const: int):
 
 def _mix(state):
     """The two multiply-xor-fold rounds of ``Rand_Next``."""
-    hi, lo = _mulhilo32(state, 0x4A39B70D)
+    hi, lo = _mulhilo32(state, MIX1)
     m1 = hi ^ lo
-    hi, lo = _mulhilo32(m1, 0x12FAD5C9)
+    hi, lo = _mulhilo32(m1, MIX2)
     return hi ^ lo
 
 
@@ -67,6 +69,16 @@ def rand_double(value_u32, lo: float, hi: float):
     0xFFFFFFFF)."""
     v = np.asarray(value_u32).astype(np.float64) / np.float64(0xFFFFFFFF)
     return lo + v * (float(hi) - float(lo))
+
+
+def rand_color(state):
+    """Three sequential raw draws, as ``Rand_Color`` burns three
+    ``Rand_Next`` calls: ((v0, v1, v2), new_state). The caller maps each
+    with ``rand_int`` to its bounds."""
+    v0, state = next_u32(state)
+    v1, state = next_u32(state)
+    v2, state = next_u32(state)
+    return (v0, v1, v2), state
 
 
 class RandStream:

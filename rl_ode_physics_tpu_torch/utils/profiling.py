@@ -9,12 +9,12 @@ Run on a machine with a CUDA card, from the root of the checkout::
     python3 -m rl_ode_physics_tpu_torch.utils.profiling --mini
 
 The default builds the bench world (``bench_config(64)``, 60 dynamic
-bodies); ``--mesh`` builds the trimesh workload of ``chip_smoke.py``
+bodies); ``--mesh`` builds the trimesh workload of ``models/workloads.py``
 (``benchmarks/teapot_bench.py``'s 15 spheres above the 9,216-triangle
 heightfield that stands in for the teapot, taken from that script);
-``--classic`` the capsule-stack workload of ``chip_smoke.py`` (BASELINE
+``--classic`` the capsule-stack workload of ``models/workloads.py`` (BASELINE
 config 2 through the classic pipeline, one world settled 480 substeps on
-the card first); ``--mini`` the mini-stack workload of ``chip_smoke.py``
+the card first); ``--mini`` the mini-stack workload of ``models/workloads.py``
 (``benchmarks/tpu_default_conformance.py``'s engine and scene: the typed
 component-major path with all nine pair kernels). Each is replicated into
 ``--worlds`` worlds and settled
@@ -31,7 +31,7 @@ component-major path with all nine pair kernels). Each is replicated into
   wall time, the number of kernel launches, and the kernels with the most
   device time.
 
-``--rollout`` builds the rollout workload of ``chip_smoke.py``
+``--rollout`` builds the rollout workload of ``models/workloads.py``
 (``benchmarks/rl_rollout_bench.py``'s defaults: ``rollout_config(64)``, the
 bench world, actor slots 4 and 5 observed alone, 16 lidar rays each, 2
 substeps a control step), advances it ``--settle`` substeps under seeded
@@ -48,15 +48,77 @@ diagnostics (``net/server.SimCore(diagnostics=True)``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
-import subprocess
-import sys
+import os
 import time
 from collections import deque
-from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+
+
+def _sync(state) -> None:
+    """Wait for the card that holds ``state``; nothing on the CPU."""
+    import torch
+    if state.pos.is_cuda:
+        torch.cuda.synchronize(state.pos.device)
+
+
+def phase_timings(state, config, reps: int = 5) -> Dict[str, float]:
+    """Milliseconds a call of each phase of the classic substep, the port
+    of ``rl_ode_physics_tpu/utils/profiling.py:33``: broadphase,
+    narrowphase, external forces, solve and integration, each run once to
+    warm up and then ``reps`` times between two synchronizations of the
+    state's device, each phase on the previous one's output. ``state`` is a
+    batch of any number of worlds (one world is a batch of 1). Keys:
+    ``broadphase_ms``, ``narrowphase_ms``, ``forces_ms``, ``solve_ms``,
+    ``integrate_ms`` and their sum ``total_ms``."""
+    from rl_ode_physics_tpu_torch.ops import broadphase as bp
+    from rl_ode_physics_tpu_torch.ops import integrator as integ
+    from rl_ode_physics_tpu_torch.ops import narrowphase as nph
+    from rl_ode_physics_tpu_torch.ops import solver as sol
+
+    out: Dict[str, float] = {}
+
+    def timeit(name, fn, *args):
+        fn(*args)
+        _sync(state)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            r = fn(*args)
+        _sync(state)
+        out[name] = (time.perf_counter() - t0) / reps * 1000.0
+        return r
+
+    cand = timeit("broadphase_ms", lambda s: bp.broadphase(s, config), state)
+    cont = timeit("narrowphase_ms",
+                  lambda s, c: nph.narrowphase(s, c, config), state, cand)
+    s2 = timeit("forces_ms",
+                lambda s: integ.apply_external_forces(s, config), state)
+    s3 = timeit("solve_ms", lambda s, c: sol.solve(s, c, config), s2, cont)
+    timeit("integrate_ms",
+           lambda s: integ.integrate_positions(s, config), s3)
+    out["total_ms"] = sum(out.values())
+    return out
+
+
+@contextlib.contextmanager
+def trace(logdir: str = os.path.join("build", "trace")):
+    """A ``torch.profiler`` trace of the block, of the CPU and, where there
+    is one, the card, written as a Chrome trace ``trace.json`` under
+    ``logdir`` (the port of ``:73``, a ``jax.profiler`` trace there).
+    Yields ``logdir``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield logdir
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 class MetricsLog:
@@ -111,58 +173,28 @@ def _timed(fn, repeats: int):
 
 
 def _mesh_workload():
-    """(config, one world, mesh): the workload of ``chip_smoke.py``'s
-    trimesh phases, whose stand-in mesh lives in that script (a fixture,
-    not a feature of the package)."""
-    root = str(Path(__file__).resolve().parents[2])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from chip_smoke import mesh_config, mesh_world, standin_mesh
+    """(config, one world, mesh): the trimesh workload of
+    ``models/workloads.py`` on its 9,216-triangle stand-in mesh."""
+    from rl_ode_physics_tpu_torch.models import workloads
 
-    config = mesh_config()
-    world, mesh = mesh_world(config, *standin_mesh(), device="cuda")
+    config = workloads.mesh_config()
+    world, mesh = workloads.mesh_world(config, *workloads.standin_mesh(),
+                                       device="cuda")
     return config, world, mesh
 
 
 def _mini_workload():
-    """(config, one world): ``chip_smoke.py``'s mini-stack workload."""
-    root = str(Path(__file__).resolve().parents[2])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from chip_smoke import mini_config
-
+    """(config, one world): the mini-stack workload."""
+    from rl_ode_physics_tpu_torch.models import workloads
     from rl_ode_physics_tpu_torch.models.scenes import mini_stack_world
 
-    config = mini_config()
+    config = workloads.mini_config()
     return config, mini_stack_world(config, device="cuda")
 
 
-def _capsule_workload():
-    """(config, one world): ``chip_smoke.py``'s capsule-stack workload, its
-    one world settled on the card through the fall."""
-    root = str(Path(__file__).resolve().parents[2])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from chip_smoke import CAPSULE_BODIES, CAPSULE_SETTLE, capsule_config
-
-    from rl_ode_physics_tpu_torch.models.scenes import capsule_stack_world
-    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
-
-    config = capsule_config()
-    world = capsule_stack_world(config, num_bodies=CAPSULE_BODIES, seed=7,
-                                device="cuda")
-    return config, make_batched_step_fn(config, substeps=CAPSULE_SETTLE)(world)
-
-
 def _card() -> str:
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    from rl_ode_physics_tpu_torch.utils.timing import require_card
+    return require_card("profiling")
 
 
 def _profiled(fn, top: int) -> dict:
@@ -198,13 +230,10 @@ def profile_rollout(worlds: int, settle: int, repeats: int, top: int) -> dict:
 
     from rl_ode_physics_tpu_torch.core.config import rollout_config
     from rl_ode_physics_tpu_torch.models.env import observe
+    from rl_ode_physics_tpu_torch.models.workloads import (
+        rollout_env, seeded_actions)
 
     card = _card()
-    root = str(Path(__file__).resolve().parents[2])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from chip_smoke import rollout_env, seeded_actions
-
     config = rollout_config(64)
     env = rollout_env(config, worlds, "cuda")
     state, _ = env.reset(seed=42)
@@ -247,6 +276,7 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
 
     from rl_ode_physics_tpu_torch.core import world as world_m
     from rl_ode_physics_tpu_torch.core.config import bench_config
+    from rl_ode_physics_tpu_torch.models import workloads
     from rl_ode_physics_tpu_torch.models.scenes import bench_world
     from rl_ode_physics_tpu_torch.ops import (
         broadphase, integrator, mesh_kernels, narrowphase, narrowphase_cm,
@@ -258,7 +288,7 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
     if mesh_path:
         config, world, mesh = _mesh_workload()
     elif classic:
-        (config, world), mesh = _capsule_workload(), None
+        (config, world), mesh = workloads.settled_capsule_stack(), None
     elif mini:
         (config, world), mesh = _mini_workload(), None
     else:

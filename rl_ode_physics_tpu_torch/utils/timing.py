@@ -61,3 +61,35 @@ def launch_floor_ms(iters: int = 200) -> float:
                                f"{err}")
 
     return cuda_ms(launch, iters)
+
+
+def card_label(device="cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, for a CUDA ``device``;
+    ``"cpu"`` for the CPU, so that no number taken there is read as the
+    card's."""
+    import subprocess
+
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[dev.index or 0]
+
+
+def require_card(tool: str, device="cuda") -> str:
+    """``card_label(device)``; exits with an error naming ``tool`` when
+    ``device`` is a CUDA device and there is no card. Turns TF32 off, as
+    every measurement of the port runs in float32."""
+    import torch
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"{tool} needs a CUDA card "
+                             f"(torch.cuda.is_available() is false)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return card_label(device)

@@ -947,3 +947,52 @@ def test_es_train_step_card_matches_cpu():
         results.append([t.cpu() for t in new + (r,)])
     for want, got in zip(*results):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_capacity_audit_on_card_matches_cpu():
+    """``utils/capacity_audit.audit_config`` at 16 slots, seeds 42 and 7,
+    one chunk of 50 substeps: the card's peaks and overflow equal the
+    port's CPU ones (counts), and the compaction kernel launched once a
+    substep."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.utils import capacity_audit
+    config = bench_config(16)
+    ref = capacity_audit.audit_config(config, 16, 48, (42, 7), device="cpu")
+    compaction_kernel.compact_rows_t.launches = 0
+    got = capacity_audit.audit_config(config, 16, 48, (42, 7),
+                                      device="cuda")
+    assert compaction_kernel.compact_rows_t.launches == 50
+    for (seed, pc, pb, ovf, _), (rseed, rpc, rpb, rovf, _) in zip(got, ref):
+        assert (seed, pc, ovf) == (rseed, rpc, rovf)
+        assert np.array_equal(pb, rpb)
+
+
+@pytest.mark.cuda
+def test_teapot_bench_standin_on_card():
+    """``utils/teapot_bench`` on the stand-in mesh at 8 worlds: the tile
+    kernel once a timed substep, no overflow, positive rates."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.utils import teapot_bench
+    verts, tris = teapot_bench.mesh_geometry(standin=True)
+    r = teapot_bench.run(8, verts, tris, "cuda", launches=1)
+    assert r["tile_kernel_launches"] == teapot_bench.SUBSTEPS
+    assert r["overflow"] == 0 and r["value"] > 0
+    assert r["triangle_tests_per_sec"] > 0
+
+
+@pytest.mark.cuda
+def test_profile_step_attributes_card_kernels():
+    """``utils/profile_step`` on the card, 64 worlds x 2 substeps of the
+    bench: at least 90% of the device time under a function of the port,
+    the compaction kernel among the rows with its source, the per-file
+    totals summing to the total."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.utils import profile_step
+    r = profile_step.profile(64, 2, "bench", "cuda")
+    assert r["on_device"] and r["mapped_share"] >= 0.9
+    assert r["hand_kernel_launches"]["compact_rows_t"] == 2
+    assert any("compact_rows" in row["op"]
+               and row["source"].startswith("ops/compaction_kernel.py:")
+               for row in r["rows"])
+    assert abs(sum(r["by_file"].values()) - r["total_ms"]) <= 1e-6
