@@ -250,7 +250,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     and once the counts are read the last tensors the tool handed it are
     held to its plain version (as on every earlier path's own data) and
     timed; the kernels line carries them as ``on_tool_<name>_data``.
-27. prints one JSON line of every kernel the run launched (each float64
+27. the bench module (``rl_ode_physics_tpu_torch.bench``) in-process, as
+    ``python3 -m rl_ode_physics_tpu_torch.bench`` runs it, at 1,024
+    worlds and 16 substeps a launch (3 warm-up launches and 1 timed): its
+    one stdout line a JSON object of exactly ``bench.py``'s four keys with
+    a value above 0, its ``# parity:`` line on stderr, each line's final
+    batch finite with overflow 0 and tick 64; ``compact_rows_t`` counted as
+    the ``bench_module`` path and held to its plain version on the last
+    tensors the bench handed it; ``BENCH_BODIES=512`` refused as
+    unaudited. Then ``utils/roofline`` on the headline configuration at
+    1,024 worlds with S=8, ``utils/sap_cost_analysis`` at 512 slots, chunk
+    4, over 2 substeps, each a path of its own (``tool_roofline``,
+    ``tool_sap_cost_analysis``) with ``compact_rows_t`` held to its plain
+    version on the last tensors the tool handed it, and
+    ``utils/orientation_probe``'s nine probes with k1=8 and k2=64, each
+    printed with the card's name and power limit; the kernels line carries
+    the three records as ``on_<path>_data``.
+28. prints one JSON line of every kernel the run launched (each float64
     instance as a sub-entry of its kernel, with its own launches), then the
     last line ``{"ok": true, "device": {...}}``.
 
@@ -268,8 +284,10 @@ the bench's buckets with 256 pair candidates and 80 contact rows.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -283,12 +301,10 @@ from rl_ode_physics_tpu_torch.models.workloads import (  # noqa: E402
     CAPSULE_BODIES, CAPSULE_SETTLE, MESH_SPHERES, ROLLOUT_ACTORS,
     ROLLOUT_RAYS, ROLLOUT_SUBSTEPS, capsule_config, mesh_config, mesh_world,
     mini_config, rollout_env, seeded_actions, standin_mesh)
+from rl_ode_physics_tpu_torch.utils.bounds import (  # noqa: E402
+    FP32_OPS_PER_S, FP64_OPS_PER_S, HBM_BYTES_PER_S, compaction_floors,
+    d2_bound, tiles_bound)
 
-# H100 SXM data-sheet peaks: device-memory rate (bytes/s) and the FP32 and
-# FP64 rates outside the tensor cores (operations/s)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-FP64_OPS_PER_S = 34e12
 WORLDS = 8192
 BODIES = 60
 SUBSTEPS_PER_LAUNCH = 96
@@ -389,6 +405,14 @@ TOOL_SOLVER_SOLVES = 5
 TOOL_TEAPOT_WORLDS = 64
 TOOL_ROLLOUT_WORLDS = 512
 TOOL_TIMINGS_SETTLE = 48
+# the bench module and its analyses (phase 27): the bench's environment,
+# roofline's worlds and S, the SAP census's chunk and substeps, the
+# orientation probe's two chain lengths
+BENCH_MODULE_ENV = dict(BENCH_WORLDS="1024", BENCH_SUBSTEPS="16",
+                        BENCH_STEPS="1")
+ROOFLINE_WORLDS, ROOFLINE_SUBSTEPS = 1024, 8
+SAP_CHUNK, SAP_SUBSTEPS = 4, 2
+ORIENTATION_TRIPS = (8, 64)
 # the compaction at k past the index list: worlds of M = 4,096 columns
 WIDE_K_WORLDS = 1024
 # the probe kernels: trips of the short checks, names in the kernels line
@@ -401,11 +425,6 @@ LIBRARY_CALLS = dict(
     vpu="torch.addcmul a step, the fused chain",
     mxu="torch.mm(acc, B*0.0625) a product")
 PROBE_NAMES = ("probe_kernel_matmuls", "probe_kernel_vpu", "probe_mxu_peak")
-# FP32 operations per (probe, triangle) pair, counted from the reference
-# arithmetic (rl_ode_physics_tpu/ops/pallas_kernels.py:89-105 with
-# trimesh._tri_vw), not from what csrc/sphere_mesh_d2.cu executes: 78 for the
-# squared distance, +1 for the tile kernel's minimum
-D2_OPS_PER_PAIR = 78
 
 
 def log(msg: str) -> None:
@@ -443,37 +462,6 @@ def phase_build():
     log(f"launch_floor_ms={floor_ms:.5f} (an empty kernel under "
         f"utils/timing.cuda_ms)")
     return floor_ms
-
-
-def compaction_floors(mask, d: int, k: int, size: int = 4) -> dict:
-    """The least device-memory time of ``compact_rows_t`` on this mask, for
-    payload values of ``size`` bytes: ``bound_ms`` reads the mask and each
-    kept value and writes the outputs (rows, valid, count, overflow);
-    ``sector_floor_ms`` reads 32 bytes per payload row and group of 32 /
-    ``size`` columns that holds a kept column instead, since a column's
-    values lie M values apart; ``floor_64b_ms`` does the same with 64 bytes
-    per group of 64 / ``size`` columns, should device memory serve no less
-    than that at once."""
-    import torch
-    b, m = mask.shape
-    kept = mask & (mask.cumsum(1) <= k)
-
-    def groups_with_a_kept_column(width):
-        groups = torch.nn.functional.pad(kept, (0, -m % width))
-        return int(groups.reshape(b, -1, width).any(-1).sum())
-
-    n_kept = int(kept.sum())
-    fixed = b * m + b * (size * d * k + k + 8)
-
-    def ms(payload_bytes):
-        return (fixed + payload_bytes) / HBM_BYTES_PER_S * 1e3
-
-    return dict(density=float(mask.float().mean()), kept=n_kept,
-                bound_ms=ms(size * d * n_kept),
-                sector_floor_ms=ms(32 * d * groups_with_a_kept_column(
-                    32 // size)),
-                floor_64b_ms=ms(64 * d * groups_with_a_kept_column(
-                    64 // size)))
 
 
 def compaction_equals_plain(mask, payload, k, sel, label):
@@ -707,6 +695,29 @@ def caught_calls(module, name, drive):
     return caught
 
 
+@contextlib.contextmanager
+def last_batches(module):
+    """``module.make_batched_step_fn`` wrapped so that each step function
+    it makes keeps the batch it last returned: yields a list that gets one
+    list a step function, holding that batch once it has run."""
+    made, finals = module.make_batched_step_fn, []
+
+    def making(*args, **kwargs):
+        step, last = made(*args, **kwargs), []
+        finals.append(last)
+
+        def stepping(batch):
+            last[:] = [step(batch)]
+            return last[0]
+        return stepping
+
+    module.make_batched_step_fn = making
+    try:
+        yield finals
+    finally:
+        module.make_batched_step_fn = made
+
+
 def _caught_last(module, name, drive, path, calls):
     """The last call's arguments of ``caught_calls``; raises unless the
     wrapper got ``calls`` calls (any number but 0 when None)."""
@@ -761,40 +772,6 @@ def d2_errors(got, ref, what):
             f"{what} differs from its plain version beyond rtol {rtol}, "
             f"atol {atol}: max abs err {worst[0]}, max rel err {worst[1]}")
     return worst
-
-
-def _rates(dtype):
-    """(bytes a value, operations/s) of the card's data sheet for a dtype:
-    FP32 or FP64 outside the tensor cores."""
-    import torch
-    if dtype == torch.float64:
-        return 8, FP64_OPS_PER_S
-    return 4, FP32_OPS_PER_S
-
-
-def tiles_bound(p: int, t: int, dtype=None) -> dict:
-    """The least time of ``sphere_mesh_d2_tiles`` on P probes and T
-    triangles: 79 operations a pair, against the probes and triangles read
-    and one minimum per (probe, tile) written."""
-    size, rate = _rates(dtype)
-    ops_ms = p * t * (D2_OPS_PER_PAIR + 1) / rate * 1e3
-    bytes_ms = (size * (3 * p + 9 * t + p * (t // 128))
-                / HBM_BYTES_PER_S * 1e3)
-    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
-                bytes_ms=bytes_ms,
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-
-
-def d2_bound(c: int, t: int, dtype=None) -> dict:
-    """The least time of one ``sphere_mesh_d2`` query of C centres: 78
-    operations a pair, against the centres and triangles read and every
-    distance written."""
-    size, rate = _rates(dtype)
-    ops_ms = c * t * D2_OPS_PER_PAIR / rate * 1e3
-    bytes_ms = size * (3 * c + 9 * t + c * t) / HBM_BYTES_PER_S * 1e3
-    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
-                bytes_ms=bytes_ms,
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def tiles_on_path_data(drive, path, calls):
@@ -2768,7 +2745,6 @@ def _minimal_pair() -> str:
 def phase_examples(card):
     """The example programs: ``articulated`` and ``rl_rollout`` on the
     card, their printed lines checked; the minimal server and client."""
-    import contextlib
     import io
     from rl_ode_physics_tpu_torch.examples import articulated, rl_rollout
 
@@ -2936,6 +2912,130 @@ def phase_tools(card):
     return by_path, on_path
 
 
+@contextlib.contextmanager
+def _bench_env(values: dict):
+    """A context in which the ``BENCH_*`` variables are exactly
+    ``values``."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for key in saved:
+        del os.environ[key]
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[key]
+        os.environ.update(saved)
+
+
+def phase_bench_module(card):
+    """The bench module as its command runs it, then its three analyses,
+    each small; the bench module, the roofline and the SAP analysis are
+    each a path of their own, with ``compact_rows_t`` held to its plain
+    version on the last tensors that path handed it. Returns ({path:
+    launches}, {path: the kernel's record on the path's data})."""
+    import io
+    import torch
+    from rl_ode_physics_tpu_torch import bench
+    from rl_ode_physics_tpu_torch.parallel import batch as batch_module
+    from rl_ode_physics_tpu_torch.utils import (
+        bounds, orientation_probe, roofline, sap_cost_analysis)
+
+    with _bench_env(dict(BENCH_MODULE_ENV, BENCH_BODIES="512")):
+        try:
+            bench.main([])
+        except RuntimeError as err:
+            if "UNAUDITED capacity configuration" not in str(err):
+                raise
+            log(f"bench BENCH_BODIES=512: refused ({str(err).splitlines()[0]})")
+        else:
+            raise AssertionError("bench ran 512 slots, which nothing signs")
+
+    out, err = io.StringIO(), io.StringIO()
+
+    def drive():
+        with _bench_env(BENCH_MODULE_ENV), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            return bench.main([])
+
+    on_path = {}
+    path = "bench_module"
+    # each step function the bench makes keeps the last batch it returned
+    with last_batches(batch_module) as finals:
+        rc, counts, secs, on_path[path] = _tool_run(drive, "compact_rows_t",
+                                                    path)
+    lines = out.getvalue().strip().splitlines()
+    parity = [ln for ln in err.getvalue().splitlines()
+              if ln.startswith("# parity: ")]
+    if rc != 0 or len(lines) != 1 or len(parity) != 1:
+        raise AssertionError(f"bench: rc {rc}, stdout {lines}, stderr "
+                             f"{err.getvalue()}")
+    headline = json.loads(lines[0])
+    parity = json.loads(parity[0][len("# parity: "):])
+    substeps = int(BENCH_MODULE_ENV["BENCH_SUBSTEPS"])
+    ticks = (bench.WARMUP_LAUNCHES + int(BENCH_MODULE_ENV["BENCH_STEPS"])) \
+        * substeps
+    for line in (headline, parity):
+        if (set(line) != {"metric", "value", "unit", "vs_baseline"}
+                or not line["value"] > 0):
+            raise AssertionError(f"bench line {line}")
+    if len(finals) != 2:
+        raise AssertionError(f"bench made {len(finals)} step functions")
+    for (batch,) in finals:
+        if int(batch.overflow.sum()) or not bool(
+                (batch.tick == ticks).all()) or not all(
+                bool(torch.isfinite(getattr(batch, f)).all())
+                for f in ("pos", "quat", "linvel", "angvel")):
+            raise AssertionError("bench: overflow, tick or a non-finite "
+                                 "state in a line's final batch")
+    aux = [ln for ln in err.getvalue().splitlines() if ln.startswith("# aux")]
+    log(f"bench module on {card}: {json.dumps(headline)}; parity "
+        f"{json.dumps(parity)}; {aux[0] if aux else ''}; overflow 0, tick "
+        f"{ticks} in both lines; {counts}, {secs:.1f} s")
+    by_path = {path: counts}
+
+    config = bench.bench_config(64)
+    path = "tool_roofline"
+    r, counts, secs, on_path[path] = _tool_run(lambda: (
+        roofline.measure_config(
+            "headline hb-8", config, 64, ROOFLINE_WORLDS, ROOFLINE_SUBSTEPS,
+            bounds.HBM_BYTES_PER_S / 1e9, bounds.FP32_OPS_PER_S / 1e12,
+            ROOFLINE_WORLDS, "cuda")), "compact_rows_t", path)
+    numbers = [v for v in r.values() if isinstance(v, float)]
+    if (not all(math.isfinite(v) for v in numbers)
+            or r["bound"] not in ("bytes", "flops", "op-floor")
+            or r["flops/substep/chunk"] < bench.solver_flops(config)
+            * ROOFLINE_WORLDS or not r["t_measured_ms"] > 0):
+        raise AssertionError(f"roofline: {r}")
+    by_path[path] = counts
+    log(f"roofline {ROOFLINE_WORLDS} worlds, S={ROOFLINE_SUBSTEPS} on "
+        f"{card}: bound {r['bound']}, measured/model "
+        f"{r['measured_over_model']:.3f}; {counts}, {secs:.1f} s")
+
+    path = "tool_sap_cost_analysis"
+    r, counts, secs, on_path[path] = _tool_run(lambda: (
+        sap_cost_analysis.run(512, SAP_CHUNK, SAP_SUBSTEPS, device="cuda")),
+        "compact_rows_t", path)
+    if not all(r[label]["bytes/substep"] > 0 and r[label]["aten_ops"] > 0
+               for label in ("dense", "sap")):
+        raise AssertionError(f"sap_cost_analysis: {r}")
+    by_path[path] = counts
+    log(f"sap_cost_analysis 512 slots, chunk {SAP_CHUNK}, {SAP_SUBSTEPS} "
+        f"substeps on {card}: overflow dense {r['dense']['overflow']}, sap "
+        f"{r['sap']['overflow']}; {json.dumps(r['ratio'])}; {counts}, "
+        f"{secs:.1f} s")
+
+    k1, k2 = ORIENTATION_TRIPS
+    t0 = time.perf_counter()
+    r = orientation_probe.run(k1, k2)
+    if len(r) != len(orientation_probe.PROBES) or not all(
+            math.isfinite(p["ms_per_bmm"]) for p in r):
+        raise AssertionError(f"orientation_probe: {r}")
+    log(f"orientation_probe k1={k1}, k2={k2} on {card}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return by_path, on_path
+
+
 def main() -> int:
     start = time.perf_counter()
     card = phase_device()
@@ -3067,6 +3167,11 @@ def main() -> int:
         entry = compaction if path != "tool_teapot_bench" else tiles
         entry[f"on_{path}_data"] = record
     lap("26 (tools)")
+    bench_module, on_bench_paths = phase_bench_module(card)
+    by_path.update(bench_module)
+    for path, record in on_bench_paths.items():
+        compaction[f"on_{path}_data"] = record
+    lap("27 (bench module)")
     # the float64 tile kernel on the DANTZIG ridge path
     f64_ridge = dantzig["dantzig_ridge_mesh"]["sphere_mesh_d2_tiles"]
     tiles["f64"]["launches"] += f64_ridge

@@ -43,12 +43,12 @@ import json
 import torch
 
 from rl_ode_physics_tpu_torch.ops import probe_kernels as pk
+from rl_ode_physics_tpu_torch.utils.bounds import (
+    FP32_OPS_PER_S, HBM_BYTES_PER_S)
 from rl_ode_physics_tpu_torch.utils.timing import card_label
 
-# H100 SXM data sheet: device-memory rate (bytes/s), FP32 rate outside the
-# tensor cores (operations/s), streaming multiprocessors
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# H100 SXM data sheet: streaming multiprocessors (the rates are in
+# utils/bounds.py)
 SMS = 132
 
 HBM_MB = (64, 1024)

@@ -1,13 +1,12 @@
-"""Device time of a short piece of work on the card, from CUDA events, and
-what an empty kernel reads under the same timer."""
+"""Device time of a short piece of work on the card, from CUDA events, what
+an empty kernel reads under the same timer, and the host-clock time of a
+host-bound piece of work."""
 
 from __future__ import annotations
 
 import time
 
-# the H100 SXM's data-sheet device-memory rate, bytes/s: only to size the
-# work queued before the timed runs
-_HBM_BYTES_PER_S = 3.35e12
+from rl_ode_physics_tpu_torch.utils.bounds import HBM_BYTES_PER_S
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -24,7 +23,8 @@ def cuda_ms(fn, iters: int = 20) -> float:
     host_ms = (time.perf_counter() - t0) / 3 * 1e3
     torch.cuda.synchronize()
     ballast = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
-    pass_ms = 2 * ballast.numel() * 4 / _HBM_BYTES_PER_S * 1e3
+    # the data-sheet rate only sizes the work queued before the timed runs
+    pass_ms = 2 * ballast.numel() * 4 / HBM_BYTES_PER_S * 1e3
     passes = min(int(1.5 * host_ms * iters / pass_ms) + 1, 400)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -37,6 +37,29 @@ def cuda_ms(fn, iters: int = 20) -> float:
     torch.cuda.synchronize()
     del ballast
     return start.elapsed_time(end) / iters
+
+
+def wall_s(fn, reps: int = 3, device="cuda") -> float:
+    """The least host-clock seconds of ``fn()`` over ``reps`` runs after one
+    warm-up run, each ended by ``torch.cuda.synchronize()`` on a CUDA
+    ``device``: the host's time to enqueue the work included, as a
+    host-bound path pays it. A difference of two depths of the same work
+    cancels what a call costs once."""
+    import torch
+    dev = torch.device(device)
+
+    def run():
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    run()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def launch_floor_ms(iters: int = 200) -> float:
