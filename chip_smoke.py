@@ -71,8 +71,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    workload at its defaults (``rollout_config(64)``, the bench world, 8192
    worlds, actor slots 4 and 5 observed alone, 16 horizontal lidar rays, 2
    substeps a control step, horizon 16, actions 0.5 x standard normal from
-   a seed): one warm-up ``rollout`` and 4 timed ones, 160 substeps. Zero
-   overflow, finite state and observations, tick 160, lidar in [0, 1] with
+   a seed): one warm-up ``rollout`` and 2 timed ones, 96 substeps. Zero
+   overflow, finite state and observations, tick 96, lidar in [0, 1] with
    hits and misses; prints env-steps/s, body-steps/s, ms per control step
    and peak memory. Launch counts set to 0 before and read after:
    ``compact_rows_t`` once per substep.
@@ -153,7 +153,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 18. the bench's A/B levers (``solver_cm``, ``solver_matmul_dtype=
     "bfloat16"``, both) on ``bench_config(64)``: card against CPU on the
     bench scene (4 worlds settled 40 substeps on the CPU, 8 substeps on
-    each device, atol 1e-4), then 48 substeps of phase 4's settled
+    each device, atol 1e-4), then 24 substeps of phase 4's settled
     8192-world batch under the default and under each lever, body-steps/s
     side by side, ``compact_rows_t`` once per substep on each path; prints
     how bf16 products are taken on the card.
@@ -266,11 +266,34 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``utils/orientation_probe``'s nine probes with k1=8 and k2=64, each
     printed with the card's name and power limit; the kernels line carries
     the three records as ``on_<path>_data``.
-28. prints one JSON line of every kernel the run launched (each float64
+28. graphs (``utils/graphs.py``): every path's step function, graphed or
+    eager with the host read that keeps it so (PGS, DANTZIG and the hinge
+    chain under PGS eager, every JACOBI path graphed); then each JACOBI
+    entry point at full width, graphed against its eager loop from the
+    same state, bitwise: the bench (``bench_config(64)``, phase 4's
+    settled 8192 worlds, 96 substeps) at unroll 1, 4 and 96, each
+    capture's seconds, graph nodes and peak memory, then host and device
+    ms a substep in turns; server-512 under both policies, phase 21's
+    graphed sessions against the same intents run eagerly, equal digests
+    at tick 480, ticks/s; one rollout of phase 9's path; one ES train step
+    at pop 4,096 from the same noise; two shards of the card against the
+    unsharded graphed step, with whether they overlap. For the bench, a
+    server tick, the ES step and the two shards, each route's
+    ``utils/profiling.route_profile``: host launches a call, device ms, and
+    the busy and idle shares of one traced call.
+29. prints one JSON line of every kernel the run launched (each float64
     instance as a sub-entry of its kernel, with its own launches), then the
     last line ``{"ok": true, "device": {...}}``.
 
-Each phase's seconds are printed as it ends.
+Every JACOBI path runs graphed by default (``utils/graphs.py``), and the
+launch counts are per replay (a capture records what the wrappers
+counted, each replay adds it). A kernel's hold on a path's own tensors
+(phases 4, 6, 9, 10, 13, 16, 21, 22, 26, 27) catches the wrapper during
+an eager run of the same work (``disable_graphs``), because a captured
+call's tensors hold no computed values; where that work returns tensors
+it runs once more graphed and must equal the eager run bitwise, and a
+tool's eager run must call the kernel as often as its graphed run counted
+launches. Each phase's seconds are printed as it ends.
 
 The bench configuration is ``core.config.bench_config(64)``: the values
 ``bench.bench_config(64)`` resolves to at its defaults, with the contact
@@ -317,7 +340,7 @@ MESH_SUBSTEPS_PER_LAUNCH = 48
 MESH_TIMED_LAUNCHES = 3
 # the rollout path: rl_rollout_bench.py's defaults
 ROLLOUT_HORIZON = 16
-ROLLOUT_TIMED = 4
+ROLLOUT_TIMED = 2
 # the capsule-stack path: BASELINE config 2 through the classic pipeline
 CAPSULE_WORLDS = 8192
 CAPSULE_WARMUP = 24
@@ -344,7 +367,7 @@ LEVERS = {"solver_cm": dict(solver_cm=True),
           "bf16": dict(solver_matmul_dtype="bfloat16"),
           "solver_cm_bf16": dict(solver_cm=True,
                                  solver_matmul_dtype="bfloat16")}
-LEVER_SUBSTEPS = 48
+LEVER_SUBSTEPS = 24
 # DANTZIG in float64 at 1,024 worlds: the mini stack, then the ridge mesh
 DANTZIG_WARMUP = 2
 DANTZIG_SUBSTEPS = 4
@@ -425,6 +448,12 @@ LIBRARY_CALLS = dict(
     vpu="torch.addcmul a step, the fused chain",
     mxu="torch.mm(acc, B*0.0625) a product")
 PROBE_NAMES = ("probe_kernel_matmuls", "probe_kernel_vpu", "probe_mxu_peak")
+# phase 28, graphed against eager: the bench's unrolls and timed turns, the
+# substeps of the two shards
+GRAPH_UNROLLS = (1, 4, SUBSTEPS_PER_LAUNCH)
+GRAPH_TURNS = 2
+GRAPH_PROFILED = 8
+GRAPH_MESH_SUBSTEPS = 8
 
 
 def log(msg: str) -> None:
@@ -666,8 +695,8 @@ def phase_main_path(config, card):
 def caught_calls(module, name, drive):
     """Run ``drive()`` with the kernel wrapper ``module.<name>`` wrapped once
     more, so that the arguments of its calls are kept; return how many
-    calls it got and the last one's arguments (a tuple of all the wrapper's
-    parameters), or None."""
+    calls it got, the last one's arguments (a tuple of all the wrapper's
+    parameters), or None, and what ``drive()`` returned."""
     import functools
     import inspect
     import torch
@@ -687,12 +716,12 @@ def caught_calls(module, name, drive):
     catching.launches = wrapped.launches
     setattr(module, name, catching)
     try:
-        drive()
+        out = drive()
         torch.cuda.synchronize()
     finally:
         setattr(module, name, wrapped)
         wrapped.launches = catching.launches
-    return caught
+    return caught[0], caught[1], out
 
 
 @contextlib.contextmanager
@@ -718,28 +747,57 @@ def last_batches(module):
         module.make_batched_step_fn = made
 
 
-def _caught_last(module, name, drive, path, calls):
-    """The last call's arguments of ``caught_calls``; raises unless the
-    wrapper got ``calls`` calls (any number but 0 when None)."""
-    n, last = caught_calls(module, name, drive)
+def _bitwise(got, want, what) -> int:
+    """Raise unless two trees of tensors are equal bit for bit; return how
+    many tensors they hold."""
+    import torch
+    from rl_ode_physics_tpu_torch.utils import graphs
+    got_leaves, got_def = graphs.flatten(got)
+    want_leaves, want_def = graphs.flatten(want)
+    if got_def != want_def:
+        raise AssertionError(f"{what}: the two runs return other structures")
+    for i, (g, w) in enumerate(zip(got_leaves, want_leaves)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: tensor {i} differs")
+    return len(got_leaves)
+
+
+def _caught_last(module, name, drive, path, calls, graphed_check=True):
+    """The last call's arguments of ``caught_calls`` with ``drive()`` run
+    eagerly (``disable_graphs``), so that they hold what the launch read;
+    raises unless the wrapper got ``calls`` calls (any number but 0 when
+    None). With ``graphed_check`` and a ``drive()`` that returns tensors,
+    ``drive()`` runs once more on its default route, the CUDA graphs, and
+    must return the same bits: the kernel held on the eager launch is the
+    kernel the graph replays."""
+    from rl_ode_physics_tpu_torch.utils import graphs
+    with graphs.disable_graphs():
+        n, last, eager = caught_calls(module, name, drive)
     if not n or (calls is not None and n != calls):
         raise AssertionError(f"{path}: {calls} substeps called {name} {n} "
                              f"times")
+    if graphed_check and eager is not None:
+        count = _bitwise(drive(), eager, f"{path}: graphed against eager")
+        log(f"{path}: the graphed run is bitwise the eager run the kernel "
+            f"was held on ({count} tensors)")
     return n, last
 
 
-def compaction_on_path_data(drive, path, calls, earlier=""):
+def compaction_on_path_data(drive, path, calls, earlier="",
+                            graphed_check=True):
     """``compact_rows_t`` on the mask and payload that a settled main path
     hands it: ``drive()`` runs the path on (``calls`` substeps; None: a
-    tool's whole run) with the kernel's wrapper caught; the last call's
-    tensors are then held to the plain version, exactly, and both are timed
-    on them alone. ``earlier``: an earlier record of that time, printed
-    beside it."""
+    tool's whole run) eagerly with the kernel's wrapper caught; the last
+    call's tensors are then held to the plain version, exactly, and both
+    are timed on them alone; the graphed run is shown bitwise the eager
+    one (``_caught_last``). ``earlier``: an earlier record of that time,
+    printed beside it."""
     from rl_ode_physics_tpu_torch.ops import compaction, compaction_kernel
     from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
 
     n, (mask, payload, k, sel) = _caught_last(
-        compaction_kernel, "compact_rows_t", drive, path, calls)
+        compaction_kernel, "compact_rows_t", drive, path, calls,
+        graphed_check)
     b, d, m = payload.shape
     compaction_equals_plain(mask, payload, k, sel, f"the {path} path's data")
     kernel_ms = cuda_ms(
@@ -774,7 +832,7 @@ def d2_errors(got, ref, what):
     return worst
 
 
-def tiles_on_path_data(drive, path, calls):
+def tiles_on_path_data(drive, path, calls, graphed_check=True):
     """``sphere_mesh_d2_tiles`` on the probes that a settled path hands it,
     caught as in ``compaction_on_path_data``: held to the plain version at
     the kernels' tolerance for the probes' dtype, and both timed on them
@@ -785,7 +843,8 @@ def tiles_on_path_data(drive, path, calls):
     from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
 
     n, (probes, *tris) = _caught_last(
-        mesh_kernels, "sphere_mesh_d2_tiles", drive, path, calls)
+        mesh_kernels, "sphere_mesh_d2_tiles", drive, path, calls,
+        graphed_check)
     p, t = probes.shape[0], tris[0].shape[1]
     got = mesh_kernels.sphere_mesh_d2_tiles(probes, *tris)
     ref = tm.sphere_mesh_d2_tiles_plain(probes, *tris)
@@ -1618,12 +1677,15 @@ def phase_conformance_card_vs_cpu():
 
 def _launches_of(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler`` with the device's
-    activity only (its kernels, without the host's operator tree): kernel
-    launches, their summed device time and the traced wall time (longer
-    than an untraced call's: the trace slows the host)."""
+    activity only (its kernels, without the host's operator tree), after
+    one untraced call (where a graphed step captures): kernel launches,
+    their summed device time and the traced wall time (longer than an
+    untraced call's: the trace slows the host)."""
     import torch
     from torch.profiler import ProfilerActivity
 
+    fn()
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -1735,7 +1797,7 @@ def phase_conformance_path(card, stack, ridge):
     tiles64 = tiles_on_path_data(
         lambda: make_batched_step_fn(config, substeps=1, device="cuda",
                                      trimesh=mesh)(rbatch),
-        "ridge-mesh conformance", 1)
+        "ridge-mesh conformance", 1, graphed_check=False)   # PGS: eager
     tris = mesh.transposed()
     got = mesh_kernels.sphere_mesh_d2(centres, *tris)
     ref = tm.sphere_mesh_d2_plain(centres, *tris)
@@ -1884,9 +1946,17 @@ def phase_device_probes(card):
 
 def _timed_run(step, batch, label, tick):
     """One launch of ``step`` on ``batch`` timed after the card is idle;
-    raises unless the result holds (``_check_batch``). Returns (batch,
+    raises unless the result holds (``_check_batch``). A graphed step is
+    captured by an untimed call first (its launches are taken back from
+    the counts), so that the time is the replays'. Returns (batch,
     seconds)."""
     import torch
+    from rl_ode_physics_tpu_torch.utils import graphs
+    if step.graphed:
+        counters = graphs.kernel_counters()
+        before = graphs.read_counts(counters)
+        step(batch)
+        graphs.set_counts(counters, before)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batch = step(batch)
@@ -2346,6 +2416,7 @@ def phase_game_server(card):
         raise AssertionError(f"server, CLI policy: overflow "
                              f"{int(sim.world.overflow[0])}")
     _check_batch(sim.world, "server, CLI policy", SERVER_TICKS)
+    digests = {"cli": sim.state_digest()}
     bodies = int(sim.world.active.sum())
     prof = _launches_of(lambda: sim._step1(sim.world))
     replay_m.save_log(sim.intent_log, str(intents))
@@ -2405,6 +2476,7 @@ def phase_game_server(card):
         raise AssertionError(f"server, throughput policy: overflow "
                              f"{int(sim.world.overflow[0])}")
     _check_batch(sim.world, "server, throughput policy", SERVER_TICKS)
+    digests["throughput"] = sim.state_digest()
     prof = _launches_of(lambda: sim._step1(sim.world))
     stats_t = _tick_stats(tick_ms)
     log(f"server, throughput policy ({tconfig.selector_dtype} selectors): "
@@ -2494,7 +2566,7 @@ def phase_game_server(card):
     log(f"CLI: {_cli_session()}")
     return {"server_cli": {}, "server_throughput": want}, on_path, dict(
         cli=stats, throughput=stats_t, session_ticks_per_s=ticks / wall_s,
-        broadcast_ms=bcast_ms)
+        broadcast_ms=bcast_ms, digests=digests)
 
 
 def mesh_batch(device):
@@ -2769,13 +2841,16 @@ def phase_examples(card):
 
 
 def _tool_run(drive, kernel=None, path=None):
-    """``drive()`` with every hand kernel's count set to 0 just before it;
+    """``drive()`` on its default route (CUDA graphs where the tool's steps
+    take them) with every hand kernel's count set to 0 just before it;
     returns (its result, {kernel: launches}, seconds, on_path). With
-    ``kernel`` (a name of ``_hand_kernels``), that wrapper is caught during
-    the run, and once the counts are read its last call's tensors are held
-    to the plain version on the card (``compaction_on_path_data``,
+    ``kernel`` (a name of ``_hand_kernels``), ``drive()`` then runs once
+    more eagerly with that wrapper caught, and its last call's tensors are
+    held to the plain version on the card (``compaction_on_path_data``,
     ``tiles_on_path_data``): ``on_path`` is that check's record, else
-    None. Raises unless the kernel launched once a call."""
+    None. Raises unless the eager run called the kernel as many times as
+    the default run counted launches: replays count what their capture
+    did."""
     import torch
     ran = {}
 
@@ -2792,12 +2867,13 @@ def _tool_run(drive, kernel=None, path=None):
     if kernel is None:
         counted()
         return ran["out"], ran["counts"], ran["secs"], None
+    counted()
+    if not ran["counts"].get(kernel):
+        raise AssertionError(f"{path}: {kernel} never launched: "
+                             f"{ran['counts']}")
     check = {"compact_rows_t": compaction_on_path_data,
              "sphere_mesh_d2_tiles": tiles_on_path_data}[kernel]
-    on_path = check(counted, path, None)
-    if ran["counts"].get(kernel) != on_path["calls"]:
-        raise AssertionError(f"{path}: {on_path['calls']} calls of {kernel} "
-                             f"but launches {ran['counts']}")
+    on_path = check(drive, path, ran["counts"][kernel], graphed_check=False)
     return ran["out"], ran["counts"], ran["secs"], on_path
 
 
@@ -2951,9 +3027,11 @@ def phase_bench_module(card):
         else:
             raise AssertionError("bench ran 512 slots, which nothing signs")
 
-    out, err = io.StringIO(), io.StringIO()
+    runs = []
 
     def drive():
+        out, err = io.StringIO(), io.StringIO()
+        runs.append((out, err))
         with _bench_env(BENCH_MODULE_ENV), contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err):
             return bench.main([])
@@ -2964,6 +3042,7 @@ def phase_bench_module(card):
     with last_batches(batch_module) as finals:
         rc, counts, secs, on_path[path] = _tool_run(drive, "compact_rows_t",
                                                     path)
+    out, err = runs[0]           # the graphed run's lines
     lines = out.getvalue().strip().splitlines()
     parity = [ln for ln in err.getvalue().splitlines()
               if ln.startswith("# parity: ")]
@@ -2979,8 +3058,16 @@ def phase_bench_module(card):
         if (set(line) != {"metric", "value", "unit", "vs_baseline"}
                 or not line["value"] > 0):
             raise AssertionError(f"bench line {line}")
-    if len(finals) != 2:
+    # two lines, each run graphed and then eagerly for the kernel's hold
+    if len(finals) != 4:
         raise AssertionError(f"bench made {len(finals)} step functions")
+    for line, (graphed,), (eager,) in zip(("headline", "parity"),
+                                          finals[:2], finals[2:]):
+        _bitwise(graphed, eager, f"bench module, {line} line: the graphed "
+                 f"run against the eager one")
+    log("bench module: each line's final batch, graphed "
+        f"(BENCH_UNROLL={bench.settings()['unroll']}, donated), bitwise the "
+        f"eager run's")
     for (batch,) in finals:
         if int(batch.overflow.sum()) or not bool(
                 (batch.tick == ticks).all()) or not all(
@@ -3034,6 +3121,330 @@ def phase_bench_module(card):
     log(f"orientation_probe k1={k1}, k2={k2} on {card}: "
         f"{time.perf_counter() - t0:.1f} s")
     return by_path, on_path
+
+
+def _routes_line(fn, label):
+    """Print whether a step function replays graphs, and why not."""
+    log(f"route {label}: graphed={fn.graphed}"
+        + (f", eager: {fn.eager_reason}" if not fn.graphed else ""))
+    return fn.graphed
+
+
+def _route_table():
+    """Every path's step function on the card: graphed, or eager with the
+    host read that keeps it so."""
+    from rl_ode_physics_tpu_torch.core.config import (
+        bench_config, hinge_chain_config, rollout_config)
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.examples.rl_training import trainer_config
+    from rl_ode_physics_tpu_torch.models.scenes import hinge_chain_scene
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+    from rl_ode_physics_tpu_torch.utils import multichip_scaling
+
+    rows = {
+        "bench": (bench_config(64), None),
+        "trimesh": (mesh_config(), None),
+        "rollout": (rollout_config(64), None),
+        "capsule_stack": (capsule_config(), None),
+        "mini_stack": (mini_config(), None),
+        "conformance (PGS float64)": (referee_config(), None),
+        "dantzig (float64)": (referee_dantzig_config(), None),
+        "server_cli": (EngineConfig(**SERVER_CAPS), None),
+        "server_throughput": (EngineConfig.throughput(**SERVER_CAPS), None),
+        "sharded": (multichip_scaling.scaling_config(), None),
+        "es": (trainer_config(), None),
+    }
+    for label, config in (("hinge_chain_jacobi", hinge_chain_config()),
+                          ("hinge_chain_pgs_f64", referee_config())):
+        rows[label] = (config, hinge_chain_scene(config, device="cuda")[1])
+    for name, lever in LEVERS.items():
+        rows[f"bench_{name}"] = (bench_config(64).replace(**lever), None)
+    graphed = {label: _routes_line(make_batched_step_fn(
+        config, device="cuda", joints=joints), label)
+        for label, (config, joints) in rows.items()}
+    eager = sorted(k for k, v in graphed.items() if not v)
+    if eager != sorted(["conformance (PGS float64)", "dantzig (float64)",
+                        "hinge_chain_pgs_f64"]):
+        raise AssertionError(f"eager step functions: {eager}")
+
+
+def _graphed_bench(config, settled, card):
+    """The bench path at full width from the settled batch: 96 substeps
+    eagerly and graphed at unroll 1, 4 and 96, each route's first call
+    (the capture) with its seconds and peak memory, every graphed result
+    bitwise the eager one; then the host and device ms a substep, the
+    idle share and the launches, in turns."""
+    import torch
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+    from rl_ode_physics_tpu_torch.utils import graphs, profiling
+
+    n = SUBSTEPS_PER_LAUNCH
+    routes = {"eager": make_batched_step_fn(config, n, device="cuda")}
+    for unroll in GRAPH_UNROLLS:
+        routes[f"unroll {unroll}"] = make_batched_step_fn(
+            config, n, True, 0, unroll, device="cuda")
+
+    def eager_call(fn):
+        with graphs.disable_graphs():
+            return fn(settled)
+
+    def call(label):
+        if label == "eager":
+            return eager_call(routes[label])
+        return routes[label](settled)
+
+    def unroll_of(label):
+        return 1 if label == "eager" else int(label.split()[1])
+
+    want = None
+    first = {}
+    for label in routes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = call(label)
+        torch.cuda.synchronize()
+        first[label] = dict(
+            first_call_s=time.perf_counter() - t0,
+            peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        if label == "eager":
+            want = out
+            continue
+        _bitwise(out, want, f"bench graphed at {label}")
+        (stats,) = routes[label].graphs.stats()
+        first[label].update(capture_s=stats["capture_s"],
+                            nodes=stats["nodes"])
+        log(f"bench graphed at {label}: {n} substeps bitwise the eager "
+            f"loop; {first[label]}")
+    log(f"bench eager: first call {first['eager']}")
+    del want, out
+    timed = {label: [] for label in routes}
+    order = list(routes)
+    for turn in range(GRAPH_TURNS):
+        for label in (order if turn % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(label)
+            torch.cuda.synchronize()
+            timed[label].append((time.perf_counter() - t0) * 1e3 / n)
+    # the trace of a 96-substep eager call holds 332k launches: profile
+    # calls of GRAPH_PROFILED substeps, graphed at unroll 1, 4 and all
+    m = GRAPH_PROFILED
+    short = {"eager": make_batched_step_fn(config, m, device="cuda")}
+    for unroll in GRAPH_UNROLLS:
+        short[f"unroll {unroll}"] = make_batched_step_fn(
+            config, m, True, 0, min(unroll, m), device="cuda")
+    result = {}
+    for label, fn in short.items():
+        if label == "eager":
+            prof = profiling.route_profile(lambda: eager_call(fn), m)
+        else:
+            prof = profiling.route_profile(lambda: fn(settled), m)
+        prof.update(host_ms_per_substep_in_turns=timed[label],
+                    **first[label])
+        result[label] = prof
+        log(f"bench {label} on {card}: host ms a substep of {n}-substep "
+            f"calls in turns {[round(t, 3) for t in timed[label]]}; one "
+            f"call of {m} substeps (unroll {min(unroll_of(label), m)}) "
+            f"profiled: {prof['host_launches_per_call']} host launches "
+            f"({prof['graph_launches_per_call']} graph launches), "
+            f"{prof['device_kernels_per_substep']:.1f} device kernels and "
+            f"{prof['device_ms_per_substep']:.3f} device ms a substep, "
+            f"{_shares(prof)}")
+    return result
+
+
+def _graphed_server(card, live):
+    """The server-512 sessions of phase 21 (graphed, the default) against
+    the same intents eagerly: equal digests at tick 480 under both
+    policies, ticks/s, and the launches of one tick on each route."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.net.server import SimCore
+    from rl_ode_physics_tpu_torch.utils import graphs, profiling
+
+    result = {}
+    for policy, config in (
+            ("cli", EngineConfig(**SERVER_CAPS)),
+            ("throughput", EngineConfig.throughput(**SERVER_CAPS))):
+        sim = SimCore(config, seed=0, player_capsules=True, device="cuda")
+        with graphs.disable_graphs():
+            tick_ms = _server_session(sim, SERVER_TICKS, SERVER_TIMED_FROM)
+        if sim.state_digest() != live["digests"][policy]:
+            raise AssertionError(f"server, {policy} policy: the graphed "
+                                 f"run's digest differs from the eager "
+                                 f"run's at tick {SERVER_TICKS}")
+        eager = _tick_stats(tick_ms)
+
+        def tick_eager():
+            with graphs.disable_graphs():
+                return sim._step1(sim.world)
+
+        prof = {"graphed": profiling.route_profile(
+                    lambda: sim._step1(sim.world), 1),
+                "eager": profiling.route_profile(tick_eager, 1)}
+        result[policy] = dict(graphed_ticks_per_s=live[
+            "cli" if policy == "cli" else "throughput"]["ticks_per_s"],
+            eager_ticks_per_s=eager["ticks_per_s"], **prof)
+        log(f"server-512, {policy} policy, {SERVER_TICKS} ticks with their "
+            f"intents: the graphed run's digest equals the eager run's; "
+            f"ticks {SERVER_TIMED_FROM}-{SERVER_TICKS}: graphed "
+            f"{result[policy]['graphed_ticks_per_s']:.2f} ticks/s, eager "
+            f"{eager['ticks_per_s']:.2f} on {card}; host launches a tick: "
+            f"graphed {prof['graphed']['host_launches_per_call']} "
+            f"({prof['graphed']['graph_launches_per_call']} graph launch, "
+            f"the rest the copies in and out of a step not donated), eager "
+            f"{prof['eager']['host_launches_per_call']}; graphed "
+            f"{prof['graphed']['device_ms_per_substep']:.3f} device ms a "
+            f"tick, {_shares(prof['graphed'])}; eager "
+            f"{prof['eager']['device_ms_per_substep']:.3f} device ms a tick, "
+            f"{_shares(prof['eager'])}")
+        del sim
+    return result
+
+
+def _shares(prof: dict) -> str:
+    """The busy and idle shares of a ``route_profile``, both of its traced
+    call, beside that call's and an untraced call's ms."""
+    return (f"busy {prof['busy_share']:.3f}, idle {prof['idle_share']:.3f} "
+            f"of the traced call's {prof['traced_ms_per_substep']:.3f} ms "
+            f"(untraced {prof['host_ms_per_substep']:.3f} ms)"
+            + (" [kernels over the traced wall: a trace artefact]"
+               if prof["device_over_wall"] else ""))
+
+
+def _route_profiles(prof: dict, unit: str) -> str:
+    """The graphed and eager ``route_profile`` of one call, on one line."""
+    return "; ".join(
+        f"{route}: {p['host_launches_per_call']} host launches "
+        f"({p['graph_launches_per_call']} graph launches), "
+        f"{p['device_kernels_per_substep']:.0f} device kernels and "
+        f"{p['device_ms_per_substep']:.3f} device ms a {unit}, {_shares(p)}"
+        for route, p in prof.items())
+
+
+def _in_turns(calls: dict, turns: int) -> dict:
+    """ms a call of each of ``calls`` (label: fn), in turns after one
+    untimed call of each (where a graphed one captures), each ended by a
+    synchronize."""
+    import torch
+    for fn in calls.values():
+        fn()
+    out = {label: [] for label in calls}
+    order = list(calls)
+    for turn in range(turns):
+        for label in (order if turn % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[label]()
+            torch.cuda.synchronize()
+            out[label].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_graphs(card, settled, server):
+    """Each JACOBI entry point at full width, graphed against its eager
+    loop from the same state: the bench (unroll 1, 4, 96), server-512 under
+    both policies, one rollout, one ES train step and two shards of the
+    card; every result bitwise. Prints every path's route."""
+    import torch
+    from rl_ode_physics_tpu_torch.core.config import (
+        bench_config, rollout_config)
+    from rl_ode_physics_tpu_torch.examples.rl_training import make_trainer
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, take_worlds)
+    from rl_ode_physics_tpu_torch.parallel.mesh import (
+        gather_batch, make_mesh, make_sharded_step_fn, shard_batch)
+    from rl_ode_physics_tpu_torch.utils import graphs, profiling
+
+    def eager(fn, *args):
+        with graphs.disable_graphs():
+            return fn(*args)
+
+    _route_table()
+    out = {"bench": _graphed_bench(bench_config(64), settled, card)}
+    torch.cuda.empty_cache()
+    out["server"] = _graphed_server(card, server)
+    torch.cuda.empty_cache()
+
+    # one rollout of the rollout path from its reset state
+    env = rollout_env(rollout_config(64), WORLDS, "cuda")
+    state, _ = env.reset(seed=42)
+    actions = seeded_actions(
+        (ROLLOUT_HORIZON, WORLDS, env.num_actors, 6), 0, "cuda")
+    got = env.rollout(state, actions)
+    count = _bitwise(got, eager(env.rollout, state, actions),
+                     "rollout: graphed against eager")
+    del got
+    ms = _in_turns({"graphed": lambda: env.rollout(state, actions),
+                    "eager": lambda: eager(env.rollout, state, actions)}, 2)
+    out["rollout"] = {k: WORLDS * ROLLOUT_HORIZON / (min(v) / 1e3)
+                      for k, v in ms.items()}
+    log(f"rollout ({WORLDS} worlds, horizon {ROLLOUT_HORIZON}, lidar): the "
+        f"graphed rollout bitwise the eager one ({count} tensors); "
+        f"env-steps/s graphed {out['rollout']['graphed']:.1f}, eager "
+        f"{out['rollout']['eager']:.1f} (ms a rollout in turns {ms}) on "
+        f"{card}")
+    del env, state, actions
+    torch.cuda.empty_cache()
+
+    # one ES train step at full width from the same noise
+    params, trainer = make_trainer(pop=ES_FULL_POP, horizon=ES_FULL_HORIZON,
+                                   device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ew = torch.randn((ES_FULL_POP, 6, 2), generator=gen,
+                     device="cuda") * 0.1
+    eb = torch.randn((ES_FULL_POP, 2), generator=gen, device="cuda") * 0.1
+    got = trainer.step_with_noise(params, ew, eb)
+    _bitwise(got, eager(trainer.step_with_noise, params, ew, eb),
+             "ES train step: graphed against eager")
+    ms = _in_turns({
+        "graphed": lambda: trainer.step_with_noise(params, ew, eb),
+        "eager": lambda: eager(trainer.step_with_noise, params, ew, eb)}, 2)
+    out["es"] = {k: min(v) for k, v in ms.items()}
+    prof = {"graphed": profiling.route_profile(
+                lambda: trainer.step_with_noise(params, ew, eb), 1),
+            "eager": profiling.route_profile(
+                lambda: eager(trainer.step_with_noise, params, ew, eb), 1)}
+    out["es"]["profiled"] = prof
+    log(f"ES train step (pop {ES_FULL_POP}, {2 * ES_FULL_POP} worlds, "
+        f"horizon {ES_FULL_HORIZON}): graphed parameters and mean reward "
+        f"bitwise the eager step's; ms a train step graphed "
+        f"{out['es']['graphed']:.1f}, eager {out['es']['eager']:.1f} (in "
+        f"turns {ms}) on {card}; {_route_profiles(prof, 'train step')}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # two shards of the card against the unsharded graphed step
+    config = bench_config(64)
+    whole = make_batched_step_fn(config, GRAPH_MESH_SUBSTEPS, False,
+                                 unroll=GRAPH_MESH_SUBSTEPS, device="cuda")
+    half = make_batched_step_fn(config, GRAPH_MESH_SUBSTEPS, False,
+                                unroll=GRAPH_MESH_SUBSTEPS, device="cuda")
+    two = make_mesh(["cuda:0", "cuda:0"])
+    sharded = make_sharded_step_fn(config, two, GRAPH_MESH_SUBSTEPS, False)
+    shards = shard_batch(settled, two)
+    ref = whole(settled)
+    count = _bitwise(gather_batch(sharded(shards)), ref,
+                     "two shards of the card against the unsharded step")
+    first_half = take_worlds(settled, 0, WORLDS // 2)
+    ms = _in_turns({"unsharded": lambda: whole(settled),
+                    "two shards": lambda: sharded(shards),
+                    "one shard alone": lambda: half(first_half)}, 2)
+    best = {k: min(v) for k, v in ms.items()}
+    prof = {"graphed": profiling.route_profile(lambda: sharded(shards), 1),
+            "eager": profiling.route_profile(
+                lambda: eager(sharded, shards), 1)}
+    out["mesh"] = dict(best, profiled=prof)
+    log(f"mesh of [cuda:0, cuda:0], graphed ({GRAPH_MESH_SUBSTEPS} substeps "
+        f"a shard, one launch a shard): bitwise the unsharded graphed step "
+        f"({count} tensors); ms a call: {best} (in turns {ms}); two shards "
+        f"take {best['two shards'] / best['one shard alone']:.2f}x one "
+        f"shard alone: they "
+        f"{'overlap' if best['two shards'] < 1.8 * best['one shard alone'] else 'do not overlap'}"
+        f" on the card's one stream, on {card}; two shards: "
+        f"{_route_profiles(prof, 'call')}")
+    return out
 
 
 def main() -> int:
@@ -3142,14 +3553,13 @@ def main() -> int:
     lap("17")
 
     by_path.update(phase_bench_levers(config, card, bench_settled))
-    del bench_settled
     lap("18")
     dantzig = phase_dantzig(card, stack, ridge)
     by_path.update(dantzig)
     lap("19")
     by_path.update(phase_hinge_chain(card))
     lap("20")
-    server_launches, compaction["on_server_path_data"], _ = (
+    server_launches, compaction["on_server_path_data"], server = (
         phase_game_server(card))
     by_path.update(server_launches)
     lap("21")
@@ -3172,6 +3582,9 @@ def main() -> int:
     for path, record in on_bench_paths.items():
         compaction[f"on_{path}_data"] = record
     lap("27 (bench module)")
+    phase_graphs(card, bench_settled, server)
+    del bench_settled
+    lap("28 (graphs)")
     # the float64 tile kernel on the DANTZIG ridge path
     f64_ridge = dantzig["dantzig_ridge_mesh"]["sphere_mesh_d2_tiles"]
     tiles["f64"]["launches"] += f64_ridge

@@ -20,19 +20,17 @@ the card's name and power limit::
 
     python3 -m rl_ode_physics_tpu_torch.bench [--device cpu]
 
-The JAX script's environment variables, with its defaults: ``BENCH_WORLDS``,
-``BENCH_BODIES``, ``BENCH_STEPS``, ``BENCH_SUBSTEPS``, ``BENCH_CHUNK``,
-``BENCH_PARITY``, ``BENCH_ONLY`` and the configuration's overrides of
-``bench_config``. Two differ:
-
-* ``BENCH_CHUNK`` defaults to 0, the whole batch a launch: a chunk here is
-  stepped after the other from the host (``parallel/batch.py``), which
-  multiplies the launches by the number of chunks where the JAX scan ran
-  the chunks inside one program.
-* ``BENCH_UNROLL`` (the scan's unroll) and ``donate`` (buffer donation)
-  have no counterpart: the port steps its substeps as a Python loop of
-  launches, and the form of one launch per call is ROADMAP A2. Either
-  raises.
+The JAX script's environment variables, with its defaults:
+``BENCH_WORLDS``, ``BENCH_BODIES``, ``BENCH_STEPS``, ``BENCH_SUBSTEPS``,
+``BENCH_UNROLL`` (4), ``BENCH_CHUNK``, ``BENCH_PARITY``, ``BENCH_ONLY`` and
+the configuration's overrides of ``bench_config``; the step donates the
+batch, as the JAX script's does. On the card a launch of the batched step
+replays CUDA graphs of ``BENCH_UNROLL`` substeps (``utils/graphs.py``, the
+port's form of the JAX scan's unroll), ``BENCH_SUBSTEPS // BENCH_UNROLL``
+graph launches and one of the remainder. One default differs:
+``BENCH_CHUNK`` is 0, the whole batch a launch, where the JAX script's is
+256: a chunk here is a copy into the chunk-sized graph and back, chunk
+after chunk, and which default the card wants is not settled yet.
 
 Each run must pass ``require_audit`` against the card's sign-off,
 ``utils/audited_capacities_h100.json``, and any contact dropped during the
@@ -58,17 +56,6 @@ BASELINE_BODY_STEPS_PER_S = 50e6
 WARMUP_LAUNCHES = 3
 
 
-def refuse_scan_levers(unroll=None, donate=None) -> None:
-    """Raise if the JAX scan's unroll or buffer donation is asked for: the
-    port has no counterpart of either until ROADMAP A2."""
-    for name, value in (("BENCH_UNROLL", unroll), ("donate", donate)):
-        if value is not None:
-            raise ValueError(
-                f"{name}={value}: the port has no counterpart of the JAX "
-                f"scan's {name}; it steps substeps as a Python loop of "
-                f"launches, and one launch per call is ROADMAP A2")
-
-
 def _sync(batch) -> None:
     """``torch.cuda.synchronize()`` and one scalar read back, where the JAX
     script calls ``block_until_ready``."""
@@ -78,20 +65,20 @@ def _sync(batch) -> None:
 
 
 def _measure(config, num_worlds, num_bodies, substeps, launches, chunk,
-             donate=None, device="cuda"):
-    """Run the workload under ``config``: 3 warm-up launches, then
-    ``launches`` timed ones of ``substeps`` substeps; return (value, dt,
-    num_dynamic). Raises on any dropped contact, and on ``donate`` (the
-    JAX script's buffer donation)."""
+             unroll, device="cuda"):
+    """Run the workload under ``config``: 3 warm-up launches (the first
+    captures the graphs on the card), then ``launches`` timed ones of
+    ``substeps`` substeps, ``unroll`` a graph, the batch donated; return
+    (value, dt, num_dynamic). Raises on any dropped contact."""
     from rl_ode_physics_tpu_torch.models import scenes
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
 
-    refuse_scan_levers(donate=donate)
     world = scenes.bench_world(config, num_bodies=num_bodies - 4,
                                device=device)
     batch = replicate(world, num_worlds, device=device)
-    step_fn = make_batched_step_fn(config, substeps=substeps, chunk=chunk,
+    step_fn = make_batched_step_fn(config, substeps=substeps, donate=True,
+                                   chunk=chunk, unroll=unroll,
                                    device=device)
 
     # warm-up: let the stacks reach their contact-rich steady state
@@ -123,11 +110,12 @@ def _measure(config, num_worlds, num_bodies, substeps, launches, chunk,
 
 
 def _result(config, value, dt, num_worlds, num_bodies, num_dynamic,
-            total_steps, note="", chunk=0):
+            total_steps, note="", chunk=0, unroll=1):
     return {
         "metric": f"body-steps/sec ({num_worlds} worlds x {num_dynamic} "
                   f"dynamic bodies (of {num_bodies} slots), "
                   f"{total_steps} substeps in {dt:.3f}s, "
+                  f"unroll {unroll}, "
                   f"{config.solver_iterations} solver iters "
                   f"(omega={config.jacobi_omega}, hb beta={config.jacobi_beta}"
                   f"{note}), solver={config.solver.value}, TF32 off, "
@@ -233,7 +221,8 @@ def settings(env=os.environ) -> dict:
              num_bodies=int(env.get("BENCH_BODIES", 64)),
              substeps=int(env.get("BENCH_SUBSTEPS", 96)),
              launches=int(env.get("BENCH_STEPS", 3)),
-             chunk=int(env.get("BENCH_CHUNK", 0)))
+             chunk=int(env.get("BENCH_CHUNK", 0)),
+             unroll=int(env.get("BENCH_UNROLL", 4)))
     if (not s["chunk"] or s["num_worlds"] <= s["chunk"]
             or s["num_worlds"] % s["chunk"]):
         s["chunk"] = 0
@@ -246,17 +235,17 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to run (default: the card)")
     args = ap.parse_args(argv)
-    refuse_scan_levers(os.environ.get("BENCH_UNROLL"))
     card = require_card("bench", args.device)
     s = settings()
     num_worlds, num_bodies = s["num_worlds"], s["num_bodies"]
     substeps, launches, chunk = s["substeps"], s["launches"], s["chunk"]
+    unroll = s["unroll"]
     # the warm-up and timed launches all count toward the audited horizon
     horizon = (launches + WARMUP_LAUNCHES) * substeps
     total_steps = launches * substeps
     run = dict(num_worlds=num_worlds, num_bodies=num_bodies,
                substeps=substeps, launches=launches, chunk=chunk,
-               device=args.device)
+               unroll=unroll, device=args.device)
     parity_note = "; ODE QuickStep parity setting"
 
     config = bench_config(num_bodies)
@@ -266,7 +255,7 @@ def main(argv=None) -> int:
         p_value, p_dt, num_dynamic = _measure(parity_cfg, **run)
         print(json.dumps(_result(
             parity_cfg, p_value, p_dt, num_worlds, num_bodies, num_dynamic,
-            total_steps, note=parity_note, chunk=chunk)))
+            total_steps, note=parity_note, chunk=chunk, unroll=unroll)))
         return 0
 
     require_audit(config, num_bodies, horizon)
@@ -287,7 +276,7 @@ def main(argv=None) -> int:
         config, value, dt, num_worlds, num_bodies, num_dynamic, total_steps,
         note="; >= plain-20-iter convergence, see "
              "rl_ode_physics_tpu_torch/utils/solver_convergence.py",
-        chunk=chunk)
+        chunk=chunk, unroll=unroll)
 
     if (os.environ.get("BENCH_PARITY", "1") != "0"
             and config.solver is SolverKind.JACOBI):
@@ -295,7 +284,7 @@ def main(argv=None) -> int:
         require_audit(parity_cfg, num_bodies, horizon)
         p_value, p_dt, _ = _measure(parity_cfg, **run)
         p = _result(parity_cfg, p_value, p_dt, num_worlds, num_bodies,
-                    num_dynamic, total_steps, note=parity_note, chunk=chunk)
+                    num_dynamic, total_steps, note=parity_note, chunk=chunk, unroll=unroll)
         print("# parity: " + json.dumps(p), file=sys.stderr)
 
     print(json.dumps(headline))

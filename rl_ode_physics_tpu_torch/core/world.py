@@ -2,7 +2,8 @@
 
 The port of ``rl_ode_physics_tpu/core/world.py:_step_impl`` (``:262-336``),
 ``step_with_diagnostics`` and ``_base_metrics`` (``:339-366``) and
-``make_step_fn`` (``:369-410``), every pipeline of the JAX step:
+``make_step_fn`` (``:369-410``, a CUDA graph a call on the card:
+``utils/graphs.py``), every pipeline of the JAX step:
 the dense pipeline, the typed narrowphase (component-major or row-major)
 and the classic broadphase + narrowphase, each with an optional static
 trimesh (the dense pipeline hands a mesh step to the classic one, as the
@@ -34,6 +35,7 @@ from rl_ode_physics_tpu_torch.ops import joints as joint_ops
 from rl_ode_physics_tpu_torch.ops import narrowphase
 from rl_ode_physics_tpu_torch.ops import solver as solver_ops
 from rl_ode_physics_tpu_torch.ops.trimesh import TriMesh, mesh_narrowphase
+from rl_ode_physics_tpu_torch.utils import graphs
 from rl_ode_physics_tpu_torch.utils import quat as quat_m
 
 
@@ -307,17 +309,36 @@ def _base_metrics(state: WorldState, **counters):
 
 
 def make_step_fn(config: EngineConfig, substeps: int = 1,
-                 trimesh: TriMesh | None = None, joints=None):
+                 donate: bool = True, trimesh: TriMesh | None = None,
+                 joints=None):
     """A function state → state that runs ``substeps`` substeps, with
     ``trimesh`` as static scene geometry and ``joints`` as the joint table
-    when given."""
+    when given: the JAX ``make_step_fn``, parameters in its order.
+
+    On a card the call is one CUDA graph launch (``utils/graphs.py``), the
+    counterpart of the JAX ``jax.jit`` over ``lax.scan``; ``donate`` is
+    JAX's buffer donation there: with ``donate=True`` the state is updated
+    in the graph's buffers and the caller does not read the old handle
+    again, with ``donate=False`` the input is left as it was and the result
+    is a new state. PGS and DANTZIG read the device from the host during a
+    solve, so their step functions run eagerly (``fn.graphed`` False, the
+    host read in ``fn.eager_reason``). On the CPU it is the eager loop."""
     config.validate()
     if substeps < 1:
         raise ValueError(f"substeps={substeps} must be at least 1")
+    return graphs.StepFunction(
+        lambda state: _step_impl(state, config, trimesh, joints=joints),
+        substeps, None, donate, config, joints)
 
-    def fn(state: WorldState) -> WorldState:
-        for _ in range(substeps):
-            state = _step_impl(state, config, trimesh, joints=joints)
-        return state
 
-    return fn
+def make_diagnostics_step_fn(config: EngineConfig):
+    """``step_with_diagnostics`` as one graph launch on a card: a function
+    state → (state, {name: (B,) tensor}), the JAX server's
+    ``jax.jit(lambda s: step_with_diagnostics(s, cfg))``
+    (``rl_ode_physics_tpu/net/server.py:79``), not donated as there: the
+    state and the counters are new tensors at every call. Eager on the CPU
+    and under PGS or DANTZIG, as ``make_step_fn``."""
+    config.validate()
+    return graphs.Graphed(
+        lambda state, _: _step_impl(state, config, None, with_metrics=True),
+        None, False, config)

@@ -9,7 +9,9 @@ to a planar force. Reward: the negative final distance to the target.
 Trainer: antithetic evolution strategies (OpenAI-ES). Each candidate
 parameter vector drives its own world of one batch, so one evaluation
 steps population × horizon × substeps substeps of every world at once;
-the policy runs for all worlds as one batched product. With a ``mesh``
+the policy runs for all worlds as one batched product. On a card each
+device's horizon loop is one CUDA graph launch (``utils/graphs.py``), the
+JAX trainer's ``lax.scan``; the noise is drawn outside it. With a ``mesh``
 (``parallel/mesh.py``) the worlds are split over its devices, each block
 rolled out by its own ``PhysicsEnv`` on its own device; the rewards are
 gathered to the lead device for their mean and spread and the gradient
@@ -33,6 +35,7 @@ from rl_ode_physics_tpu_torch.models.builder import WorldBuilder
 from rl_ode_physics_tpu_torch.models.env import PhysicsEnv
 from rl_ode_physics_tpu_torch.parallel.batch import replicate
 from rl_ode_physics_tpu_torch.parallel.mesh import on_device, shard_batch
+from rl_ode_physics_tpu_torch.utils import graphs
 
 TARGET = (3.0, 0.65, 2.0)
 ACTOR = 4            # slot after the 4 arena geoms
@@ -111,21 +114,36 @@ class ESTrainer:
                                         device=self.lead),
                             torch.zeros((ACT_DIM,), dtype=f,
                                         device=self.lead))
+        # each block's horizon loop as one graph on its device; the
+        # initial states are copied in, never written
+        self._horizons = [
+            graphs.Graphed(self._control_step(env), None, True, env.config,
+                           None, env.device) for env in self.envs]
+
+    def _control_step(self, env):
+        """One control step of ``env``'s block under the policy: the body
+        of its horizon loop."""
+        def body(state, consts):
+            ws, bs, target = consts
+            return env._advance(state, policy_actions(ws, bs, state,
+                                                      target)), None
+        return body
 
     def rollout_reward(self, ws: torch.Tensor, bs: torch.Tensor):
         """(2·pop,) rewards on the lead device of per-world params ws
         (2·pop, 6, 2), bs (2·pop, 2): every block rolled out on its own
-        device, the devices launched in turn each control step."""
+        device, the devices in turn: on the cards each block's whole
+        horizon is one CUDA graph launch (the JAX trainer's ``lax.scan``);
+        eagerly, each block's horizon loop."""
         n = self.per_device
-        blocks = [(ws[i * n:(i + 1) * n].to(dev), bs[i * n:(i + 1) * n].to(dev))
+        blocks = [(ws[i * n:(i + 1) * n].to(dev), bs[i * n:(i + 1) * n].to(dev),
+                   self.targets[i])
                   for i, dev in enumerate(self.devices)]
         states = list(self.state0)
-        for _ in range(self.horizon):
-            for i, env in enumerate(self.envs):
-                with on_device(env.device):
-                    acts = policy_actions(*blocks[i], states[i],
-                                          self.targets[i])
-                    states[i] = env.advance(states[i], acts)
+        for i, env in enumerate(self.envs):
+            with on_device(env.device):
+                states[i] = self._horizons[i](states[i], blocks[i],
+                                              self.horizon)[0]
         rewards = [-torch.linalg.vector_norm(
             s.pos[:, ACTOR][:, [0, 2]] - t[[0, 2]], dim=-1)
             for s, t in zip(states, self.targets)]

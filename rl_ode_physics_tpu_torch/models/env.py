@@ -28,6 +28,14 @@ stepped in lockstep, each fed its own actions every control step.
 * ``trimesh``: an optional static ``ops.trimesh.TriMesh`` on the env's
   device, shared by every world.
 
+On a card ``advance``, ``step`` and ``rollout`` each replay one CUDA graph
+a call (``utils/graphs.py``), the JAX env's ``jax.jit`` of the control
+step and of its ``lax.scan`` over the horizon: the actions are the graph's
+input, the lidar is swept inside it, and every tensor returned is new, so
+no later call writes over it. ``env.graphed`` and ``env.eager_reason`` say
+which route the env takes; under ``disable_graphs()``, on the CPU and
+under PGS or DANTZIG it is the eager loop.
+
 The env runs on ``device`` (the card unless the caller asks for the CPU)
 and raises on a state that lies elsewhere. Gradients through the env are
 not part of this port.
@@ -45,6 +53,7 @@ from rl_ode_physics_tpu_torch.core.state import WorldState
 from rl_ode_physics_tpu_torch.ops.raycast import ray_distances
 from rl_ode_physics_tpu_torch.parallel.batch import (
     concat_worlds, replicate, take_worlds)
+from rl_ode_physics_tpu_torch.utils import graphs
 from rl_ode_physics_tpu_torch.utils import quat as quat_m
 
 
@@ -55,7 +64,9 @@ def observe(state: WorldState, slots=None) -> torch.Tensor:
                      dim=-1)
     if slots is None:
         return full
-    return full[:, list(slots), :]
+    index = graphs.constant(tuple(int(s) for s in slots), torch.int64,
+                            state.device)
+    return full.index_select(1, index)
 
 
 class PhysicsEnv:
@@ -92,6 +103,14 @@ class PhysicsEnv:
         self._onehot = (self.actor_slots[:, None] == torch.arange(
             config.max_bodies, device=self.device)[None, :]).to(
                 getattr(torch, config.dtype))
+        self._advance_graphs, self._step_graphs, self._rollout_graphs = (
+            graphs.Graphed(body, None, False, config, None, self.device)
+            for body in (
+                lambda state, acts: (self._advance(state, acts[0]), None),
+                lambda state, acts: self._control_step(state, acts[0]),
+                self._rollout_body))
+        self.graphed = self._rollout_graphs.graphed
+        self.eager_reason = self._rollout_graphs.eager_reason
 
     @property
     def num_actors(self) -> int:
@@ -121,6 +140,9 @@ class PhysicsEnv:
     def advance(self, state: WorldState, actions) -> WorldState:
         """``substeps`` substeps of a batch under its (b, A, 6) actions: a
         control step without its observation."""
+        return self._advance_graphs(state, (actions,))[0]
+
+    def _advance(self, state: WorldState, actions) -> WorldState:
         if self.num_actors:
             # a one-hot projection: no scatter, duplicate slots sum
             force = torch.einsum("an,bad->bnd", self._onehot,
@@ -158,22 +180,37 @@ class PhysicsEnv:
         size = self.chunk if 0 < self.chunk < num_worlds else num_worlds
         return [(s, s + size) for s in range(0, num_worlds, size)]
 
+    def _control_step(self, state: WorldState, actions):
+        state = self._advance(state, actions)
+        return state, self._observe_full(state)
+
     def step(self, state: WorldState, actions: torch.Tensor):
         """One control step: (state, (B, A, 6) actions) → (state, obs)."""
         self._check_device(state)
         spans = self._chunks(state.num_worlds)
         if len(spans) == 1:
-            new_state = self.advance(state, actions)
-        else:
-            new_state = concat_worlds([
-                self.advance(take_worlds(state, s, e), actions[s:e])
-                for s, e in spans])
+            return self._step_graphs(state, (actions,))
+        new_state = concat_worlds([
+            self.advance(take_worlds(state, s, e), actions[s:e])
+            for s, e in spans])
         return new_state, self._observe_full(new_state)
+
+    def _rollout_body(self, carry, consts):
+        """One control step of a rollout: the actions of step ``t`` (a
+        (1,) counter on the device) in, the observation (and lidar) written
+        into row ``t`` of the trajectory."""
+        state, t, traj, lidar = carry
+        state = self._advance(state, consts[0].index_select(0, t)[0])
+        traj.index_copy_(0, t, observe(state, self.obs_slots)[None])
+        if lidar is not None:
+            lidar.index_copy_(0, t, self.sense(state)[None])
+        return (state, t + 1, traj, lidar), None
 
     def rollout(self, state: WorldState, action_seq: torch.Tensor):
         """(T, B, A, 6) actions → (final state, (T, B, S, 13) observations),
         or (final state, (observations, (T, B, A, R) lidar)) with a lidar.
-        The trajectory is written into tensors allocated once."""
+        The trajectory is written into tensors allocated once. On a card a
+        chunk's whole horizon is one graph launch."""
         self._check_device(state)
         horizon, b = action_seq.shape[0], state.num_worlds
         f = state.pos.dtype
@@ -186,12 +223,14 @@ class PhysicsEnv:
                                 device=state.device)
         finals = []
         for s, e in self._chunks(b):
-            part = take_worlds(state, s, e)
-            for t in range(horizon):
-                part = self.advance(part, action_seq[t, s:e])
-                traj[t, s:e] = observe(part, self.obs_slots)
-                if lidar is not None:
-                    lidar[t, s:e] = self.sense(part)
+            rows = (traj[:, s:e], None if lidar is None else lidar[:, s:e])
+            start = torch.zeros((1,), dtype=torch.int64, device=state.device)
+            (part, _, *written), _ = self._rollout_graphs(
+                (take_worlds(state, s, e), start, *rows),
+                (action_seq[:, s:e],), horizon)
+            for view, got in zip(rows, written):
+                if got is not view:         # the graph's copy of the rows
+                    view.copy_(got)
             finals.append(part)
         final = finals[0] if len(finals) == 1 else concat_worlds(finals)
         return final, (traj if lidar is None else (traj, lidar))

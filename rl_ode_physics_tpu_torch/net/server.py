@@ -15,7 +15,10 @@ of one world: every input is a (tick, intent) record, so a recorded intent
 stream replays bitwise (BASELINE config 5). ``GameServer`` adds the
 reliable-UDP transport, the player table, and the 60 Hz snapshot broadcast
 (``BROADCAST_TIME``, ``src/main.c:28,218-253``). Both run on the card unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``. On the card a tick is one CUDA graph
+launch (``core/world.make_step_fn(..., donate=False)``, and the graphed
+diagnostics step), beside one copy in and one out of each ``WorldState``
+field; intents stay eager writes between ticks.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ import torch
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import BodyType, CollMask, WorldState
 from rl_ode_physics_tpu_torch.core.world import (
-    add_body, make_step_fn, release_body, set_body_pose,
-    step_with_diagnostics)
+    add_body, make_diagnostics_step_fn, make_step_fn, release_body,
+    set_body_pose)
 from rl_ode_physics_tpu_torch.models import scenes
 from rl_ode_physics_tpu_torch.net import protocol
 from rl_ode_physics_tpu_torch.net.native_transport import make_host
@@ -88,13 +91,18 @@ class SimCore:
         if self.world.num_worlds != 1:
             raise ValueError(f"SimCore steps one world, got "
                              f"{self.world.num_worlds}")
-        self._step1 = make_step_fn(self.config, substeps=1)
+        # one CUDA graph launch a tick on a card (core/world.make_step_fn);
+        # not donated: the state between ticks is the caller's to keep
+        self._step1 = make_step_fn(self.config, substeps=1, donate=False)
         self.tick = 0
         self._overflow_checked_tick = 0
         self._overflow_reported = 0
         self.intent_log: List[Intent] = []
-        # per-tick observability counters (SURVEY.md §5 metrics plan)
+        # per-tick observability counters (SURVEY.md §5 metrics plan), from
+        # a step that returns them beside the state, graphed as the step is
         self.metrics = MetricsLog() if diagnostics else None
+        self._diag_step = (make_diagnostics_step_fn(self.config)
+                           if diagnostics else None)
         # player embodiment (fixes the reference's floating-camera TODO,
         # src/main.c:244: "make players special bodies instead of cameras")
         self.player_capsules = player_capsules
@@ -222,8 +230,7 @@ class SimCore:
         """Advance ``substeps`` × 120 Hz fixed steps."""
         for _ in range(substeps):
             if self.metrics is not None:
-                self.world, m = step_with_diagnostics(self.world,
-                                                      self.config)
+                self.world, m = self._diag_step(self.world)
                 self.tick += 1
                 self.metrics.append(self.tick, m)
             else:

@@ -11,6 +11,7 @@ import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import WorldState, similarity_diag
+from rl_ode_physics_tpu_torch.utils import graphs
 from rl_ode_physics_tpu_torch.utils import quat as quat_m
 
 
@@ -24,8 +25,8 @@ def apply_external_forces(state: WorldState,
     dt = config.dt
     dyn = (state.dynamic & ~state.is_kinematic)[..., None]
 
-    g = torch.tensor(config.gravity, dtype=state.pos.dtype,
-                     device=state.device)
+    g = graphs.constant(tuple(config.gravity), state.pos.dtype,
+                        state.device)
     linvel = state.linvel + dt * (
         torch.where(dyn, g, 0.0) + state.inv_mass[..., None] * state.force
     )

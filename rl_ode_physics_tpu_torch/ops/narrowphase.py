@@ -31,7 +31,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig, jnp_dtype_is_bf16
@@ -39,6 +38,7 @@ from rl_ode_physics_tpu_torch.core.state import BodyType, WorldState
 from rl_ode_physics_tpu_torch.ops import compaction, compaction_kernel
 from rl_ode_physics_tpu_torch.ops.broadphase import PairCandidates, pair_mask
 from rl_ode_physics_tpu_torch.ops.compaction import top_k_indices
+from rl_ode_physics_tpu_torch.utils import graphs
 from rl_ode_physics_tpu_torch.utils import quat as quat_m
 
 _EPS = 1e-9
@@ -142,7 +142,7 @@ def _sphere_sphere(pa, qa, sa, pb, qb, sb, k):
     dist = _norm(d)
     n = d / torch.clamp_min(dist, _EPS)[..., None]
     # coincident centres: a deterministic up normal
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=d.dtype, device=d.device)
+    up = graphs.constant((0.0, 1.0, 0.0), d.dtype, d.device)
     n = torch.where((dist > _EPS)[..., None], n, up)
     depth = ra + rb - dist
     point = pa + n * (ra - 0.5 * depth)[..., None]
@@ -197,15 +197,14 @@ def _sphere_plane(pa, qa, sa, pb, qb, sb, k):
     return _one_slot(point, -n_p, depth, k)
 
 
-_BOX_CORNERS = np.array(
-    [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
-     for sz in (-1.0, 1.0)], np.float32)          # (8, 3)
+_BOX_CORNERS = tuple((sx, sy, sz) for sx in (-1.0, 1.0)
+                     for sy in (-1.0, 1.0) for sz in (-1.0, 1.0))   # (8, 3)
 
 
 def _box_plane(pa, qa, sa, pb, qb, sb, k):
     n_p, d_p = _plane_params(pb, qb)
     ra = quat_m.to_matrix(qa)
-    signs = torch.as_tensor(_BOX_CORNERS, dtype=pa.dtype, device=pa.device)
+    signs = graphs.constant(_BOX_CORNERS, pa.dtype, pa.device)
     corners = pa[..., None, :] + _mv(ra[..., None, :, :],
                                      signs * (0.5 * sa)[..., None, :])
     depths = d_p[..., None] - torch.sum(corners * n_p[..., None, :], -1)
@@ -222,7 +221,8 @@ def _box_plane(pa, qa, sa, pb, qb, sb, k):
 def _fold_manifold(points, normals, depths, valid, pairing):
     """8-slot manifold → 4 slots: slot i against slot ``pairing[i]``, the
     valid one, or the deeper of two valid ones, survives."""
-    lo, hi = list(range(4)), list(pairing)
+    lo = graphs.constant(tuple(range(4)), torch.int64, points.device)
+    hi = graphs.constant(tuple(pairing), torch.int64, points.device)
     p_lo, p_hi = points[..., lo, :], points[..., hi, :]
     n_lo, n_hi = normals[..., lo, :], normals[..., hi, :]
     d_lo, d_hi = depths[..., lo], depths[..., hi]
@@ -402,10 +402,8 @@ def _face_candidates(quad2d, hx, hy):
     quad. Returns (points (..., 8, 2), valid (..., 8))."""
     h = torch.stack([hx, hy], -1)[..., None, :]
     clamped = torch.minimum(torch.maximum(quad2d, -h), h)
-    sx = torch.tensor([-1.0, 1.0, 1.0, -1.0], dtype=quad2d.dtype,
-                      device=quad2d.device)
-    sy = torch.tensor([-1.0, -1.0, 1.0, 1.0], dtype=quad2d.dtype,
-                      device=quad2d.device)
+    sx = graphs.constant((-1.0, 1.0, 1.0, -1.0), quad2d.dtype, quad2d.device)
+    sy = graphs.constant((-1.0, -1.0, 1.0, 1.0), quad2d.dtype, quad2d.device)
     rect = torch.stack([sx * hx[..., None], sy * hy[..., None]], -1)
 
     # point in convex quad: one sign for every edge's cross product

@@ -29,6 +29,7 @@ from rl_ode_physics_tpu_torch.ops.compaction import top_k_indices
 from rl_ode_physics_tpu_torch.ops.narrowphase import (
     _KERNEL_K, _bucket_pairs, _check_key_space, _compact_typed,
     _enabled_kernels, _pair_eligibility, _selector_dtype)
+from rl_ode_physics_tpu_torch.utils import graphs
 
 _EPS = 1e-9
 
@@ -340,7 +341,7 @@ def cm_box_box(pa, qa, sa, pb, qb, sb):
             return (col[2], torch.zeros_like(col[0]), -col[0])
         return (-col[1], col[0], torch.zeros_like(col[0]))
 
-    neg_inf = torch.tensor(-torch.inf, dtype=f, device=pa[0].device)
+    neg_inf = graphs.constant(-torch.inf, f, pa[0].device)
     fudge = 1.05
 
     max_all = None

@@ -32,6 +32,7 @@ from rl_ode_physics_tpu_torch.core.state import BodyType, WorldState
 from rl_ode_physics_tpu_torch.ops.compaction import top_k_indices
 from rl_ode_physics_tpu_torch.ops.narrowphase_cm import (
     vadd, vdot, vnormsq, vscale, vsub)
+from rl_ode_physics_tpu_torch.utils import graphs
 from rl_ode_physics_tpu_torch.utils import quat as quat_m
 
 _EPS = 1e-9
@@ -388,8 +389,7 @@ def sphere_mesh_contacts(center: torch.Tensor, radius, mesh: TriMesh, k: int):
 
     n_dir = pts - center[:, None, :]                            # sphere → mesh
     n_len = torch.sqrt(vnormsq(_comps(n_dir)))[..., None]
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=center.dtype,
-                      device=center.device)
+    up = graphs.constant((0.0, 1.0, 0.0), center.dtype, center.device)
     # center exactly on a surface point: deterministic up fallback
     n_out = torch.where(n_len > 1e-6, n_dir / torch.clamp_min(n_len, _EPS),
                         -up)
@@ -741,7 +741,7 @@ def mesh_narrowphase(state: WorldState, mesh: TriMesh, config: EngineConfig,
     cl_e = closest_point_triangle(centers, v0_e, e1_e, e2_e)  # (B, N, ke, 3)
     nd = cl_e - centers
     nl = torch.sqrt(vnormsq(_comps(nd)))[..., None]
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=f, device=dev)
+    up = graphs.constant((0.0, 1.0, 0.0), f, dev)
     nrm_s = torch.where(nl > 1e-6, nd / torch.clamp_min(nl, _EPS), -up)
     dep_s = r_sph[..., None] - nl[..., 0]
     parts_p.append(cl_e)

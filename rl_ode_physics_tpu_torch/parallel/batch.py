@@ -2,7 +2,8 @@
 
 The port of ``rl_ode_physics_tpu/parallel/batch.py``: ``replicate`` tiles
 one world into a batch, ``batched_step`` steps every world of it once and
-``make_batched_step_fn`` steps it ``substeps`` times. There is no
+``make_batched_step_fn`` steps it ``substeps`` times, replaying CUDA
+graphs on a card (``utils/graphs.py``). There is no
 cross-world communication, so a batch is a leading axis on every tensor
 (``parallel/mesh.py`` splits that axis over cards).
 """
@@ -15,8 +16,9 @@ import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import U32_MASK, WorldState
-from rl_ode_physics_tpu_torch.core.world import make_step_fn, step
+from rl_ode_physics_tpu_torch.core.world import _step_impl, step
 from rl_ode_physics_tpu_torch.ops.dense import LIVE_PAIR_TENSORS
+from rl_ode_physics_tpu_torch.utils import graphs
 
 
 def replicate(state: WorldState, num_worlds: int, reseed: bool = True,
@@ -80,24 +82,48 @@ def _check_dense_fits(config: EngineConfig, batch: WorldState,
             f"pipeline or chunk<={fits}")
 
 
-def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
-                         chunk: int = 0, device="cuda", trimesh=None,
-                         joints=None):
-    """A function batch → batch that runs ``substeps`` substeps.
+def _put_rows(out, start: int, part: WorldState) -> None:
+    for o, p in zip(out, graphs.flatten(part)[0]):
+        o[start:start + p.shape[0]].copy_(p)
 
-    ``chunk``: step the batch in world-chunks of this size, one after the
-    other, to bound peak device memory. The batch must lie on ``device``:
-    the function raises rather than step it anywhere else. ``trimesh``: an
-    optional static ``ops.trimesh.TriMesh`` on the same device, shared by
-    every world. ``joints``: an optional ``ops.joints.JointSet`` on the same
-    device, of one world (shared by every world) or of the whole batch
-    (with ``chunk``, it must be of one world). On a card, a dense-pipeline
-    batch whose intermediates would not fit raises.
+
+def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
+                         donate: bool = True, chunk: int = 0,
+                         unroll: int = 1, device="cuda", trimesh=None,
+                         joints=None):
+    """A function batch → batch that runs ``substeps`` substeps: the JAX
+    ``make_batched_step_fn`` (``rl_ode_physics_tpu/parallel/batch.py:
+    44-106``), its parameters in its order, then the port's.
+
+    On a card a call replays CUDA graphs (``utils/graphs.py``), the port's
+    ``jax.jit`` over ``lax.scan``: ``unroll`` substeps a graph, so a call
+    is ``substeps // unroll`` launches and one more of the remainder
+    (``unroll=substeps``: one launch a call). ``donate``: with True the
+    batch is updated in the graph's buffers and the caller does not read
+    the old handle again; with False the input is left as it was and the
+    result is a new batch. ``chunk``: step the batch in world-chunks of
+    this size, each through all its substeps before the next (JAX's
+    ``lax.map``), to bound peak device memory: one chunk-sized graph, with
+    a copy in and a copy out a chunk, into a new batch. PGS and DANTZIG
+    read the device from the host during a solve and run the eager loop
+    (``fn.graphed`` False, the host read in ``fn.eager_reason``), as does
+    every step function on the CPU and under ``disable_graphs()``.
+
+    The batch must lie on ``device``: the function raises rather than step
+    it anywhere else. ``trimesh``: an optional static
+    ``ops.trimesh.TriMesh`` on the same device, shared by every world.
+    ``joints``: an optional ``ops.joints.JointSet`` on the same device, of
+    one world (shared by every world) or of the whole batch (with
+    ``chunk``, it must be of one world). On a card, a dense-pipeline batch
+    whose intermediates would not fit raises, before any capture.
     """
+    config.validate()
     if chunk and joints is not None and joints.kind.shape[0] != 1:
         raise ValueError("chunk needs a joint table of one world")
-    step_fn = make_step_fn(config, substeps, trimesh=trimesh, joints=joints)
     want = torch.device(device)
+    step_fn = graphs.StepFunction(
+        lambda state: _step_impl(state, config, trimesh, joints=joints),
+        substeps, unroll, donate, config, joints, want)
 
     def fn(batch: WorldState) -> WorldState:
         if batch.device.type != want.type:
@@ -110,8 +136,15 @@ def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
         b_total = batch.num_worlds
         if b_total % chunk:
             raise ValueError(f"batch {b_total} not divisible by chunk {chunk}")
-        return concat_worlds([
-            step_fn(take_worlds(batch, start, start + chunk))
-            for start in range(0, b_total, chunk)])
+        leaves, treedef = graphs.flatten(batch)
+        out = [torch.empty_like(t) for t in leaves]
+        for s in range(0, b_total, chunk):
+            # donated: the chunk's result is copied out before the next
+            # chunk is stepped in the same buffers
+            _put_rows(out, s, step_fn(take_worlds(batch, s, s + chunk),
+                                      donate=True))
+        return graphs.unflatten(treedef, out)
 
+    fn.graphed, fn.eager_reason = step_fn.graphed, step_fn.eager_reason
+    fn.graphs = step_fn.graphs
     return fn

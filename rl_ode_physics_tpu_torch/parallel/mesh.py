@@ -12,15 +12,18 @@ block of worlds a device, in mesh order (the layout of JAX's
 joins the blocks again on one device. The step functions take and return
 a tuple of shards: every shard is stepped on its own device by a
 ``make_batched_step_fn`` made for that device, inside
-``torch.cuda.device(shard_device)``. One host thread launches the shards
-in turn, substep by substep, so that every card has work queued while
-the host moves on to the next.
+``torch.cuda.device(shard_device)``. On the cards each shard's call is
+one CUDA graph (``utils/graphs.py``) captured on its device, and one host
+thread launches the shards in turn, one launch a shard, so that every
+card has work queued while the host moves on to the next.
 
-Two things bound what that overlap gives. A host read inside a step
-(PGS's ``solver.live_row_bound``, DANTZIG's pivot rounds) waits for that
-shard's card before the host goes on to the next shard, so under those
-solvers the cards run one after the other. And a step that is bound by
-the host's launches costs D times the host time on D shards.
+Three things bound what that overlap gives. A host read inside a step
+(PGS's ``solver.live_row_bound``, DANTZIG's pivot rounds) keeps it eager
+and waits for that shard's card before the host goes on to the next
+shard, so under those solvers the cards run one after the other. An
+eager step, bound by the host's launches, costs D times the host time on
+D shards. And two shards of one card run on its one stream, one after
+the other.
 
 No tensor of one shard meets a tensor of another: PyTorch raises on any
 operation that mixes devices, so a step that ran is a step that did not
@@ -145,34 +148,40 @@ def _check_shards(shards, mesh: Mesh) -> tuple:
 
 
 def make_sharded_step_fn(config: EngineConfig, mesh: Mesh,
-                         substeps: int = 1):
+                         substeps: int = 1, donate: bool = True):
     """A function that runs ``substeps`` substeps of every world of a
     sharded batch: a tuple of shards (``shard_batch``) in, the stepped
-    tuple out, each shard on its device. Every shard is stepped by a
-    ``make_batched_step_fn`` made for its device, the shards in turn,
-    substep by substep."""
+    tuple out, each shard on its device; the JAX ``make_sharded_step_fn``
+    (``rl_ode_physics_tpu/parallel/mesh.py:60-83``), ``donate`` as there.
+    Every shard is stepped by a ``make_batched_step_fn`` made for its
+    device, the shards in turn: on the cards one CUDA graph of all its
+    substeps a shard, captured on the shard's device, so one launch a
+    shard."""
     config.validate()      # unsupported compositions error at config time
-    steps = [make_batched_step_fn(config, substeps=1, device=dev)
+    steps = [make_batched_step_fn(config, substeps, donate, unroll=substeps,
+                                  device=dev)
              for dev in mesh.devices]
 
     def fn(shards) -> tuple:
         shards = _check_shards(shards, mesh)
-        for _ in range(substeps):
-            stepped = []
-            for dev, step_fn, shard in zip(mesh.devices, steps, shards):
-                with on_device(dev):
-                    stepped.append(step_fn(shard))
-            shards = tuple(stepped)
-        return shards
+        stepped = []
+        for dev, step_fn, shard in zip(mesh.devices, steps, shards):
+            with on_device(dev):
+                stepped.append(step_fn(shard))
+        return tuple(stepped)
 
+    fn.graphed = all(step.graphed for step in steps)
+    fn.eager_reason = next((s.eager_reason for s in steps
+                            if not s.graphed), "")
     return fn
 
 
 def make_shard_map_step_fn(config: EngineConfig, mesh: Mesh,
                            substeps: int = 1):
-    """The same function as ``make_sharded_step_fn``. In JAX the two names
-    are two routes through XLA to one semantics (GSPMD partitioning of the
-    whole batch, and explicit per-device blocks under ``shard_map``); the
-    port steps per-device blocks in both, so they are one implementation
-    under both names."""
-    return make_sharded_step_fn(config, mesh, substeps)
+    """The same function as ``make_sharded_step_fn``, without donation as
+    the JAX ``make_shard_map_step_fn`` (``mesh.py:86-116``) has none. In
+    JAX the two names are two routes through XLA to one semantics (GSPMD
+    partitioning of the whole batch, and explicit per-device blocks under
+    ``shard_map``); the port steps per-device blocks in both, so they are
+    one implementation under both names."""
+    return make_sharded_step_fn(config, mesh, substeps, donate=False)

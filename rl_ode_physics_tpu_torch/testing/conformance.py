@@ -61,7 +61,9 @@ def engine_trajectory(state, config: EngineConfig, steps: int, joints=None,
     """(pos (T, N, 3), quat (T, N, 4), final state): the positions and
     quaternions of world 0 over ``steps`` steps of the port's engine, on the
     state's device, as float64 numpy arrays, and the state after them."""
-    step = make_step_fn(config, substeps=1, joints=joints, trimesh=trimesh)
+    # not donated: the trajectory keeps every step's state
+    step = make_step_fn(config, substeps=1, donate=False, joints=joints,
+                        trimesh=trimesh)
     pos, quat = [], []
     for _ in range(steps):
         state = step(state)

@@ -74,7 +74,7 @@ def run(cfg, steps, device="cuda"):
     from rl_ode_physics_tpu_torch.core.world import make_step_fn
 
     w = rotated_stack(cfg, device=device)
-    stepf = make_step_fn(cfg, substeps=1)
+    stepf = make_step_fn(cfg, substeps=1, donate=False)   # traj is kept
     traj = []
     for _ in range(steps):
         w = stepf(w)

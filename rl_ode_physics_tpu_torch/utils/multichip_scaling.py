@@ -16,9 +16,10 @@ the mesh grows (sizes 1, 2, 4, … up to the devices given):
    members a device (8 worlds), horizon 8; ms a train step, and its ratio
    to the one-device step.
 
-One host thread launches every shard, so a host-bound step costs D times
-the host time on D shards: D cards give about one card's throughput
-until the step is captured in a CUDA graph.
+One host thread launches every shard. On the cards each shard's call is
+one CUDA graph launch (``utils/graphs.py``), so the host no longer holds
+D cards to one card's throughput; D shards of one card share its stream
+and run one after the other.
 
     python3 -m rl_ode_physics_tpu_torch.utils.multichip_scaling \\
         [worlds_per_device substeps pop_per_device horizon] \\

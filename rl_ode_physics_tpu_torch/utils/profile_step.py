@@ -26,7 +26,9 @@ where set; the JAX script's defaults, a classic-pipeline engine, are
 BENCH_SEL_DTYPE=float32``. ``capsule`` is the capsule-stack workload
 (BASELINE config 2, classic, one world settled 480 substeps first),
 ``mini`` the mini-stack workload. The batch takes one untraced launch of
-``substeps`` substeps, then one traced launch.
+``substeps`` substeps, then one traced launch, both eager
+(``utils/graphs.disable_graphs``): a CUDA graph's replay runs no Python,
+so its kernels would map to no source line.
 
 Printed: the device total a substep, the table (ms a substep, calls, the
 operation — the PyTorch operation that launched the kernel, or the
@@ -48,6 +50,8 @@ import tempfile
 import time
 
 import torch
+
+from rl_ode_physics_tpu_torch.utils import graphs
 
 PACKAGE = "rl_ode_physics_tpu_torch"
 _FRAME = re.compile(rf"{PACKAGE}/(\S+?\.py)\((\d+)\): (.+)$")
@@ -227,8 +231,12 @@ def profile(num_worlds: int = 2048, substeps: int = 8, name: str = "bench",
     config, world = workload(name, device)
     chunk = int(os.environ.get("BENCH_CHUNK", 0)) if name == "bench" else 0
     batch = replicate(world, num_worlds, device=device)
-    step = make_batched_step_fn(config, substeps=substeps, device=device,
-                                chunk=chunk if num_worlds > chunk else 0)
+    graphed = make_batched_step_fn(config, substeps=substeps, device=device,
+                                   chunk=chunk if num_worlds > chunk else 0)
+
+    def step(b):
+        with graphs.disable_graphs():
+            return graphed(b)
 
     def sync():
         if on_device:

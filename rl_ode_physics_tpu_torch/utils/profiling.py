@@ -29,7 +29,14 @@ component-major path with all nine pair kernels). Each is replicated into
 * ``substep``: one whole substep under ``torch.profiler``: the wall time,
   the summed device time of its kernels, the device's idle share of the
   wall time, the number of kernel launches, and the kernels with the most
-  device time.
+  device time;
+* ``routes``: a call of 8 substeps of ``make_batched_step_fn`` on its
+  graphed route (one CUDA graph launch) and on its eager one: the host
+  launches a call (graph launches plus any eager kernels, copies and
+  fills), the device kernels and device ms a substep, the host ms a
+  substep untraced and traced, and the device's busy and idle shares of
+  the traced call (unclipped; ``device_over_wall`` where the kernels' sum
+  exceeds the traced wall time, an artefact of the trace).
 
 ``--rollout`` builds the rollout workload of ``models/workloads.py``
 (``benchmarks/rl_rollout_bench.py``'s defaults: ``rollout_config(64)``, the
@@ -154,6 +161,10 @@ class MetricsLog:
         }
 
 
+# the substeps a call of the route comparison (one graph launch graphed)
+ROUTE_SUBSTEPS = 8
+
+
 def _timed(fn, repeats: int):
     """(host ms, CUDA-event span ms) per call of ``fn``, averaged over
     ``repeats``."""
@@ -219,10 +230,77 @@ def _profiled(fn, top: int) -> dict:
     return {
         "wall_ms_profiled": wall_ms,
         "device_ms": device_ms,
-        "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "idle_share": 1.0 - device_ms / wall_ms,
         "kernel_launches": len(kernels),
         "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top],
     }
+
+
+# the host's calls that put work on the card's queue: kernels, copies,
+# fills, and whole CUDA graphs
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def route_profile(call, substeps: int) -> dict:
+    """A call of ``substeps`` substeps on its route, graphed or eager:
+    the host's wall ms a substep of an untraced call (after one call that
+    captures or warms), then one call under ``torch.profiler``: the host
+    launches of the call (kernels, copies and fills, and graph launches,
+    ``HOST_LAUNCHES``), the device's kernels and their summed time a
+    substep, and that call's own wall time. The busy and idle shares are of
+    the traced call alone, unclipped: the trace slows the host, so they
+    read the traced call, not the untraced one; a busy share above 1 (the
+    kernels' summed time over the call's wall time) is an artefact of the
+    trace and is flagged in ``device_over_wall``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time for e in kernels) / 1e3
+    host = [e for e in events if e.name in HOST_LAUNCHES]
+    graph_launches = sum(e.name == "cudaGraphLaunch" for e in host)
+    busy = device_ms / traced_ms
+    return {
+        "host_ms_per_substep": wall_ms / substeps,
+        "traced_ms_per_substep": traced_ms / substeps,
+        "device_ms_per_substep": device_ms / substeps,
+        "busy_share": busy,
+        "idle_share": 1.0 - busy,
+        "device_over_wall": busy > 1.0,
+        "host_launches_per_call": len(host),
+        "graph_launches_per_call": graph_launches,
+        "device_kernels_per_substep": len(kernels) / substeps,
+    }
+
+
+def routes(step, batch, substeps: int) -> dict:
+    """``route_profile`` of ``step(batch)`` (``substeps`` substeps a call,
+    not donated) on its graphed route and on its eager one
+    (``utils/graphs.disable_graphs``)."""
+    from rl_ode_physics_tpu_torch.utils import graphs
+
+    def eager():
+        with graphs.disable_graphs():
+            return step(batch)
+
+    return {"graphed": route_profile(lambda: step(batch), substeps),
+            "eager": route_profile(eager, substeps)}
 
 
 def profile_rollout(worlds: int, settle: int, repeats: int, top: int) -> dict:
@@ -340,6 +418,9 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
         phase_ms[name] = {"host_ms": host_ms, "event_span_ms": span_ms}
 
     substep = _profiled(lambda: world_m.step(batch, config, mesh), top)
+    call = make_batched_step_fn(config, substeps=ROUTE_SUBSTEPS,
+                                donate=False, unroll=ROUTE_SUBSTEPS,
+                                trimesh=mesh)
     return {
         "card": card,
         "workload": ("trimesh" if mesh is not None
@@ -352,6 +433,7 @@ def profile(worlds: int, settle: int, repeats: int, top: int,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "phases": phase_ms,
         "substep": substep,
+        "routes": routes(call, batch, ROUTE_SUBSTEPS),
     }
 
 

@@ -64,7 +64,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-from rl_ode_physics_tpu_torch.utils import bounds
+from rl_ode_physics_tpu_torch.utils import bounds, graphs
 
 aten = torch.ops.aten
 # operations that return storage without launching a kernel
@@ -175,7 +175,8 @@ def count_substeps(config, batch, substeps: int = COUNTED_SUBSTEPS) -> dict:
     step = make_batched_step_fn(config, substeps=substeps,
                                 device=batch.pos.device)
     mode = OpCount()
-    with _compaction_booked(mode), mode:
+    # eager: a graph's replay runs no operation that the mode could see
+    with graphs.disable_graphs(), _compaction_booked(mode), mode:
         state = step(batch)
     return dict(bytes=mode.bytes, flops=mode.flops, ops=mode.ops,
                 op_bytes=mode.op_bytes,

@@ -52,7 +52,7 @@ def contact_rich_states(cfg, seeds=(42, 7, 123), settle_steps=25,
     from rl_ode_physics_tpu_torch.core.world import make_step_fn
     from rl_ode_physics_tpu_torch.models import scenes
 
-    stepf = make_step_fn(cfg, substeps=8)
+    stepf = make_step_fn(cfg, substeps=8, donate=False)   # states are kept
     states = []
     for seed in seeds:
         w = scenes.bench_world(cfg, num_bodies=60, seed=seed, device=device)

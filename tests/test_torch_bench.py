@@ -45,7 +45,8 @@ OVERRIDES = {
 DEFAULT_HORIZON = 576
 # tests/test_torch_step.py's tolerance, card or CPU against JAX
 ATOL = 1e-4
-SMALL = dict(num_worlds=4, num_bodies=16, substeps=2, launches=1, chunk=0)
+SMALL = dict(num_worlds=4, num_bodies=16, substeps=2, launches=1, chunk=0,
+             unroll=1)
 
 
 @pytest.fixture
@@ -124,16 +125,31 @@ def test_allow_unaudited_passes_and_warns(no_bench_env, monkeypatch, capsys):
     assert "BENCH_ALLOW_UNAUDITED=1" in capsys.readouterr().err
 
 
-def test_unroll_refuses(no_bench_env, monkeypatch):
-    monkeypatch.setenv("BENCH_UNROLL", "4")
-    with pytest.raises(ValueError, match="ROADMAP A2"):
-        bench.main(["--device", "cpu"])
+def test_unroll_runs_and_is_named(small_main, monkeypatch, capsys):
+    """``BENCH_UNROLL``, which the port refused before it had graphs, now
+    runs, and the metric names it as the graphs' unroll."""
+    monkeypatch.setenv("BENCH_UNROLL", "2")
+    assert bench.main(["--device", "cpu"]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "unroll 2" in result["metric"] and result["value"] > 0
 
 
-def test_donate_refuses(no_bench_env):
-    with pytest.raises(ValueError, match="ROADMAP A2"):
-        bench._measure(bench.bench_config(16), **SMALL, donate=True,
-                       device="cpu")
+def test_measure_donates(no_bench_env, monkeypatch):
+    """Donation, which the port refused before it had graphs, is what
+    ``_measure`` now asks of the batched step, as the JAX script does."""
+    from rl_ode_physics_tpu_torch.parallel import batch as t_batch
+    made = []
+    real = t_batch.make_batched_step_fn
+
+    def making(*args, **kwargs):
+        made.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(t_batch, "make_batched_step_fn", making)
+    value, _, _ = bench._measure(bench.bench_config(16), **SMALL,
+                                 device="cpu")
+    assert value > 0
+    assert [(k["donate"], k["unroll"]) for k in made] == [(True, 1)]
 
 
 def test_measure_matches_jax_measure(jax_scripts, monkeypatch):
@@ -160,7 +176,8 @@ def test_measure_matches_jax_measure(jax_scripts, monkeypatch):
             last_batches(t_batch) as got_last:
         _, _, ref_dynamic = jax_bench._measure(
             jax_bench.bench_config(s["num_bodies"]), s["num_worlds"],
-            s["num_bodies"], s["substeps"], s["launches"], s["chunk"], 1)
+            s["num_bodies"], s["substeps"], s["launches"], s["chunk"],
+            s["unroll"])
         value, dt, dynamic = bench._measure(
             bench.bench_config(s["num_bodies"]), **s, device="cpu")
     assert dynamic == ref_dynamic == s["num_bodies"] - 4
@@ -239,10 +256,12 @@ def test_only_parity_prints_it_on_stdout(jax_scripts, small_main,
 
 
 def test_settings_defaults_and_chunk(no_bench_env, monkeypatch):
-    """The JAX script's schedule, but unchunked by default; a chunk that
-    does not divide the batch falls back to none, as there."""
+    """The JAX script's schedule (its unroll of 4 too), but unchunked by
+    default; a chunk that does not divide the batch falls back to none, as
+    there."""
     assert bench.settings() == dict(num_worlds=8192, num_bodies=64,
-                                    substeps=96, launches=3, chunk=0)
+                                    substeps=96, launches=3, chunk=0,
+                                    unroll=4)
     assert bench.settings({"BENCH_CHUNK": "256"})["chunk"] == 256
     assert bench.settings({"BENCH_CHUNK": "300"})["chunk"] == 0
 

@@ -8,6 +8,13 @@ so it runs on the machine with the card:
 The tests marked ``cuda`` skip where no card is present. The others run
 everywhere: the compaction's plain version against a numpy loop, and the
 mesh kernels' wrappers taking their plain versions on CPU tensors.
+
+On the card every JACOBI step entry point replays CUDA graphs
+(``utils/graphs.py``); the tests at the end of this file hold each one
+bitwise to its eager loop (``disable_graphs``), and check the launch
+counts per replay, outputs that a later call does not write over, a new
+capture for a new shape, PGS and DANTZIG running eagerly, and a forced
+capture of a host read raising.
 """
 
 import numpy as np
@@ -996,3 +1003,239 @@ def test_profile_step_attributes_card_kernels():
                and row["source"].startswith("ops/compaction_kernel.py:")
                for row in r["rows"])
     assert abs(sum(r["by_file"].values()) - r["total_ms"]) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (utils/graphs.py): every graphed entry point bitwise its eager
+# loop from the same state, at a small size
+# ---------------------------------------------------------------------------
+
+def _trees_equal(a, b, what):
+    from rl_ode_physics_tpu_torch.utils import graphs
+    la, da = graphs.flatten(a)
+    lb, db = graphs.flatten(b)
+    assert da == db, what
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert torch.equal(x, y), f"{what}: leaf {i}"
+
+
+def _eager(fn, *args):
+    from rl_ode_physics_tpu_torch.utils import graphs
+    with graphs.disable_graphs():
+        return fn(*args)
+
+
+def _settled_bench_batch(worlds=64, settle=40):
+    config = bench_config(64)
+    batch = replicate(bench_world(config, device="cuda"), worlds,
+                      device="cuda")
+    batch = batch.replace(linvel=batch.linvel + 0.05 * torch.randn(
+        batch.linvel.shape, generator=torch.Generator("cuda").manual_seed(3),
+        device="cuda") * batch.dynamic[..., None])
+    return config, _eager(make_batched_step_fn(config, settle,
+                                               device="cuda"), batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll,chunk,donate", [
+    (1, 0, True), (4, 0, True), (10, 0, False), (3, 16, True),
+    (10, 32, False)])
+def test_graphed_batched_step_is_bitwise_eager_on_card(unroll, chunk,
+                                                       donate):
+    """10 substeps of the settled bench batch (64 worlds), graphed at each
+    unroll (a remainder graph where 10 % unroll > 0), chunked or not,
+    against the eager loop: every field bitwise; the compaction kernel
+    counted once a substep a chunk, per replay."""
+    _require_card()
+    config, start = _settled_bench_batch()
+    fn = make_batched_step_fn(config, 10, donate, chunk, unroll,
+                              device="cuda")
+    assert fn.graphed and fn.eager_reason == ""
+    want = _eager(fn, start)
+    before = compaction_kernel.compact_rows_t.launches
+    got = fn(start)
+    torch.cuda.synchronize()
+    chunks = 64 // chunk if chunk else 1
+    assert compaction_kernel.compact_rows_t.launches - before == 10 * chunks
+    _trees_equal(got, want, "batched step")
+    again = fn(got if donate else start)
+    torch.cuda.synchronize()
+    assert compaction_kernel.compact_rows_t.launches - before == 20 * chunks
+    assert int(again.tick[0]) == int(start.tick[0]) + (20 if donate else 10)
+
+
+@pytest.mark.cuda
+def test_graphed_outputs_are_not_overwritten_with_donate_false():
+    _require_card()
+    config, start = _settled_bench_batch(16)
+    fn = make_batched_step_fn(config, 4, False, unroll=4, device="cuda")
+    first = fn(start)
+    kept = first.pos.clone()
+    second = fn(first)
+    torch.cuda.synchronize()
+    assert torch.equal(first.pos, kept)
+    assert not torch.equal(second.pos, kept)
+    assert int(second.tick[0]) == int(start.tick[0]) + 8
+
+
+@pytest.mark.cuda
+def test_donated_result_is_kept_by_a_call_on_other_tensors_on_card():
+    """``a = f(x); b = f(y)``: the second call moves ``a`` off the graph's
+    buffers first, so ``a`` keeps its values; ``f(b)`` steps in place."""
+    _require_card()
+    config, start = _settled_bench_batch(16)
+    fn = make_batched_step_fn(config, 4, True, unroll=4, device="cuda")
+    a = fn(start)
+    kept = a.pos.clone()
+    b = fn(start)
+    torch.cuda.synchronize()
+    assert torch.equal(a.pos, kept) and torch.equal(b.pos, kept)
+    (capture,) = fn.graphs.captures.values()
+    assert a.pos.data_ptr() != capture.carry[0].data_ptr()
+    c = fn(b)
+    torch.cuda.synchronize()
+    assert c.pos.data_ptr() == b.pos.data_ptr() == capture.carry[0].data_ptr()
+    assert torch.equal(a.pos, kept)
+    assert int(c.tick[0]) == int(start.tick[0]) + 8
+
+
+@pytest.mark.cuda
+def test_new_shape_captures_anew_on_card():
+    _require_card()
+    config, start = _settled_bench_batch(16)
+    fn = make_batched_step_fn(config, 2, True, unroll=2, device="cuda")
+    fn(start)
+    fn(start)
+    assert len(fn.graphs.captures) == 1
+    small = type(start)(**{k: v[:8].clone() for k, v in vars(start).items()})
+    got = fn(small)
+    _trees_equal(got, _eager(fn, small), "the 8-world capture")
+    assert len(fn.graphs.captures) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["PGS", "DANTZIG"])
+def test_pgs_and_dantzig_step_functions_run_eager_on_card(solver):
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
+    from rl_ode_physics_tpu_torch.core.world import make_step_fn
+    config = EngineConfig(max_bodies=16, max_pair_candidates=64,
+                          max_contacts=96, solver=SolverKind[solver])
+    for fn in (make_batched_step_fn(config, 2, device="cuda"),
+               make_step_fn(config, 2)):
+        assert fn.graphed is False and "host" in fn.eager_reason
+    batch = replicate(bench_world(config, num_bodies=10, device="cuda"), 4,
+                      device="cuda")
+    fn = make_batched_step_fn(config, 2, device="cuda")
+    _trees_equal(fn(batch), _eager(fn, batch), solver)
+    assert not fn.graphs.captures
+
+
+@pytest.mark.cuda
+def test_graphed_step_and_diagnostics_are_bitwise_eager_on_card():
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.world import (
+        make_diagnostics_step_fn, make_step_fn)
+    config, start = _settled_bench_batch(16)
+    fn = make_step_fn(config, 5, donate=False)
+    assert fn.graphed
+    _trees_equal(fn(start), _eager(fn, start), "make_step_fn")
+    diag = make_diagnostics_step_fn(config)
+    first = diag(start)
+    _trees_equal(first, _eager(diag, start), "diagnostics step")
+    assert int(first[1]["num_contacts"].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, 8])
+def test_graphed_env_is_bitwise_eager_on_card(chunk):
+    """``advance``, ``step`` and ``rollout`` (lidar in the graph) of the
+    rollout workload at 16 worlds, graphed and eager."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import rollout_config
+    from rl_ode_physics_tpu_torch.models.workloads import (
+        rollout_env, seeded_actions)
+    env = rollout_env(rollout_config(64), 16, "cuda", chunk=chunk)
+    assert env.graphed
+    state, _ = env.reset(seed=1)
+    state = _eager(env.rollout, state,
+                   seeded_actions((20, 16, 2, 6), 1, "cuda"))[0]
+    acts = seeded_actions((4, 16, 2, 6), 0, "cuda")
+    _trees_equal(env.advance(state, acts[0]),
+                 _eager(env.advance, state, acts[0]), "advance")
+    first = env.step(state, acts[0])
+    kept = [t.clone() for t in _flat(first)]
+    _trees_equal(first, _eager(env.step, state, acts[0]), "step")
+    env.step(state, acts[1])
+    assert all(torch.equal(a, b) for a, b in zip(_flat(first), kept))
+    _trees_equal(env.rollout(state, acts), _eager(env.rollout, state, acts),
+                 "rollout")
+
+
+def _flat(tree):
+    from rl_ode_physics_tpu_torch.utils import graphs
+    return graphs.flatten(tree)[0]
+
+
+@pytest.mark.cuda
+def test_graphed_es_step_is_bitwise_eager_on_card():
+    _require_card()
+    from rl_ode_physics_tpu_torch.examples.rl_training import make_trainer
+    gen = torch.Generator().manual_seed(1)
+    ew = (torch.randn((12, 6, 2), generator=gen) * 0.1).cuda()
+    eb = (torch.randn((12, 2), generator=gen) * 0.1).cuda()
+    params, step = make_trainer(pop=12, horizon=8, device="cuda")
+    got = step.step_with_noise(params, ew, eb)
+    _trees_equal(got, _eager(step.step_with_noise, params, ew, eb), "ES")
+    _trees_equal(got, step.step_with_noise(params, ew, eb), "ES again")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diagnostics", [False, True])
+def test_graphed_simcore_replays_the_eager_digest_on_card(diagnostics):
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.net.server import SimCore
+    caps = dict(max_bodies=64, max_pair_candidates=256, max_contacts=512)
+    config = EngineConfig.throughput(**caps)
+    live = _server_session(SimCore(config, seed=0, player_capsules=True,
+                                   diagnostics=diagnostics, device="cuda"))
+    eager = _eager(_server_session, SimCore(
+        config, seed=0, player_capsules=True, diagnostics=diagnostics,
+        device="cuda"))
+    assert live.state_digest() == eager.state_digest()
+    if diagnostics:
+        assert live.metrics.rows == eager.metrics.rows
+
+
+@pytest.mark.cuda
+def test_graphed_shards_of_the_card_are_bitwise_eager():
+    _require_card()
+    from rl_ode_physics_tpu_torch.parallel import mesh as pmesh
+    config, batch = _mesh_test_batch("cuda")
+    mesh = pmesh.make_mesh(["cuda:0", "cuda:0"])
+    fn = pmesh.make_sharded_step_fn(config, mesh, substeps=3)
+    assert fn.graphed
+    got = pmesh.gather_batch(fn(pmesh.shard_batch(batch, mesh)))
+    want = pmesh.gather_batch(_eager(fn, pmesh.shard_batch(batch, mesh)))
+    _trees_equal(got, want, "two shards")
+
+
+# last in the file: a capture that fails ends with its stream
+@pytest.mark.cuda
+def test_forced_capture_of_a_host_read_raises_on_card(monkeypatch):
+    """PGS forced through the graphs: the capture raises on its host read,
+    and nothing falls back to the eager loop."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
+    from rl_ode_physics_tpu_torch.utils import graphs
+    config = EngineConfig(max_bodies=16, max_pair_candidates=64,
+                          max_contacts=96, solver=SolverKind.PGS)
+    monkeypatch.setattr(graphs, "capturable", lambda c, j=None: (True, ""))
+    fn = make_batched_step_fn(config, 2, device="cuda")
+    batch = replicate(bench_world(config, num_bodies=10, device="cuda"), 4,
+                      device="cuda")
+    with pytest.raises(RuntimeError):
+        fn(batch)
+    torch.cuda.synchronize()
+    graphs.release_all()
