@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    limit of the card.
 1. build: compiles every hand-written kernel of the main paths from the
    checkout's sources with ``nvcc`` (one ``nvcc`` per source, all started
-   together) and prints the build time; then ``launch_floor_ms``, what an
+   together: the compaction, the mesh kernels, ``pgs_solve``) and prints the build time; then ``launch_floor_ms``, what an
    empty kernel reads under the timer of every kernel time below.
 2. ``compact_rows_t`` against its plain version on the card, at the bench
    path's shapes: B=8192 worlds, D=10, M=384, k=64, mask densities 0,
@@ -124,19 +124,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     substeps on each device, atol 1e-9, tick and overflow exact. In
     float32, from the settled stack: the warm step
     (``ops/warmstart.make_warm_step_fn``, JACOBI and PGS; impulses and keys
-    too) and ``step_with_diagnostics``' counters.
-16. the conformance path at width: the referee's configuration on the
-    settled stack's first world in 1,024 worlds, one warm-up launch of 4
-    substeps and 2 timed launches of 8; zero overflow, finite state;
-    prints body-steps/s, ms/substep, PGS's live-row bound and, under
-    ``torch.profiler``, the launches and kernel time of one substep, with
+    too) and ``step_with_diagnostics``' counters. The card's PGS steps
+    launch ``pgs_solve`` once a substep (16 in float64, 9 in float32,
+    counted).
+16. the conformance path at width, graphed: the referee's configuration
+    on the settled stack's first world in 1,024 worlds, one warm-up launch
+    of 4 substeps and 2 timed launches of 8; zero overflow, finite state;
+    prints body-steps/s, ms/substep, the last live row and, under
+    ``torch.profiler``, the kernels and kernel time of one substep, with
     the device's idle share of the untraced substep (the trace slows the
-    host, so the traced substep's wall time would count that as idle). It
-    launches no hand kernel (counted). Then the settled ridge mesh's first world in 1,024
-    worlds for 16 substeps and one ``sphere_mesh_contacts`` query of every
-    world's sphere: the float64 tile kernel once per substep, the float64
-    per-triangle kernel once, each held to its plain version on that
-    path's own tensors.
+    host, so the traced substep's wall time would count that as idle).
+    ``pgs_solve`` once a substep and no other hand kernel (counted); its
+    arguments are caught on an eager run of one more substep, which the
+    graphed run equals bitwise. Then the settled ridge mesh's first world
+    in 1,024 worlds for 16 substeps and one ``sphere_mesh_contacts`` query
+    of every world's sphere: the float64 tile kernel and ``pgs_solve``
+    once per substep, the float64 per-triangle kernel once, the mesh
+    kernels held to their plain versions on that path's own tensors.
 17. the device probes: each probe kernel against its plain version at a
     few trips (``probe_vpu`` bit for bit; ``probe_mxu``, one cluster of 16
     blocks, at A = 1, B = 1/16 bit for bit after 1, 2, 3, 7 and 64
@@ -170,11 +174,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     a ball joint): card against CPU under the referee's PGS and DANTZIG in
     float64 (atol 1e-9) and under ``core.config.hinge_chain_config`` (the
     throughput policy, capacities 2x the JAX package's peaks) in float32
-    (atol 1e-4), 4 kicked worlds settled 40 substeps on the CPU; then 8,192
-    worlds under that JACOBI configuration (48 + 96 substeps, the
-    compaction kernel once a substep) and 1,024 worlds under PGS in float64
-    (2 + 4 substeps), each with body-steps/s, ms a substep and the
-    launches of one substep.
+    (atol 1e-4), 4 kicked worlds settled 40 substeps on the CPU (PGS and
+    DANTZIG launch ``pgs_solve`` once a card substep: in the sweeps, and
+    as DANTZIG's joint passes alone; counted); then 8,192 worlds under that
+    JACOBI configuration (48 + 96 substeps, the compaction kernel once a
+    substep) and 1,024 worlds under PGS in float64 (2 + 4 substeps,
+    ``pgs_solve`` once a substep, its arguments caught on one more), both
+    graphed, each with body-steps/s, ms a substep and the kernels of one
+    substep.
+20b. ``pgs_solve`` against its plain version at full width, on the
+    tensors phases 16 and 20 caught: conformance-1024's (μ = ∞ as on the
+    path, cold and warm; μ = 0.4; a μ per row, a third ∞; no friction),
+    the hinge chain's joint rows in the sweeps and its joint passes alone
+    (DANTZIG's entry, ω = 1), each in float64 (atol 1e-12) and float32
+    (atol 1e-5) after one 20-sweep solve; the kernel alone on packed
+    buffers, the wrapper with its packing and the plain loop timed on the
+    path's own inputs, beside the bound (``utils/bounds.pgs_bound``: bytes
+    and operations, and the chain floor of the longest world).
 21. the game server (``net/``): the body API card against CPU on 4
     worlds, every field bitwise; ``SimCore`` at the reference's 512 slots
     under the CLI's configuration (``EngineConfig(max_bodies=512,
@@ -267,8 +283,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     printed with the card's name and power limit; the kernels line carries
     the three records as ``on_<path>_data``.
 28. graphs (``utils/graphs.py``): every path's step function, graphed or
-    eager with the host read that keeps it so (PGS, DANTZIG and the hinge
-    chain under PGS eager, every JACOBI path graphed); then each JACOBI
+    eager with the host read that keeps it so (DANTZIG eager, every JACOBI
+    and PGS path graphed); conformance-1024, its ridge-mesh half and the
+    hinge chain under PGS (float64, 1,024 worlds), 4 substeps graphed
+    against eager, bitwise, ms a substep in turns and each route's
+    ``route_profile`` of one substep; then each JACOBI
     entry point at full width, graphed against its eager loop from the
     same state, bitwise: the bench (``bench_config(64)``, phase 4's
     settled 8192 worlds, 96 substeps) at unroll 1, 4 and 96, each
@@ -282,13 +301,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``utils/profiling.route_profile``: host launches a call, device ms, and
     the busy and idle shares of one traced call.
 29. prints one JSON line of every kernel the run launched (each float64
-    instance as a sub-entry of its kernel, with its own launches), then the
-    last line ``{"ok": true, "device": {...}}``.
+    instance as a sub-entry of its kernel, with its own launches;
+    ``pgs_solve``'s record is of its float64 path, its float32 instance the
+    sub-entry ``f32``), then the last line ``{"ok": true, "device":
+    {...}}``.
 
-Every JACOBI path runs graphed by default (``utils/graphs.py``), and the
-launch counts are per replay (a capture records what the wrappers
+Every JACOBI and PGS path runs graphed by default (``utils/graphs.py``),
+and the launch counts are per replay (a capture records what the wrappers
 counted, each replay adds it). A kernel's hold on a path's own tensors
-(phases 4, 6, 9, 10, 13, 16, 21, 22, 26, 27) catches the wrapper during
+(phases 4, 6, 9, 10, 13, 16, 20, 21, 22, 26, 27) catches the wrapper during
 an eager run of the same work (``disable_graphs``), because a captured
 call's tensors hold no computed values; where that work returns tensors
 it runs once more graphed and must equal the eager run bitwise, and a
@@ -361,6 +382,11 @@ CONF_TIMED_LAUNCHES = 2
 CONF_SETTLE = 48             # CPU substeps before a card-vs-CPU comparison
 RIDGE_SETTLE = 64            # the ridge scene's bodies land at 50-70
 CONF_ATOL = 1e-9             # float64 card against float64 CPU
+# pgs_solve against its plain version on the card after one 20-sweep
+# solve: the kernel rounds as the plain version does on the CPU, the plain
+# version's card kernels may fuse a multiply-add otherwise
+PGS_ATOL_F64 = 1e-12
+PGS_ATOL_F32 = 1e-5
 RIDGE_SUBSTEPS = 16
 # the bench's A/B levers at full width, from phase 4's settled batch
 LEVERS = {"solver_cm": dict(solver_cm=True),
@@ -448,12 +474,17 @@ LIBRARY_CALLS = dict(
     vpu="torch.addcmul a step, the fused chain",
     mxu="torch.mm(acc, B*0.0625) a product")
 PROBE_NAMES = ("probe_kernel_matmuls", "probe_kernel_vpu", "probe_mxu_peak")
-# phase 28, graphed against eager: the bench's unrolls and timed turns, the
-# substeps of the two shards
+# phase 28, graphed against eager: the bench's unrolls and timed turns
+# (one, to pay for phase 20b), the other paths' turns, the substeps of the
+# two shards
 GRAPH_UNROLLS = (1, 4, SUBSTEPS_PER_LAUNCH)
+GRAPH_BENCH_TURNS = 1
 GRAPH_TURNS = 2
 GRAPH_PROFILED = 8
 GRAPH_MESH_SUBSTEPS = 8
+# the PGS paths graphed against eager (float64, 1,024 worlds): substeps a
+# call
+GRAPH_PGS_SUBSTEPS = 4
 
 
 def log(msg: str) -> None:
@@ -478,9 +509,9 @@ def phase_device():
 
 def phase_build():
     from rl_ode_physics_tpu_torch.ops import (
-        compaction_kernel, kernel_build, mesh_kernels)
+        compaction_kernel, kernel_build, mesh_kernels, pgs_kernel)
     from rl_ode_physics_tpu_torch.utils.timing import launch_floor_ms
-    builds = [compaction_kernel.build, mesh_kernels.build,
+    builds = [compaction_kernel.build, mesh_kernels.build, pgs_kernel.build,
               lambda: kernel_build.build("launch_floor.cu")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -1340,9 +1371,11 @@ def phase_pipelines_card_vs_cpu():
 
 
 def _hand_kernels():
-    from rl_ode_physics_tpu_torch.ops import compaction_kernel, mesh_kernels
+    from rl_ode_physics_tpu_torch.ops import (
+        compaction_kernel, mesh_kernels, pgs_kernel)
     return (compaction_kernel.compact_rows_t,
-            mesh_kernels.sphere_mesh_d2_tiles, mesh_kernels.sphere_mesh_d2)
+            mesh_kernels.sphere_mesh_d2_tiles, mesh_kernels.sphere_mesh_d2,
+            pgs_kernel.pgs_solve)
 
 
 def _check_batch(batch, label, tick):
@@ -1467,7 +1500,7 @@ def phase_mini_main_path(config, card):
         f"overflow 0, tick {total}, peak memory {peak_gb:.3f} GB, hand "
         f"kernel launches {launches}")
     want = {"compact_rows_t": total, "sphere_mesh_d2_tiles": 0,
-            "sphere_mesh_d2": 0}
+            "sphere_mesh_d2": 0, "pgs_solve": 0}
     if launches != want:
         raise AssertionError(f"mini-stack path launches {launches}, "
                              f"expected {want}")
@@ -1610,8 +1643,10 @@ def phase_conformance_card_vs_cpu():
     and one ridge-mesh state: in float64 the referee's step on both (the
     tile kernel's float64 instance on the card) and the typed path (the
     compaction's float64 instance); in float32 the warm step (JACOBI and
-    PGS) and ``step_with_diagnostics``. Returns the typed path's
-    compaction launches and the two settled states."""
+    PGS) and ``step_with_diagnostics``. Returns the float64 and float32
+    paths' hand-kernel launches ({path: {kernel: launches}}: the typed
+    path's compaction, the card's PGS steps' ``pgs_solve``) and the two
+    settled states."""
     import dataclasses
 
     from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
@@ -1619,8 +1654,10 @@ def phase_conformance_card_vs_cpu():
     from rl_ode_physics_tpu_torch.models.scenes import (
         mini_stack_world, ridge_mesh_scene)
     from rl_ode_physics_tpu_torch.ops import (
-        compaction_kernel, mesh_kernels, warmstart)
+        compaction_kernel, mesh_kernels, pgs_kernel, warmstart)
 
+    pgs = pgs_kernel.pgs_solve
+    start_pgs = pgs.launches
     config = referee_config()
     stack = settled_on_cpu(config, mini_stack_world(config, device="cpu"),
                            None, CONF_SETTLE, kick_seed=3)
@@ -1644,8 +1681,13 @@ def phase_conformance_card_vs_cpu():
     if typed_f64 != 8:
         raise AssertionError(f"typed float64: compact_rows_t launched "
                              f"{typed_f64} times in 8 card substeps")
+    pgs_f64 = pgs.launches - start_pgs
+    if pgs_f64 != 16:
+        raise AssertionError(f"conformance float64: pgs_solve launched "
+                             f"{pgs_f64} times in 16 card substeps")
 
     stack32 = _as_float32(stack)
+    before = pgs.launches
     for kind in ("JACOBI", "PGS"):
         cfg = EngineConfig(**CONF_CAPS, solver=SolverKind[kind])
         step = warmstart.make_warm_step_fn(cfg)
@@ -1672,7 +1714,18 @@ def phase_conformance_card_vs_cpu():
     log(f"step_with_diagnostics (conformance policy, float32), card vs CPU: "
         f"counts exact, floats within {worst:.3e}: "
         f"{ {k: v.tolist() for k, v in want.items()} }")
-    return {"compact_rows_t": typed_f64}, stack, (ridge, mesh)
+    pgs_f32 = pgs.launches - before
+    if pgs_f32 != 9:
+        raise AssertionError(f"float32 PGS: pgs_solve launched {pgs_f32} "
+                             f"times in 8 warm substeps and 1 diagnostics "
+                             f"step on the card")
+    log(f"pgs_solve launches on the card's conformance steps: {pgs_f64} "
+        f"float64 (16 substeps), {pgs_f32} float32 (8 warm substeps, 1 "
+        f"diagnostics step)")
+    f64_paths = {"typed_f64_card_vs_cpu": {"compact_rows_t": typed_f64},
+                 "conformance_card_vs_cpu": {"pgs_solve": pgs_f64}}
+    return (f64_paths, {"conformance_f32_card_vs_cpu": {"pgs_solve": pgs_f32}},
+            stack, (ridge, mesh))
 
 
 def _launches_of(fn) -> dict:
@@ -1697,15 +1750,24 @@ def _launches_of(fn) -> dict:
     return dict(launches=len(kernels), device_ms=device_ms, wall_ms=wall_ms)
 
 
+def _pgs_args(args) -> dict:
+    """The caught arguments of a ``pgs_solve`` call, by name."""
+    import inspect
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel
+    names = inspect.signature(pgs_kernel.pgs_solve).parameters
+    return dict(zip(names, args))
+
+
 def phase_conformance_path(card, stack, ridge):
     """The conformance configuration at width: the referee's float64 PGS
-    step on the settled mini stack's first world in 1,024 worlds, then on
-    the settled ridge mesh's, whose probes go through the tile kernel's
-    float64 instance."""
+    step on the settled mini stack's first world in 1,024 worlds, graphed,
+    the PGS kernel once a substep, its arguments caught on one more
+    substep of the path; then the settled ridge mesh's, whose probes go
+    through the tile kernel's float64 instance."""
     import torch
     from rl_ode_physics_tpu_torch.core.state import BodyType
     from rl_ode_physics_tpu_torch.ops import (
-        broadphase, mesh_kernels, narrowphase, solver)
+        broadphase, mesh_kernels, narrowphase, pgs_kernel, solver)
     from rl_ode_physics_tpu_torch.ops import trimesh as tm
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate, take_worlds)
@@ -1720,9 +1782,11 @@ def phase_conformance_path(card, stack, ridge):
     for fn in _hand_kernels():
         fn.launches = 0
     t0 = time.perf_counter()
-    batch = warm(batch)
+    batch = warm(batch)                     # its capture included
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    _capture_untimed(step, batch)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(CONF_TIMED_LAUNCHES):
         batch = step(batch)
@@ -1732,9 +1796,11 @@ def phase_conformance_path(card, stack, ridge):
     timed = CONF_SUBSTEPS_PER_LAUNCH * CONF_TIMED_LAUNCHES
     _check_batch(batch, "conformance path",
                  int(stack.tick[0]) + CONF_WARMUP + timed)
-    if any(launches.values()):
-        raise AssertionError(f"conformance path launched hand kernels: "
-                             f"{launches}")
+    want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": 0,
+            "sphere_mesh_d2": 0, "pgs_solve": CONF_WARMUP + timed}
+    if launches != want:
+        raise AssertionError(f"conformance path launches {launches}, "
+                             f"expected {want}")
     contacts = narrowphase.narrowphase(
         batch, broadphase.broadphase(batch, config), config)
     bound = solver.live_row_bound(contacts.valid)
@@ -1750,19 +1816,25 @@ def phase_conformance_path(card, stack, ridge):
     idle = max(0.0, 1.0 - prof["device_ms"] / substep_ms)
     log(f"conformance path (referee configuration: PGS "
         f"{config.solver_iterations} sweeps, exact box clip, K="
-        f"{config.max_contacts_per_pair}, float64): {CONF_WORLDS} worlds x "
-        f"{dynamic} dynamic bodies of the settled mini stack, {timed} "
-        f"substeps in {secs:.3f} s ({substep_ms:.3f} ms/substep; "
-        f"warm-up launch of {CONF_WARMUP} substeps {warm_s:.3f} s): "
-        f"{rate:.1f} body-steps/s on {card}; overflow 0; live-row bound "
-        f"{bound} of {config.max_contacts} rows (contacts per world "
-        f"{int(contacts.count.min())}-{int(contacts.count.max())}); one "
-        f"substep under torch.profiler ({prof_s:.1f} s with the trace): "
-        f"{prof['launches']} launches, {prof['device_ms']:.3f} ms of kernel "
+        f"{config.max_contacts_per_pair}, float64), graphed: {CONF_WORLDS} "
+        f"worlds x {dynamic} dynamic bodies of the settled mini stack, "
+        f"{timed} substeps in {secs:.3f} s ({substep_ms:.3f} ms/substep; "
+        f"warm-up launch of {CONF_WARMUP} substeps with its capture "
+        f"{warm_s:.3f} s): {rate:.1f} body-steps/s on {card}; overflow 0; "
+        f"last live row {bound} of {config.max_contacts} rows (contacts "
+        f"per world {int(contacts.count.min())}-"
+        f"{int(contacts.count.max())}); one graphed substep under "
+        f"torch.profiler ({prof_s:.1f} s with the trace): "
+        f"{prof['launches']} kernels, {prof['device_ms']:.3f} ms of kernel "
         f"time, idle {idle:.3f} of the untraced {substep_ms:.3f} ms substep "
-        f"(the traced substep took {prof['wall_ms']:.3f} ms); "
-        f"hand kernel launches {launches} (the classic pipeline has none)")
-    del batch, contacts
+        f"(the traced substep took {prof['wall_ms']:.3f} ms); hand kernel "
+        f"launches {launches}")
+    del contacts
+    # the kernel's arguments on the path's own tensors (phase 20b holds
+    # the kernel to its plain version on them)
+    _, caught = _caught_last(pgs_kernel, "pgs_solve", lambda: one(batch),
+                             "conformance", 1)
+    conf_args = _pgs_args(caught)
 
     state, mesh = ridge
     mesh = mesh.to("cuda")
@@ -1771,6 +1843,8 @@ def phase_conformance_path(card, stack, ridge):
                                  device="cuda", trimesh=mesh)
     for fn in _hand_kernels():
         fn.launches = 0
+    _capture_untimed(rstep, rbatch)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     rbatch = rstep(rbatch)
     torch.cuda.synchronize()
@@ -1783,21 +1857,21 @@ def phase_conformance_path(card, stack, ridge):
     _check_batch(rbatch, "ridge-mesh conformance path",
                  int(state.tick[0]) + RIDGE_SUBSTEPS)
     want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": RIDGE_SUBSTEPS,
-            "sphere_mesh_d2": 1}
+            "sphere_mesh_d2": 1, "pgs_solve": RIDGE_SUBSTEPS}
     if rlaunches != want:
         raise AssertionError(f"ridge-mesh conformance path launches "
                              f"{rlaunches}, expected {want}")
     if not all(bool(torch.isfinite(x).all()) for x in query):
         raise AssertionError("ridge mesh: non-finite sphere_mesh_contacts")
-    log(f"ridge-mesh conformance path (float64): {CONF_WORLDS} worlds of "
-        f"the settled ridge scene, {RIDGE_SUBSTEPS} substeps in {rsecs:.3f} s "
-        f"({rsecs / RIDGE_SUBSTEPS * 1e3:.3f} ms/substep); "
+    log(f"ridge-mesh conformance path (float64), graphed: {CONF_WORLDS} "
+        f"worlds of the settled ridge scene, {RIDGE_SUBSTEPS} substeps in "
+        f"{rsecs:.3f} s ({rsecs / RIDGE_SUBSTEPS * 1e3:.3f} ms/substep); "
         f"sphere_mesh_contacts on the {CONF_WORLDS} spheres, one query: "
         f"{int(query[3].any(1).sum())} touch the mesh; launches {rlaunches}")
     tiles64 = tiles_on_path_data(
         lambda: make_batched_step_fn(config, substeps=1, device="cuda",
                                      trimesh=mesh)(rbatch),
-        "ridge-mesh conformance", 1, graphed_check=False)   # PGS: eager
+        "ridge-mesh conformance", 1)
     tris = mesh.transposed()
     got = mesh_kernels.sphere_mesh_d2(centres, *tris)
     ref = tm.sphere_mesh_d2_plain(centres, *tris)
@@ -1817,7 +1891,8 @@ def phase_conformance_path(card, stack, ridge):
         f"{d2_64['plain_ms']:.5f} bound_ms={d2_64['bound_ms']:.6f}")
     return ({"conformance": launches,
              "ridge_mesh_conformance": rlaunches},
-            dict(tiles=tiles64, d2=d2_64))
+            dict(tiles=tiles64, d2=d2_64), conf_args,
+            dict(conformance=batch, ridge=(rbatch, mesh)))
 
 
 def phase_device_probes(card):
@@ -1944,19 +2019,25 @@ def phase_device_probes(card):
     return {"device_probe": launches}, entries, report["measured"]
 
 
-def _timed_run(step, batch, label, tick):
-    """One launch of ``step`` on ``batch`` timed after the card is idle;
-    raises unless the result holds (``_check_batch``). A graphed step is
-    captured by an untimed call first (its launches are taken back from
-    the counts), so that the time is the replays'. Returns (batch,
-    seconds)."""
-    import torch
+def _capture_untimed(step, batch):
+    """A graphed ``step`` captured by an untimed call on ``batch``, its
+    launches taken back from the counts, so that a timed call is the
+    replays'."""
     from rl_ode_physics_tpu_torch.utils import graphs
     if step.graphed:
         counters = graphs.kernel_counters()
         before = graphs.read_counts(counters)
         step(batch)
         graphs.set_counts(counters, before)
+
+
+def _timed_run(step, batch, label, tick):
+    """One launch of ``step`` on ``batch`` timed after the card is idle;
+    raises unless the result holds (``_check_batch``). A graphed step is
+    captured by an untimed call first (``_capture_untimed``). Returns
+    (batch, seconds)."""
+    import torch
+    _capture_untimed(step, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batch = step(batch)
@@ -2149,7 +2230,7 @@ def phase_dantzig(card, stack, ridge):
     rlaunches = {fn.__name__: fn.launches for fn in _hand_kernels()}
     want = {"compact_rows_t": 0,
             "sphere_mesh_d2_tiles": DANTZIG_RIDGE_SUBSTEPS,
-            "sphere_mesh_d2": 0}
+            "sphere_mesh_d2": 0, "pgs_solve": 0}
     if rlaunches != want:
         raise AssertionError(f"DANTZIG ridge mesh launches {rlaunches}, "
                              f"expected {want}")
@@ -2162,18 +2243,24 @@ def phase_dantzig(card, stack, ridge):
 
 def phase_hinge_chain(card):
     """``hinge_chain_scene``, card against CPU under the referee's PGS and
-    DANTZIG in float64 and under ``hinge_chain_config`` (throughput JACOBI)
-    in float32; then 8,192 worlds under that JACOBI configuration and
-    1,024 under PGS in float64."""
+    DANTZIG in float64 (their joint passes ``pgs_solve``, in the sweeps
+    and alone) and under ``hinge_chain_config`` (throughput JACOBI) in
+    float32; then 8,192 worlds under that JACOBI configuration and 1,024
+    under PGS in float64, graphed, the PGS kernel's arguments caught on
+    one more substep. Returns ({path: launches}, those arguments, the PGS
+    batch and its joint table)."""
     import torch
     from rl_ode_physics_tpu_torch.core.config import (
         SolverKind, hinge_chain_config)
     from rl_ode_physics_tpu_torch.models.scenes import hinge_chain_scene
     from rl_ode_physics_tpu_torch.ops import joints as joint_ops
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel, solver
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
 
     jacobi = hinge_chain_config()
+    pgs = pgs_kernel.pgs_solve
+    paths = {}
     for label, config, atol in (
             ("PGS float64", referee_config(), CONF_ATOL),
             ("DANTZIG float64", referee_dantzig_config(), CONF_ATOL),
@@ -2181,10 +2268,19 @@ def phase_hinge_chain(card):
         world, joints = hinge_chain_scene(config, device="cpu")
         start = settled_on_cpu(config, world, None, HINGE_SETTLE,
                                kick_seed=5, joints=joints)
+        before = pgs.launches
         _card_matches_cpu(config, start, None, f"hinge chain, {label}",
                           atol=atol, joints=joints)
+        want = 0 if config.solver is SolverKind.JACOBI else 8
+        if pgs.launches - before != want:
+            raise AssertionError(f"hinge chain, {label}: pgs_solve launched "
+                                 f"{pgs.launches - before} times in 8 card "
+                                 f"substeps")
+        if want:
+            paths[f"hinge_chain_card_vs_cpu_{config.solver.name.lower()}"] = {
+                "pgs_solve": want}
 
-    paths = {}
+    caught = None
     for label, config, worlds, warm, timed in (
             ("hinge_chain_jacobi", jacobi, WORLDS, HINGE_WARMUP,
              HINGE_SUBSTEPS),
@@ -2201,44 +2297,183 @@ def phase_hinge_chain(card):
             make_batched_step_fn(config, substeps=timed, device="cuda",
                                  joints=joints), batch, label, warm + timed)
         launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
+        is_pgs = config.solver is SolverKind.PGS
         want = {"compact_rows_t": (warm + timed
                                    if config.typed_buckets else 0),
-                "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0}
+                "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0,
+                "pgs_solve": warm + timed if is_pgs else 0}
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, expected "
                                  f"{want}")
         prof = _one_substep_profile(config, batch, joints=joints)
-        # one joint pass alone: the batched one under JACOBI, the
-        # sequential one over the live rows under PGS
+        # one joint pass alone: the batched one under JACOBI; under PGS the
+        # kernel's joint-only entry (all of a solve's passes, one launch)
         rows = joint_ops.joint_rows(batch, joints, config)
-        vel8 = torch.cat([batch.linvel, batch.angvel,
-                          torch.zeros_like(batch.linvel[..., :2])], -1)
-        lam = torch.zeros_like(rows["rhs"])
-        cfm = config.cfm / config.dt
-        if config.solver is SolverKind.PGS:
-            visit = joint_ops.live_joint_rows(rows)
-            joint_pass = _launches_of(lambda: joint_ops.joint_iteration_seq(
-                vel8, rows, lam, config.sor_omega, cfm, visit))
-            what = f"joint_iteration_seq over {len(visit)} live rows"
+        vel = torch.cat([batch.linvel, batch.angvel], -1)
+        if is_pgs:
+            params = dict(solver.pgs_params(config), omega=1.0)
+            joint_pass = _launches_of(lambda: pgs_kernel.pgs_solve(
+                vel, None, None, rows, **params))
+            what = (f"pgs_solve joint-only entry ({config.solver_iterations}"
+                    f" passes)")
         else:
+            vel8 = torch.cat([vel, torch.zeros_like(vel[..., :2])], -1)
             joint_pass = _launches_of(lambda: joint_ops.joint_iteration(
-                vel8, rows, lam, config.jacobi_omega, cfm))
-            what = "joint_iteration"
+                vel8, rows, torch.zeros_like(rows["rhs"]),
+                config.jacobi_omega, config.cfm / config.dt))
+            what = (f"joint_iteration ({config.solver_iterations} a "
+                    f"substep)")
         dynamic = int((world.inv_mass[0] > 0).sum())
         substep_ms = secs / timed * 1e3
-        log(f"{label}: {worlds} worlds x {dynamic} dynamic bodies, 2 joints "
-            f"each, {timed} substeps in {secs:.3f} s ({substep_ms:.3f} "
-            f"ms/substep; warm-up {warm} substeps {warm_s:.3f} s): "
-            f"{worlds * dynamic * timed / secs:.1f} body-steps/s on {card}; "
-            f"overflow 0; one substep under torch.profiler: "
-            f"{prof['launches']} launches, {prof['device_ms']:.3f} ms of "
-            f"kernel time, of which one {what} {joint_pass['launches']} "
-            f"launches ({config.solver_iterations} a substep); hand kernel "
-            f"launches {launches}")
+        log(f"{label}, graphed: {worlds} worlds x {dynamic} dynamic bodies, "
+            f"2 joints each, {timed} substeps in {secs:.3f} s "
+            f"({substep_ms:.3f} ms/substep; warm-up {warm} substeps "
+            f"{warm_s:.3f} s): {worlds * dynamic * timed / secs:.1f} "
+            f"body-steps/s on {card}; overflow 0; one substep under "
+            f"torch.profiler: {prof['launches']} kernels, "
+            f"{prof['device_ms']:.3f} ms of kernel time; one {what}: "
+            f"{joint_pass['launches']} kernels; hand kernel launches "
+            f"{launches}")
         paths[label] = launches
-        del batch
+        if is_pgs:
+            one = make_batched_step_fn(config, substeps=1, device="cuda",
+                                       joints=joints)
+            _, args = _caught_last(pgs_kernel, "pgs_solve",
+                                   lambda: one(batch), label, 1)
+            caught = (_pgs_args(args), batch, joints)
+        else:
+            del batch
         torch.cuda.empty_cache()
-    return paths
+    return paths, caught
+
+
+def phase_pgs_kernel(card, conf_args, hinge_args):
+    """``pgs_solve`` against its plain version at full width, on the
+    tensors the conformance path (1,024 worlds, float64) and the PGS hinge
+    chain path handed it: each friction case (as on the path: μ = ∞; μ =
+    0.4; a μ per row, a third of them ∞; no friction at ω = 1), cold and
+    warm (random impulses on the live rows), in float64 and float32; the
+    hinge chain's joint rows in the sweeps, and its joint passes alone (the
+    joint-only entry, ω = 1). float64 within ``PGS_ATOL_F64``, float32
+    within ``PGS_ATOL_F32``. The kernel alone (one launch on packed
+    buffers) and the plain loop timed on the path's own inputs in each
+    dtype, beside the bound. Returns the kernels line's entry."""
+    import torch
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel, solver
+    from rl_ode_physics_tpu_torch.utils.bounds import pgs_bound
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    keys = ("iterations", "omega", "cfm_term", "friction", "mu",
+            "per_body_surface")
+    base = {k: conf_args[k] for k in keys}
+    rows64 = conf_args["rows"]
+    vel64, lam64 = conf_args["vel"], conf_args["lam"]
+    valid = rows64["valid"]
+    gen = torch.Generator("cuda").manual_seed(11)
+    mu_row = 0.2 + 0.8 * torch.rand(valid.shape, generator=gen,
+                                    device="cuda", dtype=torch.float64)
+    mu_row = torch.where(torch.rand(valid.shape, generator=gen,
+                                    device="cuda") < 1 / 3, torch.inf, mu_row)
+    warm_lam = torch.where(valid[..., None], 0.02 * torch.rand(
+        lam64.shape, generator=gen, device="cuda", dtype=torch.float64), 0.0)
+    cases = {"path": ({}, False), "path_warm": ({}, True),
+             "mu_finite": (dict(mu=0.4), False),
+             "per_body_surface": (dict(per_body_surface=True), False),
+             "no_friction": (dict(friction=False, omega=1.0), False)}
+    hv, hrows, hjrows = (hinge_args["vel"], hinge_args["rows"],
+                         hinge_args["joints_rows"])
+    hbase = {k: hinge_args[k] for k in keys}
+
+    def cast(x, f):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: cast(v, f) for k, v in x.items()}
+        return x.to(f) if x.is_floating_point() else x
+
+    def held(vel, lam, rows, jrows, params, f, label):
+        vel, lam, rows, jrows = (cast(x, f) for x in (vel, lam, rows, jrows))
+        before = pgs_kernel.pgs_solve.launches
+        got = pgs_kernel.pgs_solve(vel, lam, rows, jrows, **params)
+        if pgs_kernel.pgs_solve.launches != before + 1:
+            raise AssertionError(f"pgs_solve {label}: not one launch")
+        want = solver.pgs_sweeps_plain(vel, lam, rows, jrows, **params)
+        torch.cuda.synchronize()
+        errs = [float((got[0] - want[0]).abs().max())]
+        if lam is not None:
+            errs.append(float((got[1] - want[1]).abs().max()))
+        tol = PGS_ATOL_F64 if f == torch.float64 else PGS_ATOL_F32
+        if not all(e <= tol for e in errs):
+            raise AssertionError(f"pgs_solve {label} ({f}): differs from "
+                                 f"its plain version by {errs} > {tol}")
+        moved = float((got[0] - vel).abs().max())
+        if not moved > 0:
+            raise AssertionError(f"pgs_solve {label}: the rows did nothing")
+        return max(errs)
+
+    out = {}
+    for f in (torch.float64, torch.float32):
+        name = "float64" if f == torch.float64 else "float32"
+        errs = {}
+        for label, (over, warm) in cases.items():
+            params = dict(base, **over)
+            rows = rows64
+            if params["per_body_surface"]:
+                rows = dict(rows64, mu=mu_row)
+            errs[label] = held(vel64, warm_lam if warm else lam64, rows,
+                               None, params, f, label)
+        errs["hinge_chain_joints"] = held(hv, hinge_args["lam"], hrows,
+                                          hjrows, hbase, f, "hinge chain")
+        errs["joint_only"] = held(hv, None, None, hjrows,
+                                  dict(hbase, omega=1.0), f, "joint-only")
+        # the kernel alone and the plain loop on the path's own inputs
+        vel, lam, rows = (cast(x, f) for x in (vel64, lam64, rows64))
+        packed = pgs_kernel.pack(vel, lam, rows, None)
+        mode = pgs_kernel.friction_mode(base["friction"], base["mu"],
+                                        base["per_body_surface"])
+        run = dict(iterations=base["iterations"], omega=base["omega"],
+                   cfm_term=base["cfm_term"], mode=mode, mu=base["mu"])
+        kernel_ms = cuda_ms(lambda: pgs_kernel.launch(packed, **run))
+        wrapper_ms = cuda_ms(lambda: pgs_kernel.pgs_solve(vel, lam, rows,
+                                                          **base))
+        plain_ms = cuda_ms(lambda: solver.pgs_sweeps_plain(
+            vel, lam, rows, **base), iters=2)
+        hpacked = pgs_kernel.pack(cast(hv, f), cast(hinge_args["lam"], f),
+                                  cast(hrows, f), cast(hjrows, f))
+        hinge_ms = cuda_ms(lambda: pgs_kernel.launch(hpacked, **dict(
+            run, omega=hbase["omega"])))
+        bound = pgs_bound(valid, None, vel.shape[1], base["iterations"], f,
+                          base["friction"])
+        rows_per_world = valid.sum(1)
+        out[name] = dict(
+            max_abs_err=max(errs.values()), errors=errs, ms=kernel_ms,
+            wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+            bytes_ms=bound["bytes_ms"], ops_ms=bound["ops_ms"],
+            chain_ms=bound["chain_ms"], library_ms=None,
+            hinge_chain_ms=hinge_ms,
+            shape=[vel.shape[0], vel.shape[1], valid.shape[1]],
+            live_rows=[int(rows_per_world.min()), int(rows_per_world.max())])
+        log(f"pgs_solve {name} at conformance-1024's own inputs (B="
+            f"{vel.shape[0]} worlds, N={vel.shape[1]} slots, C="
+            f"{valid.shape[1]} rows, {int(rows_per_world.min())}-"
+            f"{int(rows_per_world.max())} live a world, "
+            f"{base['iterations']} sweeps): every case within "
+            f"{PGS_ATOL_F64 if f == torch.float64 else PGS_ATOL_F32} of the "
+            f"plain version, max abs err {errs}; kernel_ms={kernel_ms:.5f} "
+            f"(with the wrapper's packing {wrapper_ms:.5f}) plain_ms="
+            f"{plain_ms:.3f} bound_ms={bound['bound_ms']:.6f} "
+            f"({bound['bound_by']}; bytes {bound['bytes_ms']:.6f}, "
+            f"operations {bound['ops_ms']:.6f}), chain floor "
+            f"{bound['chain_ms']:.5f} ms; the hinge chain's solve with its "
+            f"joint rows {hinge_ms:.5f} ms; library_ms=null (no one "
+            f"PyTorch call runs a sequential sweep) on {card}")
+    entry = dict(name="pgs_solve", route="cuda",
+                 source="rl_ode_physics_tpu_torch/csrc/pgs_solve.cu",
+                 replaces="rl_ode_physics_tpu/ops/solver.py:285",
+                 launches=None, dtype="float64", **out["float64"])
+    entry["f32"] = out["float32"]
+    return entry
 
 
 def _server_session(sim, ticks, timed_from, at_tick=None):
@@ -2464,7 +2699,7 @@ def phase_game_server(card):
     replay_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
     want = {"compact_rows_t": SERVER_TICKS + SERVER_THROUGHPUT_REPLAYED,
-            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0}
+            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0, "pgs_solve": 0}
     if launches != want:
         raise AssertionError(f"server, throughput policy: launches "
                              f"{launches}, expected {want}")
@@ -3163,8 +3398,7 @@ def _route_table():
         config, device="cuda", joints=joints), label)
         for label, (config, joints) in rows.items()}
     eager = sorted(k for k, v in graphed.items() if not v)
-    if eager != sorted(["conformance (PGS float64)", "dantzig (float64)",
-                        "hinge_chain_pgs_f64"]):
+    if eager != ["dantzig (float64)"]:
         raise AssertionError(f"eager step functions: {eager}")
 
 
@@ -3221,7 +3455,7 @@ def _graphed_bench(config, settled, card):
     del want, out
     timed = {label: [] for label in routes}
     order = list(routes)
-    for turn in range(GRAPH_TURNS):
+    for turn in range(GRAPH_BENCH_TURNS):
         for label in (order if turn % 2 == 0 else order[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3342,11 +3576,60 @@ def _in_turns(calls: dict, turns: int) -> dict:
     return out
 
 
-def phase_graphs(card, settled, server):
+def _graphed_pgs(card, pgs_paths):
+    """conformance-1024, its ridge-mesh half and hinge-chain PGS (float64,
+    1,024 worlds) from their settled batches: ``GRAPH_PGS_SUBSTEPS``
+    substeps graphed against the eager loop, bitwise; ms a substep of each
+    route in turns; each route's ``route_profile`` of a one-substep call
+    (host launches a call, device ms, busy and idle shares)."""
+    import torch
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+    from rl_ode_physics_tpu_torch.utils import graphs, profiling
+
+    config = referee_config()
+    rbatch, mesh = pgs_paths["ridge"]
+    hbatch, joints = pgs_paths["hinge"]
+    cells = {"conformance-1024": (pgs_paths["conformance"], {}),
+             "ridge-mesh conformance-1024": (rbatch, dict(trimesh=mesh)),
+             "hinge-chain PGS float64": (hbatch, dict(joints=joints))}
+    out = {}
+    n = GRAPH_PGS_SUBSTEPS
+    for label, (batch, extra) in cells.items():
+        fn = make_batched_step_fn(config, n, False, device="cuda", **extra)
+        one = make_batched_step_fn(config, 1, False, device="cuda", **extra)
+        if not (fn.graphed and one.graphed):
+            raise AssertionError(f"{label}: not graphed: {fn.eager_reason}")
+
+        def eager(f=fn):
+            with graphs.disable_graphs():
+                return f(batch)
+
+        count = _bitwise(fn(batch), eager(), f"{label}: graphed against eager")
+        ms = _in_turns({"graphed": lambda: fn(batch), "eager": eager},
+                       GRAPH_TURNS)
+
+        def eager_one():
+            with graphs.disable_graphs():
+                return one(batch)
+
+        prof = {"graphed": profiling.route_profile(lambda: one(batch), 1),
+                "eager": profiling.route_profile(eager_one, 1)}
+        out[label] = dict({f"{k}_ms_per_substep": [t / n for t in v]
+                           for k, v in ms.items()}, profiled=prof)
+        log(f"{label}: {n} substeps graphed bitwise the eager loop "
+            f"({count} tensors); ms a substep in turns: graphed "
+            f"{[round(t / n, 3) for t in ms['graphed']]}, eager "
+            f"{[round(t / n, 3) for t in ms['eager']]} on {card}; one "
+            f"substep: {_route_profiles(prof, 'substep')}")
+    return out
+
+
+def phase_graphs(card, settled, server, pgs_paths):
     """Each JACOBI entry point at full width, graphed against its eager
     loop from the same state: the bench (unroll 1, 4, 96), server-512 under
     both policies, one rollout, one ES train step and two shards of the
-    card; every result bitwise. Prints every path's route."""
+    card; then the PGS paths (``_graphed_pgs``); every result bitwise.
+    Prints every path's route."""
     import torch
     from rl_ode_physics_tpu_torch.core.config import (
         bench_config, rollout_config)
@@ -3362,7 +3645,9 @@ def phase_graphs(card, settled, server):
             return fn(*args)
 
     _route_table()
-    out = {"bench": _graphed_bench(bench_config(64), settled, card)}
+    out = {"pgs": _graphed_pgs(card, pgs_paths)}
+    torch.cuda.empty_cache()
+    out["bench"] = _graphed_bench(bench_config(64), settled, card)
     torch.cuda.empty_cache()
     out["server"] = _graphed_server(card, server)
     torch.cuda.empty_cache()
@@ -3530,10 +3815,11 @@ def main() -> int:
     compaction_new, mesh64 = phase_kernels_new_shapes(mesh)
     compaction.update(compaction_new)
     lap("14")
-    typed_f64, stack, ridge = phase_conformance_card_vs_cpu()
-    f64_paths = {"typed_f64_card_vs_cpu": typed_f64}
+    f64_paths, f32_pgs, stack, ridge = phase_conformance_card_vs_cpu()
+    by_path.update(f32_pgs)
     lap("15")
-    conformance, on_ridge = phase_conformance_path(card, stack, ridge)
+    conformance, on_ridge, conf_args, pgs_paths = phase_conformance_path(
+        card, stack, ridge)
     f64_paths.update(conformance)
     # the float64 instances: the same kernels, counted on their own paths
     for entry in kernels:
@@ -3557,8 +3843,16 @@ def main() -> int:
     dantzig = phase_dantzig(card, stack, ridge)
     by_path.update(dantzig)
     lap("19")
-    by_path.update(phase_hinge_chain(card))
+    hinge_paths, (hinge_args, hbatch, hjoints) = phase_hinge_chain(card)
+    by_path.update(hinge_paths)
+    pgs_paths["hinge"] = (hbatch, hjoints)
+    del hbatch
     lap("20")
+    pgs_entry = phase_pgs_kernel(card, conf_args, hinge_args)
+    kernels.append(pgs_entry)
+    del conf_args, hinge_args
+    torch.cuda.empty_cache()
+    lap("20b (pgs_solve)")
     server_launches, compaction["on_server_path_data"], server = (
         phase_game_server(card))
     by_path.update(server_launches)
@@ -3582,8 +3876,8 @@ def main() -> int:
     for path, record in on_bench_paths.items():
         compaction[f"on_{path}_data"] = record
     lap("27 (bench module)")
-    phase_graphs(card, bench_settled, server)
-    del bench_settled
+    phase_graphs(card, bench_settled, server, pgs_paths)
+    del bench_settled, pgs_paths
     lap("28 (graphs)")
     # the float64 tile kernel on the DANTZIG ridge path
     f64_ridge = dantzig["dantzig_ridge_mesh"]["sphere_mesh_d2_tiles"]

@@ -34,7 +34,7 @@ step and of its ``lax.scan`` over the horizon: the actions are the graph's
 input, the lidar is swept inside it, and every tensor returned is new, so
 no later call writes over it. ``env.graphed`` and ``env.eager_reason`` say
 which route the env takes; under ``disable_graphs()``, on the CPU and
-under PGS or DANTZIG it is the eager loop.
+under DANTZIG it is the eager loop.
 
 The env runs on ``device`` (the card unless the caller asks for the CPU)
 and raises on a state that lies elsewhere. Gradients through the env are

@@ -27,12 +27,14 @@ on the card only with TF32 off, which is PyTorch's default; the solvers
 raise if it was turned on.
 
 PGS is sequential over rows: row i reads the velocities row i − 1 wrote.
-Its loop runs in Python, a few dozen launches over (B,) tensors a row,
-batched over worlds, and stops at the batch's last live row: rows are
-compacted with the live ones first, and a dead row adds ``axis·0`` to the
-velocities, so the rows past it change nothing while their geometry is
-finite. Finding that row is one host read per solve, which keeps PGS out
-of a captured CUDA graph.
+Its rows are built batched; its sweeps, joint passes included, are one
+launch of the hand kernel ``csrc/pgs_solve.cu`` on the card
+(``ops/pgs_kernel.pgs_solve``), which finds each world's live rows on the
+device, so a CUDA graph holds the solve. On the CPU they are the plain
+version, ``pgs_sweeps_plain``: a Python loop, a few dozen operations on
+(B,) tensors a row, that stops at the batch's last live row (one host
+read): a dead row adds ``axis·0`` to the velocities, so the rows past it
+change nothing while their geometry is finite.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
 from rl_ode_physics_tpu_torch.core.state import WorldState, world_inv_inertia
 from rl_ode_physics_tpu_torch.ops import joints as joint_ops
+from rl_ode_physics_tpu_torch.ops import pgs_kernel
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
 
 _EPS = 1e-9
@@ -547,70 +550,52 @@ def live_row_bound(valid: torch.Tensor) -> int:
     return int(last.max())
 
 
-def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
-              lam0=None, return_lam: bool = False, joints_rows=None):
-    """Sequential projected Gauss-Seidel (SOR) in buffer row order, ODE
-    QuickStep's ordering: ``solver_iterations`` sweeps, each row seeing the
-    velocities the rows before it wrote; batched over worlds.
+def pgs_params(config: EngineConfig) -> dict:
+    """The scalar parameters of a PGS solve under ``config``, as
+    ``pgs_sweeps_plain`` and ``ops/pgs_kernel.pgs_solve`` take them."""
+    return dict(iterations=config.solver_iterations, omega=config.sor_omega,
+                cfm_term=config.cfm / config.dt, friction=config.friction,
+                mu=config.mu, per_body_surface=config.per_body_surface)
 
-    ``lam0``: (B, C, 3) initial impulses, applied to the velocities up
-    front (warm start); ``return_lam`` also returns the accumulated
-    (B, C, 3) impulses. Each sweep stops at ``live_row_bound`` of the
-    contacts: rows past it are dead in every world, and a dead row changes
-    nothing. ``joints_rows`` (``ops/joints.joint_rows``): a sequential
-    joint pass after each contact sweep, over the joint rows live in some
-    world (one more host read a solve)."""
-    _check_solver(state)
-    feats = _direct_body_features(state, contacts)
-    rows = _row_data(state, contacts, config, feats)
-    bsz, c = contacts.a.shape
-    dev = state.device
-    omega = config.sor_omega
-    cfm_term = config.cfm / config.dt
-    mu_inf = math.isinf(config.mu)
-    rows_bound = live_row_bound(contacts.valid)
+
+def pgs_sweeps_plain(vel, lam, rows, joints_rows=None, *, iterations: int,
+                     omega: float, cfm_term: float, friction: bool = True,
+                     mu: float = math.inf, per_body_surface: bool = False):
+    """The plain version of ``ops/pgs_kernel.pgs_solve``: ``iterations``
+    sweeps in buffer row order, a Python loop over rows on (B,) tensors,
+    batched over worlds. ``vel`` (B, N, 6); ``lam`` (B, C, 3) the starting
+    impulses; ``rows`` the contact row table (``pgs_inputs``), or None
+    with ``lam`` for the joint passes alone; ``joints_rows``
+    (``ops/joints.joint_rows``): a sequential joint pass after each
+    contact sweep. Each sweep stops at ``live_row_bound`` of the rows, and
+    the joint passes visit ``live_joint_rows``: rows past them are dead in
+    every world, and a dead row changes nothing. Those are host reads, so
+    this loop is for the CPU. Returns (vel', lam'), lam' None without
+    contact rows."""
+    rows_bound = 0 if rows is None else live_row_bound(rows["valid"])
 
     def by_row(x):
         """(B, C, ...) → (C, B, ...), so that row i is a view."""
         return x.transpose(0, 1).contiguous()
 
-    a_r, b_r = by_row(contacts.a.to(torch.int64)), by_row(
-        contacts.b.to(torch.int64))
-    live_r = by_row(contacts.valid)
-    r_a, r_b = by_row(rows["r_a"]), by_row(rows["r_b"])
-    im_a, im_b = by_row(feats["inv_m_a"]), by_row(feats["inv_m_b"])
-    ii_a, ii_b = by_row(feats["inv_i_a"]), by_row(feats["inv_i_b"])
-    axes = [by_row(rows[k]) for k in ("n", "t1", "t2")]
-    d_r = [by_row(rows[k]) for k in ("d_n", "d_t1", "d_t2")]
-    target_r = by_row(rows["target"])
-    mu_r = by_row(rows["mu"]) if config.per_body_surface else None
-    ar = torch.arange(bsz, device=dev)
+    if rows_bound:
+        a_r, b_r = by_row(rows["a"].to(torch.int64)), by_row(
+            rows["b"].to(torch.int64))
+        live_r = by_row(rows["valid"])
+        r_a, r_b = by_row(rows["r_a"]), by_row(rows["r_b"])
+        im_a, im_b = by_row(rows["inv_m_a"]), by_row(rows["inv_m_b"])
+        ii_a, ii_b = by_row(rows["inv_i_a"]), by_row(rows["inv_i_b"])
+        axes = [by_row(rows[k]) for k in ("n", "t1", "t2")]
+        d_r = [by_row(rows[k]) for k in ("d_n", "d_t1", "d_t2")]
+        target_r = by_row(rows["target"])
+        mu_r = by_row(rows["mu"]) if per_body_surface else None
+    ar = torch.arange(vel.shape[0], device=vel.device)
+    mu_inf = math.isinf(mu)
 
-    vel = torch.cat([state.linvel, state.angvel], -1)   # (B, N, 6), updated
-    if lam0 is None:
-        lam = torch.zeros((3, c, bsz), dtype=vel.dtype, device=dev)
-    else:
-        # warm start: the cached impulses of the live rows, applied to the
-        # velocities up front through one-hot products, then refined
-        l3 = torch.where(contacts.valid[..., None], lam0.to(vel.dtype),
-                         0.0)                                  # (B, C, 3)
-        imp = (rows["n"] * l3[..., 0:1] + rows["t1"] * l3[..., 1:2]
-               + rows["t2"] * l3[..., 2:3])
-        n_slots = state.num_slots
-        for sign, body, r, im, ii in (
-                (-1.0, contacts.a, rows["r_a"], feats["inv_m_a"],
-                 feats["inv_i_a"]),
-                (1.0, contacts.b, rows["r_b"], feats["inv_m_b"],
-                 feats["inv_i_b"])):
-            dlin = sign * im[..., None] * imp
-            torque = sign * _cross(r, imp)
-            dang = torch.sum(ii * torque[..., None, :], -1)
-            oh_t = torch.nn.functional.one_hot(
-                body.to(torch.int64), n_slots).to(vel.dtype).transpose(1, 2)
-            vel = vel + torch.cat([torch.bmm(oh_t, dlin),
-                                   torch.bmm(oh_t, dang)], -1)
-        lam = l3.permute(2, 1, 0).contiguous()          # (3, C, B)
-    lam_n, lam_t1, lam_t2 = lam[0], lam[1], lam[2]
+    vel = vel.clone()                                   # (B, N, 6), updated
+    if lam is not None:
+        lam = lam.permute(2, 1, 0).contiguous()         # (3, C, B)
+        lam_n, lam_t1, lam_t2 = lam[0], lam[1], lam[2]
 
     def rel_v(i, axis):
         va = vel[ar, a_r[i]]
@@ -640,7 +625,7 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
         visit = joint_ops.live_joint_rows(joints_rows)
         pad = torch.zeros_like(vel[..., :2])
 
-    for _ in range(config.solver_iterations):
+    for _ in range(iterations):
         for i in range(rows_bound):
             # normal row (the residual includes ODE's CFM softening −cfm/h·λ)
             n_i = axes[0][i]
@@ -652,8 +637,8 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
             apply_pair(i, n_i, dlam)
 
             # friction rows (target velocity 0, bound μ·λ_n)
-            if config.friction:
-                if config.per_body_surface:
+            if friction:
+                if per_body_surface:
                     mu_i = mu_r[i]
                     bound = torch.where(torch.isinf(mu_i),
                                         torch.full_like(mu_i, torch.inf),
@@ -661,7 +646,7 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
                 elif mu_inf:
                     bound = torch.full_like(lam_n[i], torch.inf)
                 else:
-                    bound = config.mu * lam_n[i]
+                    bound = mu * lam_n[i]
                 friction_row(i, axes[1][i], d_r[1], lam_t1, bound)
                 friction_row(i, axes[2][i], d_r[2], lam_t2, bound)
         if joints_rows is not None:
@@ -672,10 +657,73 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
                 cfm_term, visit)
             vel = vel8[..., 0:6].contiguous()
 
+    if lam is None:
+        return vel, None
+    return vel, lam.permute(2, 1, 0).contiguous()
+
+
+def pgs_inputs(state: WorldState, contacts: Contacts, config: EngineConfig,
+               lam0=None):
+    """What the sweeps of a PGS solve start from, built batched: (vel
+    (B, N, 6), lam (B, C, 3), the row table: (B, C, ...) tensors of
+    ``_row_data`` and ``_direct_body_features`` as ``pgs_sweeps_plain`` and
+    the kernel take them). With ``lam0`` (B, C, 3), the cached impulses of
+    the live rows are applied to the velocities up front (warm start) and
+    are ``lam``."""
+    feats = _direct_body_features(state, contacts)
+    rows = _row_data(state, contacts, config, feats)
+    bsz, c = contacts.a.shape
+    vel = torch.cat([state.linvel, state.angvel], -1)   # (B, N, 6)
+    if lam0 is None:
+        lam = torch.zeros((bsz, c, 3), dtype=vel.dtype, device=state.device)
+    else:
+        # one-hot products spread the impulses over the bodies
+        lam = torch.where(contacts.valid[..., None], lam0.to(vel.dtype),
+                          0.0)                                 # (B, C, 3)
+        imp = (rows["n"] * lam[..., 0:1] + rows["t1"] * lam[..., 1:2]
+               + rows["t2"] * lam[..., 2:3])
+        n_slots = state.num_slots
+        for sign, body, r, im, ii in (
+                (-1.0, contacts.a, rows["r_a"], feats["inv_m_a"],
+                 feats["inv_i_a"]),
+                (1.0, contacts.b, rows["r_b"], feats["inv_m_b"],
+                 feats["inv_i_b"])):
+            dlin = sign * im[..., None] * imp
+            torque = sign * _cross(r, imp)
+            dang = torch.sum(ii * torque[..., None, :], -1)
+            oh_t = torch.nn.functional.one_hot(
+                body.to(torch.int64), n_slots).to(vel.dtype).transpose(1, 2)
+            vel = vel + torch.cat([torch.bmm(oh_t, dlin),
+                                   torch.bmm(oh_t, dang)], -1)
+    table = {k: rows[k] for k in ("r_a", "r_b", "n", "t1", "t2", "d_n",
+                                  "d_t1", "d_t2", "target", "mu")}
+    table.update({k: feats[k] for k in ("inv_m_a", "inv_m_b", "inv_i_a",
+                                        "inv_i_b")})
+    table.update(a=contacts.a, b=contacts.b, valid=contacts.valid)
+    return vel, lam, table
+
+
+def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
+              lam0=None, return_lam: bool = False, joints_rows=None):
+    """Sequential projected Gauss-Seidel (SOR) in buffer row order, ODE
+    QuickStep's ordering: ``solver_iterations`` sweeps, each row seeing the
+    velocities the rows before it wrote; batched over worlds.
+
+    ``lam0``: (B, C, 3) initial impulses, applied to the velocities up
+    front (warm start); ``return_lam`` also returns the accumulated
+    (B, C, 3) impulses. ``joints_rows`` (``ops/joints.joint_rows``): a
+    sequential joint pass after each contact sweep. The rows are built
+    batched (``pgs_inputs``); the sweeps are ``ops/pgs_kernel.pgs_solve``:
+    one launch of the hand kernel on the card, the plain loop
+    (``pgs_sweeps_plain``) on the CPU."""
+    _check_solver(state)
+    vel, lam, table = pgs_inputs(state, contacts, config, lam0)
+    vel, lam = pgs_kernel.pgs_solve(vel, lam, table, joints_rows,
+                                    **pgs_params(config))
     out = state.replace(linvel=vel[..., 0:3].contiguous(),
                         angvel=vel[..., 3:6].contiguous())
     if return_lam:
-        return out, lam.permute(2, 1, 0).contiguous()
+        return out, lam
     return out
 
 
@@ -691,16 +739,12 @@ def solve(state: WorldState, contacts: Contacts,
         from rl_ode_physics_tpu_torch.ops.lcp import solve_dantzig
         state = solve_dantzig(state, contacts, config)
         if joints_rows is not None:
-            # iterative bilateral relaxation after the direct contact solve
-            vel8 = torch.cat([state.linvel, state.angvel,
-                              torch.zeros_like(state.linvel[..., :2])], -1)
-            jlam = torch.zeros_like(joints_rows["rhs"])
-            cfm_term = config.cfm / config.dt
-            visit = joint_ops.live_joint_rows(joints_rows)
-            for _ in range(config.solver_iterations):
-                vel8, jlam = joint_ops.joint_iteration_seq(
-                    vel8, joints_rows, jlam, 1.0, cfm_term, visit)
-            state = state.replace(linvel=vel8[..., 0:3].contiguous(),
-                                  angvel=vel8[..., 3:6].contiguous())
+            # iterative bilateral relaxation after the direct contact
+            # solve: the joint passes alone, at ω = 1
+            vel, _ = pgs_kernel.pgs_solve(
+                torch.cat([state.linvel, state.angvel], -1), None, None,
+                joints_rows, **dict(pgs_params(config), omega=1.0))
+            state = state.replace(linvel=vel[..., 0:3].contiguous(),
+                                  angvel=vel[..., 3:6].contiguous())
         return state
     return solve_jacobi(state, contacts, config, joints_rows=joints_rows)

@@ -104,8 +104,8 @@ def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
     result is a new batch. ``chunk``: step the batch in world-chunks of
     this size, each through all its substeps before the next (JAX's
     ``lax.map``), to bound peak device memory: one chunk-sized graph, with
-    a copy in and a copy out a chunk, into a new batch. PGS and DANTZIG
-    read the device from the host during a solve and run the eager loop
+    a copy in and a copy out a chunk, into a new batch. DANTZIG reads the
+    device from the host during a solve and runs the eager loop
     (``fn.graphed`` False, the host read in ``fn.eager_reason``), as does
     every step function on the CPU and under ``disable_graphs()``.
 

@@ -18,9 +18,9 @@ thread launches the shards in turn, one launch a shard, so that every
 card has work queued while the host moves on to the next.
 
 Three things bound what that overlap gives. A host read inside a step
-(PGS's ``solver.live_row_bound``, DANTZIG's pivot rounds) keeps it eager
-and waits for that shard's card before the host goes on to the next
-shard, so under those solvers the cards run one after the other. An
+(DANTZIG's pivot rounds) keeps it eager and waits for that shard's card
+before the host goes on to the next shard, so under that solver the
+cards run one after the other. An
 eager step, bound by the host's launches, costs D times the host time on
 D shards. And two shards of one card run on its one stream, one after
 the other.

@@ -102,3 +102,51 @@ def d2_bound(c: int, t: int, dtype=None) -> dict:
     return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
                 bytes_ms=bytes_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+# csrc/pgs_solve.cu's operations, counted from its arithmetic (an FMA as
+# 2): a contact axis (relative velocity 32, the update 9, the impulse on
+# both bodies 69), a joint row (59); and the dependent operations of one
+# axis or joint row, the chain a world's thread waits through (velocity,
+# cross, 3-sum, residual, division, clamp, impulse, cross, 3-sum, store)
+PGS_OPS_PER_AXIS = 110
+PGS_OPS_PER_JOINT_ROW = 59
+PGS_CHAIN_PER_AXIS = 22
+PGS_CHAIN_PER_JOINT_ROW = 20
+# the least latency of a dependent FP32/FP64 operation, in cycles, at the
+# H100 SXM's highest boost clock: the chain's floor
+CYCLES_PER_DEPENDENT_OP = 4
+BOOST_CLOCK_HZ = 1.98e9
+
+
+def pgs_bound(valid, jlive, num_slots: int, iterations: int, dtype=None,
+              friction: bool = True) -> dict:
+    """The least time of one ``pgs_solve`` launch on these rows: ``valid``
+    (B, C) the live contact rows, ``jlive`` (B, R) the live joint rows or
+    None. Bytes: every row's live flag, each live row's record and bodies,
+    the velocities in and out, each live row's impulses in and out;
+    operations: ``iterations`` sweeps of each live row's axes and joint
+    rows. ``chain_ms``, not part of the bound: the longest world's chain of
+    dependent operations (iterations × its live rows × axes) at
+    ``CYCLES_PER_DEPENDENT_OP`` cycles each."""
+    size, rate = _rates(dtype)
+    axes = 3 if friction else 1
+    b, c = valid.shape
+    rows = valid.sum(1)
+    jrows = (jlive.sum(1) if jlive is not None
+             else rows.new_zeros(rows.shape))
+    r = 0 if jlive is None else jlive.shape[1]
+    live, jl = int(rows.sum()), int(jrows.sum())
+    n_bytes = (4 * b * (c + r) + live * (40 * size + 8) + jl * (21 * size + 8)
+               + 2 * b * num_slots * 6 * size + 2 * (live * axes + jl) * size)
+    ops = iterations * (live * (axes * PGS_OPS_PER_AXIS + int(friction))
+                        + jl * PGS_OPS_PER_JOINT_ROW)
+    chain = iterations * int((rows * axes * PGS_CHAIN_PER_AXIS
+                              + jrows * PGS_CHAIN_PER_JOINT_ROW).max())
+    ops_ms = ops / rate * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                bytes_ms=bytes_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                chain_ms=chain * CYCLES_PER_DEPENDENT_OP / BOOST_CLOCK_HZ
+                * 1e3, live_rows=live, live_joint_rows=jl)

@@ -44,11 +44,12 @@ a tuple, a dict):
 eagerly where it does not graph, so an entry point calls one object.
 ``disable_graphs()`` is the counterpart of ``jax.disable_jit``: under it
 every call runs the eager loop. ``capturable(config, joints)`` says
-whether a configuration's step can be captured at all: JACOBI can, joints
-included; PGS and DANTZIG read the device from the host during a solve,
-which a graph cannot hold, and their step functions run eagerly on the
-card with ``graphed = False`` and the reason in ``eager_reason``; so does
-a function made for the CPU. A capture that fails raises; no call falls
+whether a configuration's step can be captured at all: JACOBI and PGS
+can, joints included (PGS's sweeps are one hand kernel that finds the live
+rows on the device); DANTZIG reads the device from the host once a pivot
+round, which a graph cannot hold, and its step functions run eagerly on
+the card with ``graphed = False`` and the reason in ``eager_reason``; so
+does a function made for the CPU. A capture that fails raises; no call falls
 back to the eager loop from it.
 
 The hand kernels' wrappers count their launches in Python, which a replay
@@ -107,32 +108,21 @@ def on_card(tensor: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 _SOLVER_READS = {
-    SolverKind.PGS: "PGS reads the batch's last live contact row on the "
-                    "host once a solve (solver.live_row_bound, "
-                    "ops/solver.py:540, called at :571)",
     SolverKind.DANTZIG: "DANTZIG reads whether every world is done on the "
                         "host once a pivot round (bool(done.all()), "
                         "ops/lcp.py:153)",
-}
-_JOINT_READS = {
-    SolverKind.PGS: "its joint pass reads the live joint rows on the host "
-                    "once a solve (joints.live_joint_rows, ops/joints.py:533,"
-                    " called at ops/solver.py:640)",
-    SolverKind.DANTZIG: "its joint pass reads the live joint rows on the "
-                        "host once a solve (joints.live_joint_rows, "
-                        "ops/joints.py:533, called at ops/solver.py:699)",
 }
 
 
 def capturable(config: EngineConfig, joints=None):
     """(True, "") where a step under ``config`` (with ``joints``, a joint
     table or None) can be captured into a CUDA graph; (False, the host read
-    that forbids it, with its file:line) where it cannot."""
+    that forbids it, with its file:line) where it cannot. The joint passes
+    read nothing on the host under any solver (under PGS and DANTZIG they
+    are ``ops/pgs_kernel.pgs_solve``), so ``joints`` changes no answer."""
     reason = _SOLVER_READS.get(config.solver)
     if reason is None:
         return True, ""
-    if joints is not None:
-        reason += "; " + _JOINT_READS[config.solver]
     return False, reason
 
 
@@ -160,10 +150,12 @@ def constant(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
 def kernel_counters() -> dict:
     """name → the hand kernel's wrapper whose ``launches`` counts it,
     looked up on its module at every call (a caller may have wrapped it)."""
-    from rl_ode_physics_tpu_torch.ops import compaction_kernel, mesh_kernels
+    from rl_ode_physics_tpu_torch.ops import (
+        compaction_kernel, mesh_kernels, pgs_kernel)
     return {"compact_rows_t": compaction_kernel.compact_rows_t,
             "sphere_mesh_d2_tiles": mesh_kernels.sphere_mesh_d2_tiles,
-            "sphere_mesh_d2": mesh_kernels.sphere_mesh_d2}
+            "sphere_mesh_d2": mesh_kernels.sphere_mesh_d2,
+            "pgs_solve": pgs_kernel.pgs_solve}
 
 
 def read_counts(counters: dict) -> dict:

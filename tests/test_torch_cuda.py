@@ -13,8 +13,9 @@ On the card every JACOBI step entry point replays CUDA graphs
 (``utils/graphs.py``); the tests at the end of this file hold each one
 bitwise to its eager loop (``disable_graphs``), and check the launch
 counts per replay, outputs that a later call does not write over, a new
-capture for a new shape, PGS and DANTZIG running eagerly, and a forced
-capture of a host read raising.
+capture for a new shape, PGS graphed and DANTZIG running eagerly, and a
+forced capture of DANTZIG's host read raising. The PGS kernel is held to
+its plain version on every friction case, with joint rows and alone.
 """
 
 import numpy as np
@@ -1006,6 +1007,181 @@ def test_profile_step_attributes_card_kernels():
 
 
 # ---------------------------------------------------------------------------
+# The PGS kernel (ops/pgs_kernel.py, csrc/pgs_solve.cu) against its plain
+# version (ops/solver.pgs_sweeps_plain) on the card. Tolerances after one
+# 20-sweep solve: float64 1e-12 and float32 1e-5, velocities and impulses.
+# The kernel rounds as the plain version does on the CPU; on the card the
+# plain version's own kernels may fuse a multiply-add otherwise, and PGS
+# carries each row's roundoff into the next.
+# ---------------------------------------------------------------------------
+
+PGS_CASES = {"mu_inf": dict(), "mu_finite": dict(mu=0.4),
+             "per_body_surface": dict(per_body_surface=True),
+             "no_friction": dict(friction=False, sor_omega=1.0)}
+PGS_TOL = {"float32": 1e-5, "float64": 1e-12}
+CONF_CAPS = dict(max_bodies=16, max_pair_candidates=128, max_contacts=256)
+
+
+def _kicked(batch, seed, scale=0.05):
+    kick = torch.randn(batch.linvel.shape, generator=torch.Generator(
+        "cuda").manual_seed(seed), device="cuda", dtype=batch.linvel.dtype)
+    moving = (batch.dynamic & ~batch.is_kinematic)[..., None]
+    return batch.replace(linvel=batch.linvel + scale * kick * moving)
+
+
+def _pgs_inputs(config, batch, warm, joints=None):
+    """The inputs of the PGS solve of ``batch``'s next substep: (vel, lam,
+    the row table, the joint rows), as ``core/world._step_impl`` builds
+    them; ``warm``: random starting impulses on the live rows."""
+    from rl_ode_physics_tpu_torch.ops import (
+        broadphase, integrator, narrowphase, solver)
+    from rl_ode_physics_tpu_torch.ops import joints as joint_ops
+    exclude = (None if joints is None
+               else joint_ops.connected_mask(joints, batch.num_slots))
+    contacts = narrowphase.narrowphase(
+        batch, broadphase.broadphase(batch, config, exclude=exclude), config)
+    jrows = (None if joints is None
+             else joint_ops.joint_rows(batch, joints, config))
+    state = integrator.apply_external_forces(batch, config)
+    lam0 = None
+    if warm:
+        gen = torch.Generator("cuda").manual_seed(4)
+        lam0 = 0.02 * torch.rand(contacts.a.shape + (3,), generator=gen,
+                                 device="cuda", dtype=batch.linvel.dtype)
+    return solver.pgs_inputs(state, contacts, config, lam0) + (jrows,)
+
+
+def _settled_stack(config, worlds=4, settle=40):
+    """``mini_stack_world`` in kicked worlds settled on the card; with
+    per-body surfaces, each slot's own friction (a third of them ∞) and
+    restitution."""
+    from rl_ode_physics_tpu_torch.models import scenes
+    world = scenes.mini_stack_world(config, device="cuda")
+    if config.per_body_surface:
+        gen = torch.Generator("cuda").manual_seed(5)
+        n, f = world.num_slots, world.linvel.dtype
+        fr = 0.2 + 0.8 * torch.rand((1, n), generator=gen, device="cuda",
+                                    dtype=f)
+        fr[:, ::3] = torch.inf
+        world = world.replace(friction=fr, restitution=0.6 * torch.rand(
+            (1, n), generator=gen, device="cuda", dtype=f))
+    batch = _kicked(replicate(world, worlds, device="cuda"), 3)
+    return make_batched_step_fn(config, settle, device="cuda")(batch)
+
+
+def _kernel_against_plain(inputs, config, dtype, omega=None, what=""):
+    """The kernel and the plain version on the same card tensors; the
+    kernel launched once. Returns the largest differences."""
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel, solver
+    vel, lam, rows, jrows = inputs
+    params = solver.pgs_params(config)
+    if omega is not None:
+        params["omega"] = omega
+    before = pgs_kernel.pgs_solve.launches
+    got = pgs_kernel.pgs_solve(vel, lam, rows, jrows, **params)
+    assert pgs_kernel.pgs_solve.launches == before + 1
+    want = solver.pgs_sweeps_plain(vel, lam, rows, jrows, **params)
+    torch.cuda.synchronize()
+    tol = PGS_TOL[dtype]
+    err = [float((got[0] - want[0]).abs().max())]
+    assert err[0] <= tol, (what, "velocities", err[0], tol)
+    if lam is not None:
+        err.append(float((got[1] - want[1]).abs().max()))
+        assert err[1] <= tol, (what, "impulses", err[1], tol)
+        assert bool((got[1][~rows["valid"]] == 0).all())
+    assert float((got[0] - vel).abs().max()) > 1e-5    # the rows did work
+    return err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("case", list(PGS_CASES))
+def test_pgs_kernel_matches_plain_on_card(case, warm, dtype):
+    """The conformance configuration (exact clip, K=8, 256 rows) on the
+    settled mini stack in 4 kicked worlds, under each friction case."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    config = EngineConfig.conformance(**CONF_CAPS, dtype=dtype,
+                                      **PGS_CASES[case])
+    batch = _settled_stack(config)
+    inputs = _pgs_inputs(config, batch, warm)
+    assert int(inputs[2]["valid"].sum(1).min()) >= 4
+    _kernel_against_plain(inputs, config, dtype, what=case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pgs_kernel_with_joints_matches_plain_on_card(dtype):
+    """The hinge chain under PGS, joint rows in the sweeps, and its joint
+    passes alone (DANTZIG's entry: no contact rows, ω = 1)."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.models import scenes
+    config = EngineConfig.conformance(**CONF_CAPS, dtype=dtype)
+    world, joints = scenes.hinge_chain_scene(config, device="cuda")
+    batch = make_batched_step_fn(config, 40, device="cuda", joints=joints)(
+        _kicked(replicate(world, 4, device="cuda"), 5))
+    vel, lam, rows, jrows = _pgs_inputs(config, batch, False, joints)
+    assert bool(jrows["live"].any()) and bool(rows["valid"].any())
+    _kernel_against_plain((vel, lam, rows, jrows), config, dtype,
+                          what="joints in the sweeps")
+    _kernel_against_plain((vel, None, None, jrows), config, dtype, 1.0,
+                          what="joint passes alone")
+
+
+@pytest.mark.cuda
+def test_pgs_kernel_refuses_on_card():
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel, solver
+    config = EngineConfig.conformance(**CONF_CAPS)
+    vel, lam, rows, _ = _pgs_inputs(config, _settled_stack(config, 2, 4),
+                                    False)
+    params = solver.pgs_params(config)
+    with pytest.raises(ValueError):            # two devices
+        pgs_kernel.pgs_solve(vel, lam.cpu(), rows, **params)
+    with pytest.raises(TypeError):
+        pgs_kernel.pgs_solve(vel.half(), lam, rows, **params)
+    big = torch.zeros((2, pgs_kernel.max_slots(torch.float32) + 1, 6),
+                      device="cuda")
+    with pytest.raises(ValueError):
+        pgs_kernel.pgs_solve(big, lam, rows, **params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["mini_stack", "hinge_chain"])
+def test_graphed_pgs_step_is_bitwise_eager_on_card(scene):
+    """The conformance configuration in float64 under PGS, graphed: the
+    mini stack, and the hinge chain with its joints; ``make_step_fn`` and
+    ``make_batched_step_fn`` replay graphs, each bitwise its eager loop,
+    the kernel counted once a substep per replay."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.core.world import make_step_fn
+    from rl_ode_physics_tpu_torch.models import scenes
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel
+    config = EngineConfig.conformance(**CONF_CAPS, dtype="float64")
+    joints = None
+    if scene == "mini_stack":
+        world = scenes.mini_stack_world(config, device="cuda")
+    else:
+        world, joints = scenes.hinge_chain_scene(config, device="cuda")
+    start = _kicked(replicate(world, 8, device="cuda"), 6)
+    for fn in (make_batched_step_fn(config, 6, False, unroll=3,
+                                    device="cuda", joints=joints),
+               make_step_fn(config, 6, False, joints=joints)):
+        assert fn.graphed and fn.eager_reason == ""
+        want = _eager(fn, start)
+        before = pgs_kernel.pgs_solve.launches
+        got = fn(start)
+        torch.cuda.synchronize()
+        assert pgs_kernel.pgs_solve.launches - before == 6
+        _trees_equal(got, want, f"{scene} graphed")
+        assert fn.graphs.captures
+
+
+# ---------------------------------------------------------------------------
 # CUDA graphs (utils/graphs.py): every graphed entry point bitwise its eager
 # loop from the same state, at a small size
 # ---------------------------------------------------------------------------
@@ -1116,19 +1292,24 @@ def test_new_shape_captures_anew_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["PGS", "DANTZIG"])
 def test_pgs_and_dantzig_step_functions_run_eager_on_card(solver):
+    """PGS's step functions replay graphs (its sweeps are one kernel that
+    reads nothing on the host), bitwise their eager loop; DANTZIG's run
+    eagerly (a host read a pivot round)."""
     _require_card()
     from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
     from rl_ode_physics_tpu_torch.core.world import make_step_fn
     config = EngineConfig(max_bodies=16, max_pair_candidates=64,
                           max_contacts=96, solver=SolverKind[solver])
+    graphed = solver == "PGS"
     for fn in (make_batched_step_fn(config, 2, device="cuda"),
                make_step_fn(config, 2)):
-        assert fn.graphed is False and "host" in fn.eager_reason
+        assert fn.graphed is graphed
+        assert ("host" in fn.eager_reason) is not graphed
     batch = replicate(bench_world(config, num_bodies=10, device="cuda"), 4,
                       device="cuda")
     fn = make_batched_step_fn(config, 2, device="cuda")
     _trees_equal(fn(batch), _eager(fn, batch), solver)
-    assert not fn.graphs.captures
+    assert bool(fn.graphs.captures) is graphed
 
 
 @pytest.mark.cuda
@@ -1224,13 +1405,13 @@ def test_graphed_shards_of_the_card_are_bitwise_eager():
 # last in the file: a capture that fails ends with its stream
 @pytest.mark.cuda
 def test_forced_capture_of_a_host_read_raises_on_card(monkeypatch):
-    """PGS forced through the graphs: the capture raises on its host read,
-    and nothing falls back to the eager loop."""
+    """DANTZIG forced through the graphs: the capture raises on its host
+    read, and nothing falls back to the eager loop."""
     _require_card()
     from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
     from rl_ode_physics_tpu_torch.utils import graphs
     config = EngineConfig(max_bodies=16, max_pair_candidates=64,
-                          max_contacts=96, solver=SolverKind.PGS)
+                          max_contacts=96, solver=SolverKind.DANTZIG)
     monkeypatch.setattr(graphs, "capturable", lambda c, j=None: (True, ""))
     fn = make_batched_step_fn(config, 2, device="cuda")
     batch = replicate(bench_world(config, num_bodies=10, device="cuda"), 4,

@@ -307,9 +307,10 @@ def test_cache_is_bounded_and_frees_the_evicted(cpu_graphs, monkeypatch):
 @pytest.mark.parametrize("solver,joints,graphed,read", [
     ("JACOBI", False, True, None),
     ("JACOBI", True, True, None),
-    ("PGS", False, False, "ops/solver.py:540"),
+    ("PGS", False, True, None),
     ("DANTZIG", False, False, "ops/lcp.py:153"),
-    ("PGS", True, False, "ops/joints.py:533"),
+    ("PGS", True, True, None),
+    ("DANTZIG", True, False, "ops/lcp.py:153"),
 ])
 def test_capturable(solver, joints, graphed, read):
     config = EngineConfig(solver=SolverKind[solver])
