@@ -184,13 +184,16 @@ Phases, in order; any failure raises and the script exits non-zero:
     substep.
 20b. ``pgs_solve`` against its plain version at full width, on the
     tensors phases 16 and 20 caught: conformance-1024's (μ = ∞ as on the
-    path, cold and warm; μ = 0.4; a μ per row, a third ∞; no friction),
-    the hinge chain's joint rows in the sweeps and its joint passes alone
-    (DANTZIG's entry, ω = 1), each in float64 (atol 1e-12) and float32
-    (atol 1e-5) after one 20-sweep solve; the kernel alone on packed
-    buffers, the wrapper with its packing and the plain loop timed on the
-    path's own inputs, beside the bound (``utils/bounds.pgs_bound``: bytes
-    and operations, and the chain floor of the longest world).
+    path, cold and warm; μ = 0.4; a μ per row, a third ∞; no friction;
+    its rows scattered over each world's buffer; every row live, more
+    than the kernel stages), the ridge path's, the hinge chain's joint
+    rows in the sweeps and its joint passes alone (DANTZIG's entry, ω =
+    1), each in float64 (atol 1e-12) and float32 (atol 1e-5) after one
+    20-sweep solve; the kernel alone on the path's unpacked tensors, the
+    wrapper and the plain loop timed on the path's own inputs, beside the
+    bound (``utils/bounds.pgs_bound``: bytes and operations, and the chain
+    floor of the longest world); the launch's W and S against every
+    path's largest live-row count, the kernel's registers and spills.
 21. the game server (``net/``): the body API card against CPU on 4
     worlds, every field bitwise; ``SimCore`` at the reference's 512 slots
     under the CLI's configuration (``EngineConfig(max_bodies=512,
@@ -293,13 +296,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     settled 8192 worlds, 96 substeps) at unroll 1, 4 and 96, each
     capture's seconds, graph nodes and peak memory, then host and device
     ms a substep in turns; server-512 under both policies, phase 21's
-    graphed sessions against the same intents run eagerly, equal digests
-    at tick 480, ticks/s; one rollout of phase 9's path; one ES train step
-    at pop 4,096 from the same noise; two shards of the card against the
-    unsharded graphed step, with whether they overlap. For the bench, a
-    server tick, the ES step and the two shards, each route's
-    ``utils/profiling.route_profile``: host launches a call, device ms, and
-    the busy and idle shares of one traced call.
+    graphed sessions against the same intents run eagerly to tick 240,
+    equal digests there, ticks/s; one rollout of phase 9's path; one ES
+    train step at pop 4,096 from the same noise; two shards of the card
+    against the unsharded graphed step, with whether they overlap. For the
+    bench, a server tick, the ES step and the two shards, each route's
+    ``utils/profiling.route_profile``: host launches a call, device ms,
+    and the busy and idle shares of one traced call.
 29. prints one JSON line of every kernel the run launched (each float64
     instance as a sub-entry of its kernel, with its own launches;
     ``pgs_solve``'s record is of its float64 path, its float32 instance the
@@ -415,6 +418,10 @@ SERVER_WALK_TICKS = 60
 SERVER_TICKS = 480           # the bodies dropped from y <= 50 have landed
 SERVER_TIMED_FROM = 400      # ms a tick over ticks 400-480
 SERVER_THROUGHPUT_REPLAYED = 240   # the throughput session's replayed ticks
+# phase 28's eager sessions: to tick 240 (digests against the live runs'
+# there), ms a tick over ticks 160-240
+SERVER_EAGER_TICKS = 240
+SERVER_EAGER_TIMED_FROM = 160
 PHYSICS_HZ = 120             # net/server.PHYSICS_DT
 SESSION_SECONDS = 5.0
 SESSION_SPAWNS = 32
@@ -1872,6 +1879,13 @@ def phase_conformance_path(card, stack, ridge):
         lambda: make_batched_step_fn(config, substeps=1, device="cuda",
                                      trimesh=mesh)(rbatch),
         "ridge-mesh conformance", 1)
+    # the ridge path's PGS arguments: phase 20b holds the kernel on them
+    _, rcaught = _caught_last(
+        pgs_kernel, "pgs_solve",
+        lambda: make_batched_step_fn(config, substeps=1, device="cuda",
+                                     trimesh=mesh)(rbatch),
+        "ridge-mesh conformance", 1, graphed_check=False)
+    conf_args = dict(conformance=conf_args, ridge=_pgs_args(rcaught))
     tris = mesh.transposed()
     got = mesh_kernels.sphere_mesh_d2(centres, *tris)
     ref = tm.sphere_mesh_d2_plain(centres, *tris)
@@ -2347,17 +2361,54 @@ def phase_hinge_chain(card):
     return paths, caught
 
 
+def _scattered_rows(lam, rows, seed):
+    """Each world's rows in a seeded random order of its own: the path's
+    live rows scattered over the buffer."""
+    import torch
+    bsz, c = rows["valid"].shape
+    gen = torch.Generator("cuda").manual_seed(seed)
+    perm = torch.argsort(torch.rand((bsz, c), generator=gen, device="cuda"),
+                         1)
+    ar = torch.arange(bsz, device="cuda")[:, None]
+    return lam[ar, perm], {k: None if v is None else v[ar, perm]
+                           for k, v in rows.items()}
+
+
+def _all_rows_live(lam, rows):
+    """Every one of a world's C rows live: row c a copy of its live row
+    c mod (its live count), in buffer order."""
+    import torch
+    valid = rows["valid"]
+    bsz, c = valid.shape
+    count = valid.sum(1, keepdim=True)
+    if not bool((count > 0).all()):
+        raise AssertionError("a world without a live row to repeat")
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    src = order.gather(1, torch.arange(c, device="cuda")[None] % count)
+    ar = torch.arange(bsz, device="cuda")[:, None]
+    out = {k: None if v is None else v[ar, src] for k, v in rows.items()}
+    out["valid"] = torch.ones_like(valid)
+    return lam[ar, src], out
+
+
 def phase_pgs_kernel(card, conf_args, hinge_args):
     """``pgs_solve`` against its plain version at full width, on the
-    tensors the conformance path (1,024 worlds, float64) and the PGS hinge
-    chain path handed it: each friction case (as on the path: μ = ∞; μ =
-    0.4; a μ per row, a third of them ∞; no friction at ω = 1), cold and
-    warm (random impulses on the live rows), in float64 and float32; the
-    hinge chain's joint rows in the sweeps, and its joint passes alone (the
-    joint-only entry, ω = 1). float64 within ``PGS_ATOL_F64``, float32
-    within ``PGS_ATOL_F32``. The kernel alone (one launch on packed
-    buffers) and the plain loop timed on the path's own inputs in each
-    dtype, beside the bound. Returns the kernels line's entry."""
+    tensors the conformance path (1,024 worlds, float64), its ridge half
+    and the PGS hinge chain path handed it: each friction case (as on the
+    path: μ = ∞; μ = 0.4; a μ per row, a third of them ∞; no friction at
+    ω = 1), cold and warm (random impulses on the live rows), the path's
+    rows scattered over each world's buffer, and every row live (each
+    world's live rows repeated over its 256: more than ``staged_rows`` in
+    both dtypes, so the rows past S are read from device memory); the
+    ridge path's rows; the hinge chain's joint rows in the sweeps, and its
+    joint passes alone (the joint-only entry, ω = 1); in float64 within
+    ``PGS_ATOL_F64`` and float32 within ``PGS_ATOL_F32``. The kernel alone
+    (launches on the path's own unpacked tensors, prepared once), the
+    wrapper and the plain loop timed on the path's own inputs in each
+    dtype, beside the bound and the chain floor; the launch's shape (W, S,
+    shared bytes), every path's largest live-row count against S, and the
+    built kernel's registers and local (spilled) bytes. Returns the
+    kernels line's entry."""
     import torch
     from rl_ode_physics_tpu_torch.ops import pgs_kernel, solver
     from rl_ode_physics_tpu_torch.utils.bounds import pgs_bound
@@ -2365,9 +2416,10 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
 
     keys = ("iterations", "omega", "cfm_term", "friction", "mu",
             "per_body_surface")
-    base = {k: conf_args[k] for k in keys}
-    rows64 = conf_args["rows"]
-    vel64, lam64 = conf_args["vel"], conf_args["lam"]
+    conf, ridge = conf_args["conformance"], conf_args["ridge"]
+    base = {k: conf[k] for k in keys}
+    rows64 = conf["rows"]
+    vel64, lam64 = conf["vel"], conf["lam"]
     valid = rows64["valid"]
     gen = torch.Generator("cuda").manual_seed(11)
     mu_row = 0.2 + 0.8 * torch.rand(valid.shape, generator=gen,
@@ -2376,13 +2428,28 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
                                     device="cuda") < 1 / 3, torch.inf, mu_row)
     warm_lam = torch.where(valid[..., None], 0.02 * torch.rand(
         lam64.shape, generator=gen, device="cuda", dtype=torch.float64), 0.0)
-    cases = {"path": ({}, False), "path_warm": ({}, True),
-             "mu_finite": (dict(mu=0.4), False),
-             "per_body_surface": (dict(per_body_surface=True), False),
-             "no_friction": (dict(friction=False, omega=1.0), False)}
+    scattered = _scattered_rows(lam64, rows64, 12)
+    all_live = _all_rows_live(lam64, rows64)
+    # label → (parameters over the path's, impulses and rows)
+    cases = {"path": ({}, (lam64, rows64)),
+             "path_warm": ({}, (warm_lam, rows64)),
+             "mu_finite": (dict(mu=0.4), (lam64, rows64)),
+             "per_body_surface": (dict(per_body_surface=True),
+                                  (lam64, dict(rows64, mu=mu_row))),
+             "no_friction": (dict(friction=False, omega=1.0),
+                             (lam64, rows64)),
+             "scattered": ({}, scattered),
+             "all_live": ({}, all_live)}
     hv, hrows, hjrows = (hinge_args["vel"], hinge_args["rows"],
                          hinge_args["joints_rows"])
     hbase = {k: hinge_args[k] for k in keys}
+    n_slots, c_rows = vel64.shape[1], valid.shape[1]
+    live_max = {"conformance": int(valid.sum(1).max()),
+                "ridge_mesh_conformance": int(ridge["rows"]["valid"]
+                                              .sum(1).max()),
+                "hinge_chain_pgs_contacts": int(hrows["valid"].sum(1).max()),
+                "hinge_chain_joints": int(hjrows["live"].sum(1).max()),
+                "all_live_case": c_rows}
 
     def cast(x, f):
         if x is None:
@@ -2415,35 +2482,40 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
     for f in (torch.float64, torch.float32):
         name = "float64" if f == torch.float64 else "float32"
         errs = {}
-        for label, (over, warm) in cases.items():
-            params = dict(base, **over)
-            rows = rows64
-            if params["per_body_surface"]:
-                rows = dict(rows64, mu=mu_row)
-            errs[label] = held(vel64, warm_lam if warm else lam64, rows,
-                               None, params, f, label)
+        for label, (over, (lam, rows)) in cases.items():
+            errs[label] = held(vel64, lam, rows, None, dict(base, **over), f,
+                               label)
+        errs["ridge_path"] = held(ridge["vel"], ridge["lam"], ridge["rows"],
+                                  None, {k: ridge[k] for k in keys}, f,
+                                  "ridge path")
         errs["hinge_chain_joints"] = held(hv, hinge_args["lam"], hrows,
                                           hjrows, hbase, f, "hinge chain")
         errs["joint_only"] = held(hv, None, None, hjrows,
                                   dict(hbase, omega=1.0), f, "joint-only")
-        # the kernel alone and the plain loop on the path's own inputs
+        # the kernel alone, the wrapper and the plain loop on the path's
+        # own inputs
         vel, lam, rows = (cast(x, f) for x in (vel64, lam64, rows64))
-        packed = pgs_kernel.pack(vel, lam, rows, None)
         mode = pgs_kernel.friction_mode(base["friction"], base["mu"],
                                         base["per_body_surface"])
         run = dict(iterations=base["iterations"], omega=base["omega"],
                    cfm_term=base["cfm_term"], mode=mode, mu=base["mu"])
-        kernel_ms = cuda_ms(lambda: pgs_kernel.launch(packed, **run))
+        prepared = pgs_kernel.prepare(vel, lam, rows, None, mode)
+        kernel_ms = cuda_ms(lambda: pgs_kernel.launch(prepared, **run))
         wrapper_ms = cuda_ms(lambda: pgs_kernel.pgs_solve(vel, lam, rows,
                                                           **base))
         plain_ms = cuda_ms(lambda: solver.pgs_sweeps_plain(
             vel, lam, rows, **base), iters=2)
-        hpacked = pgs_kernel.pack(cast(hv, f), cast(hinge_args["lam"], f),
-                                  cast(hrows, f), cast(hjrows, f))
-        hinge_ms = cuda_ms(lambda: pgs_kernel.launch(hpacked, **dict(
+        hprepared = pgs_kernel.prepare(
+            cast(hv, f), cast(hinge_args["lam"], f), cast(hrows, f),
+            cast(hjrows, f), mode)
+        hinge_ms = cuda_ms(lambda: pgs_kernel.launch(hprepared, **dict(
             run, omega=hbase["omega"])))
-        bound = pgs_bound(valid, None, vel.shape[1], base["iterations"], f,
+        bound = pgs_bound(valid, None, n_slots, base["iterations"], f,
                           base["friction"])
+        shape = pgs_kernel.launch_shape(f, n_slots, c_rows)
+        hshape = hprepared.shape
+        res = pgs_kernel.resources(f)
+        del prepared, hprepared
         rows_per_world = valid.sum(1)
         out[name] = dict(
             max_abs_err=max(errs.values()), errors=errs, ms=kernel_ms,
@@ -2452,22 +2524,32 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
             bytes_ms=bound["bytes_ms"], ops_ms=bound["ops_ms"],
             chain_ms=bound["chain_ms"], library_ms=None,
             hinge_chain_ms=hinge_ms,
-            shape=[vel.shape[0], vel.shape[1], valid.shape[1]],
-            live_rows=[int(rows_per_world.min()), int(rows_per_world.max())])
+            shape=[vel.shape[0], n_slots, c_rows],
+            live_rows=[int(rows_per_world.min()), int(rows_per_world.max())],
+            worlds_per_block=shape.worlds, staged_rows=shape.staged,
+            shared_bytes=shape.shared_bytes,
+            hinge_launch=list(hshape), paths_live_rows_max=live_max,
+            registers=res["registers"], local_bytes=res["local_bytes"])
+        past = {k: v for k, v in live_max.items() if v > shape.staged}
         log(f"pgs_solve {name} at conformance-1024's own inputs (B="
-            f"{vel.shape[0]} worlds, N={vel.shape[1]} slots, C="
-            f"{valid.shape[1]} rows, {int(rows_per_world.min())}-"
-            f"{int(rows_per_world.max())} live a world, "
-            f"{base['iterations']} sweeps): every case within "
+            f"{vel.shape[0]} worlds, N={n_slots} slots, C={c_rows} rows, "
+            f"{int(rows_per_world.min())}-{int(rows_per_world.max())} live "
+            f"a world, {base['iterations']} sweeps): every case within "
             f"{PGS_ATOL_F64 if f == torch.float64 else PGS_ATOL_F32} of the "
             f"plain version, max abs err {errs}; kernel_ms={kernel_ms:.5f} "
-            f"(with the wrapper's packing {wrapper_ms:.5f}) plain_ms="
-            f"{plain_ms:.3f} bound_ms={bound['bound_ms']:.6f} "
-            f"({bound['bound_by']}; bytes {bound['bytes_ms']:.6f}, "
-            f"operations {bound['ops_ms']:.6f}), chain floor "
-            f"{bound['chain_ms']:.5f} ms; the hinge chain's solve with its "
-            f"joint rows {hinge_ms:.5f} ms; library_ms=null (no one "
-            f"PyTorch call runs a sequential sweep) on {card}")
+            f"wrapper_ms={wrapper_ms:.5f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={bound['bound_ms']:.6f} ({bound['bound_by']}; bytes "
+            f"{bound['bytes_ms']:.6f}, operations {bound['ops_ms']:.6f}) "
+            f"chain_ms={bound['chain_ms']:.5f} (the longest world's chain "
+            f"floor); the hinge chain's solve with its joint rows "
+            f"{hinge_ms:.5f} ms; library_ms=null (no one PyTorch call runs "
+            f"a sequential sweep); launch W={shape.worlds} worlds a block, "
+            f"S={shape.staged} staged rows a world, {shape.shared_bytes} "
+            f"shared bytes a block (hinge chain: W, S, S_j, bytes "
+            f"{tuple(hshape)}); the paths' largest live-row counts "
+            f"{live_max}, past S: {past or 'none but the cases built so'}; "
+            f"{res['registers']} registers a thread, {res['local_bytes']} "
+            f"local bytes (spills) on {card}")
     entry = dict(name="pgs_solve", route="cuda",
                  source="rl_ode_physics_tpu_torch/csrc/pgs_solve.cu",
                  replaces="rl_ode_physics_tpu/ops/solver.py:285",
@@ -2476,14 +2558,14 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
     return entry
 
 
-def _server_session(sim, ticks, timed_from, at_tick=None):
+def _server_session(sim, ticks, timed_from, at_ticks=()):
     """Drive ``sim`` to ``ticks``: two capsule players join at tick 0,
     SERVER_SPAWNS_PER_TICK bodies of the M-key distribution (``m_key_body``
     from ``RandStream(0)``) spawn at each tick boundary of the first
     SERVER_SPAWN_TICKS, player 0 walks for SERVER_WALK_TICKS. Ticks from
     ``timed_from`` on are timed one by one, the card idle before and after
-    each; ``at_tick`` = (tick, fn) calls fn(sim) before that tick's
-    intents. Returns the timed ticks' ms."""
+    each; each (tick, fn) of ``at_ticks`` calls fn(sim) before that
+    tick's intents. Returns the timed ticks' ms."""
     import torch
     from rl_ode_physics_tpu_torch.net.client import m_key_body
     from rl_ode_physics_tpu_torch.utils.prng import RandStream
@@ -2494,8 +2576,9 @@ def _server_session(sim, ticks, timed_from, at_tick=None):
     tick_ms = []
     while sim.tick < ticks:
         t = sim.tick
-        if at_tick is not None and t == at_tick[0]:
-            at_tick[1](sim)
+        for tick, fn in at_ticks:
+            if t == tick:
+                fn(sim)
         if t < SERVER_SPAWN_TICKS:
             for _ in range(SERVER_SPAWNS_PER_TICK):
                 if sim.spawn_body(*m_key_body(rng)) < 0:
@@ -2640,8 +2723,10 @@ def phase_game_server(card):
 
     sim = SimCore(config, seed=0, player_capsules=True, device="cuda")
     t0 = time.perf_counter()
-    tick_ms = _server_session(sim, SERVER_TICKS, SERVER_TIMED_FROM,
-                              at_tick=(SERVER_TIMED_FROM, card_against_cpu))
+    tick_ms = _server_session(sim, SERVER_TICKS, SERVER_TIMED_FROM, at_ticks=(
+        (SERVER_EAGER_TICKS,
+         lambda s: held.update(eager_cli=s.state_digest())),
+        (SERVER_TIMED_FROM, card_against_cpu)))
     live_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
     if any(launches.values()):
@@ -2651,7 +2736,7 @@ def phase_game_server(card):
         raise AssertionError(f"server, CLI policy: overflow "
                              f"{int(sim.world.overflow[0])}")
     _check_batch(sim.world, "server, CLI policy", SERVER_TICKS)
-    digests = {"cli": sim.state_digest()}
+    digests = {"cli": sim.state_digest(), "cli_eager": held.pop("eager_cli")}
     bodies = int(sim.world.active.sum())
     prof = _launches_of(lambda: sim._step1(sim.world))
     replay_m.save_log(sim.intent_log, str(intents))
@@ -2689,9 +2774,11 @@ def phase_game_server(card):
     for fn in _hand_kernels():
         fn.launches = 0
     sim = SimCore(tconfig, seed=0, player_capsules=True, device="cuda")
-    tick_ms = _server_session(sim, SERVER_TICKS, SERVER_TIMED_FROM, at_tick=(
-        SERVER_THROUGHPUT_REPLAYED,
-        lambda s: held.update(digest=s.state_digest())))
+    tick_ms = _server_session(sim, SERVER_TICKS, SERVER_TIMED_FROM, at_ticks=(
+        (SERVER_THROUGHPUT_REPLAYED,
+         lambda s: held.update(digest=s.state_digest())),
+        (SERVER_EAGER_TICKS,
+         lambda s: held.update(eager_throughput=s.state_digest()))))
     t0 = time.perf_counter()
     again = replay_m.replay(sim.intent_log, SERVER_THROUGHPUT_REPLAYED,
                             tconfig, seed=0, player_capsules=True,
@@ -2712,6 +2799,7 @@ def phase_game_server(card):
                              f"{int(sim.world.overflow[0])}")
     _check_batch(sim.world, "server, throughput policy", SERVER_TICKS)
     digests["throughput"] = sim.state_digest()
+    digests["throughput_eager"] = held.pop("eager_throughput")
     prof = _launches_of(lambda: sim._step1(sim.world))
     stats_t = _tick_stats(tick_ms)
     log(f"server, throughput policy ({tconfig.selector_dtype} selectors): "
@@ -3491,8 +3579,9 @@ def _graphed_bench(config, settled, card):
 
 def _graphed_server(card, live):
     """The server-512 sessions of phase 21 (graphed, the default) against
-    the same intents eagerly: equal digests at tick 480 under both
-    policies, ticks/s, and the launches of one tick on each route."""
+    the same intents eagerly to SERVER_EAGER_TICKS: equal digests there
+    under both policies, ticks/s (eager over ticks 160-240, graphed
+    phase 21's 400-480), and the launches of one tick on each route."""
     from rl_ode_physics_tpu_torch.core.config import EngineConfig
     from rl_ode_physics_tpu_torch.net.server import SimCore
     from rl_ode_physics_tpu_torch.utils import graphs, profiling
@@ -3503,11 +3592,12 @@ def _graphed_server(card, live):
             ("throughput", EngineConfig.throughput(**SERVER_CAPS))):
         sim = SimCore(config, seed=0, player_capsules=True, device="cuda")
         with graphs.disable_graphs():
-            tick_ms = _server_session(sim, SERVER_TICKS, SERVER_TIMED_FROM)
-        if sim.state_digest() != live["digests"][policy]:
+            tick_ms = _server_session(sim, SERVER_EAGER_TICKS,
+                                      SERVER_EAGER_TIMED_FROM)
+        if sim.state_digest() != live["digests"][f"{policy}_eager"]:
             raise AssertionError(f"server, {policy} policy: the graphed "
                                  f"run's digest differs from the eager "
-                                 f"run's at tick {SERVER_TICKS}")
+                                 f"run's at tick {SERVER_EAGER_TICKS}")
         eager = _tick_stats(tick_ms)
 
         def tick_eager():
@@ -3520,11 +3610,12 @@ def _graphed_server(card, live):
         result[policy] = dict(graphed_ticks_per_s=live[
             "cli" if policy == "cli" else "throughput"]["ticks_per_s"],
             eager_ticks_per_s=eager["ticks_per_s"], **prof)
-        log(f"server-512, {policy} policy, {SERVER_TICKS} ticks with their "
-            f"intents: the graphed run's digest equals the eager run's; "
-            f"ticks {SERVER_TIMED_FROM}-{SERVER_TICKS}: graphed "
-            f"{result[policy]['graphed_ticks_per_s']:.2f} ticks/s, eager "
-            f"{eager['ticks_per_s']:.2f} on {card}; host launches a tick: "
+        log(f"server-512, {policy} policy, {SERVER_EAGER_TICKS} ticks with "
+            f"their intents: the graphed run's digest equals the eager "
+            f"run's; graphed {result[policy]['graphed_ticks_per_s']:.2f} "
+            f"ticks/s (ticks {SERVER_TIMED_FROM}-{SERVER_TICKS}), eager "
+            f"{eager['ticks_per_s']:.2f} (ticks {SERVER_EAGER_TIMED_FROM}-"
+            f"{SERVER_EAGER_TICKS}) on {card}; host launches a tick: "
             f"graphed {prof['graphed']['host_launches_per_call']} "
             f"({prof['graphed']['graph_launches_per_call']} graph launch, "
             f"the rest the copies in and out of a step not donated), eager "

@@ -13,16 +13,21 @@ and loaded with ``ctypes`` (``ops/kernel_build.py``).
 ``pgs_solve`` launches the kernel for CUDA tensors, float32 or float64.
 For CPU tensors, and only for those, it runs the kernel's plain version,
 ``ops/solver.py:pgs_sweeps_plain``, the Python row loop. ``pgs_solve.launches``
-counts the kernel's launches. The wrapper packs the rows into one buffer
-with the worlds innermost (``pack_rows``, ``pack_joint_rows``: the layout
-the source note gives), and reads nothing back to the host, so a CUDA graph
-can hold the launch.
+counts the kernel's launches. The kernel reads the row table where the
+solver built it (the (B, C, ...) tensors of ``ROW_KEYS``, the (B, R, ...)
+ones of ``JOINT_KEYS``), through one array of pointers (``POINTERS``); the
+wrapper checks them, makes contiguous and casts only what is not already in
+the layout the kernel reads (int32 bodies, bool flags), allocates the
+outputs and reads nothing back to the host, so a CUDA graph can hold the
+launch. Each world's first ``staged_rows`` live rows are staged in shared
+memory once a solve; ``launch_shape`` sizes the launch from the shapes.
 
-``pgs_kernel_order`` is the kernel's loop transcribed to PyTorch over the
-same packed buffers, batched over worlds as a warp runs them (a world's
-skipped row is a masked lane); the CPU tests hold it to the plain version,
-so that the kernel's arithmetic and packing are tested where there is no
-card. It lies on no path.
+``pgs_kernel_order`` is the kernel's loop transcribed to PyTorch on the
+same unpacked table: the staging order, the staged rows, the rows past
+them read from the table, a row's bodies held as registers; batched over
+worlds as the warps run them (a world's missing row is a masked lane). The
+CPU tests hold it to the plain version, so that the kernel's arithmetic
+and layout are tested where there is no card. It lies on no path.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -39,8 +45,12 @@ _LAUNCHERS = {torch.float32: "pgs_solve_launch",
               torch.float64: "pgs_solve_launch_f64"}
 FLAGS = ("-fmad=false",)
 
-# the velocities of a block's worlds share 48 KB of shared memory
-SHARED_BYTES = 48 * 1024
+# shared memory a block may opt into on Hopper (227 KB); the velocities of
+# one world, (N, 6), take at most 48 KB of it
+SHARED_BYTES = 232_448
+VELOCITY_BYTES = 48 * 1024
+MAX_WORLDS = 8          # worlds a block: a warp each stages, one steps all
+MIN_STAGED = 16         # rows a world stages at least, where it has them
 ROW_FIELDS = 40
 JOINT_FIELDS = 21
 
@@ -53,6 +63,10 @@ ROW_KEYS = ("a", "b", "valid", "r_a", "r_b", "n", "t1", "t2", "d_n", "d_t1",
             "inv_i_b")
 JOINT_KEYS = ("a", "b", "live", "n", "wa", "wb", "inv_m_a", "inv_m_b",
               "ang_resp_a", "ang_resp_b", "d_seq", "rhs", "lob", "hib")
+# the kernel's array of pointers, in its order (csrc/pgs_solve.cu)
+POINTERS = (ROW_KEYS + ("lam", "lam_out")
+            + tuple("j_" + k for k in JOINT_KEYS) + ("jlam", "vel",
+                                                     "vel_out"))
 _ROW_SHAPES = dict(a=(), b=(), valid=(), r_a=(3,), r_b=(3,), n=(3,),
                    t1=(3,), t2=(3,), d_n=(), d_t1=(), d_t2=(), target=(),
                    mu=(), inv_m_a=(), inv_m_b=(), inv_i_a=(3, 3),
@@ -60,6 +74,7 @@ _ROW_SHAPES = dict(a=(), b=(), valid=(), r_a=(3,), r_b=(3,), n=(3,),
 _JOINT_SHAPES = dict(a=(), b=(), live=(), n=(3,), wa=(3,), wb=(3,),
                      inv_m_a=(), inv_m_b=(), ang_resp_a=(3,),
                      ang_resp_b=(3,), d_seq=(), rhs=(), lob=(), hib=())
+_LIVE_KEYS = ("valid", "live")
 
 
 def build():
@@ -68,13 +83,14 @@ def build():
     return kernel_build.build("pgs_solve.cu", FLAGS)
 
 
-# the library's C interface: launcher → argtypes
+# the library's C interface: function → argtypes
 FUNCTIONS = {
-    name: ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] * 2
-           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    name: ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 8
            + [ctypes.c_double] * 2 + [ctypes.c_int, ctypes.c_double,
                                       ctypes.c_void_p])
     for name in _LAUNCHERS.values()}
+FUNCTIONS["pgs_solve_resources"] = [ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=1)
@@ -91,46 +107,82 @@ def friction_mode(friction: bool, mu: float, per_body_surface: bool) -> int:
     return MU_INF if math.isinf(mu) else MU_GLOBAL
 
 
+def _size(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def max_slots(dtype: torch.dtype) -> int:
-    """The most slots a world may have: its (N, 6) velocities fit the
-    block's shared memory."""
-    return SHARED_BYTES // (6 * torch.empty((), dtype=dtype).element_size())
+    """The most slots a world may have: its (N, 6) velocities fit
+    ``VELOCITY_BYTES`` of the block's shared memory."""
+    return VELOCITY_BYTES // (6 * _size(dtype))
 
 
-def pack_rows(rows, dtype):
-    """The contact row table (B, C, ...) → (rec (C, 40, B), idx (C, 3, B)
-    int32): fields r_a r_b n t1 t2 | d_n d_t1 d_t2 target μ inv_m_a
-    inv_m_b | inv_i_a inv_i_b (row-major), and a, b, live."""
-    bsz, c = rows["a"].shape
-    mu = rows.get("mu")
-    if mu is None:
-        mu = torch.zeros_like(rows["target"])
-    scalars = torch.stack([rows["d_n"], rows["d_t1"], rows["d_t2"],
-                           rows["target"], mu, rows["inv_m_a"],
-                           rows["inv_m_b"]], -1)
-    rec = torch.cat([rows["r_a"], rows["r_b"], rows["n"], rows["t1"],
-                     rows["t2"], scalars,
-                     rows["inv_i_a"].reshape(bsz, c, 9),
-                     rows["inv_i_b"].reshape(bsz, c, 9)], -1).to(dtype)
-    idx = torch.stack([rows["a"].to(torch.int32), rows["b"].to(torch.int32),
-                       rows["valid"].to(torch.int32)], -1)
-    return (rec.permute(1, 2, 0).contiguous(),
-            idx.permute(1, 2, 0).contiguous())
+def _world_bytes(size: int, n: int, staged: int, staged_joints: int) -> int:
+    """A world's stride in shared memory (``csrc/pgs_solve.cu:
+    world_bytes``): its velocities, the staged rows' fields and impulses,
+    their bodies and buffer rows and its 4 live counts, rounded up to 128
+    bytes, and 16 more (the sweeping warp's lanes then reach their worlds'
+    fields in distinct banks)."""
+    t = size * (6 * n + staged * (ROW_FIELDS + 3)
+                + staged_joints * (JOINT_FIELDS + 1))
+    return -(-(t + 4 * (3 * staged + 2 * staged_joints + 4)) // 128) * 128 + 16
 
 
-def pack_joint_rows(rows, dtype):
-    """The joint row table (``ops/joints.joint_rows``) → (jrec (R, 21, B),
-    jidx (R, 3, B) int32): n wa wb | inv_m_a inv_m_b | ang_resp_a
-    ang_resp_b | d_seq rhs lob hib, and a, b, live."""
-    jrec = torch.cat([rows["n"], rows["wa"], rows["wb"],
-                      torch.stack([rows["inv_m_a"], rows["inv_m_b"]], -1),
-                      rows["ang_resp_a"], rows["ang_resp_b"],
-                      torch.stack([rows["d_seq"], rows["rhs"], rows["lob"],
-                                   rows["hib"]], -1)], -1).to(dtype)
-    jidx = torch.stack([rows["a"].to(torch.int32), rows["b"].to(torch.int32),
-                        rows["live"].to(torch.int32)], -1)
-    return (jrec.permute(1, 2, 0).contiguous(),
-            jidx.permute(1, 2, 0).contiguous())
+class LaunchShape(NamedTuple):
+    worlds: int            # W, worlds a block
+    staged: int            # S, live contact rows a world stages
+    staged_joints: int     # S_j, live joint rows a world stages
+    shared_bytes: int      # the block's dynamic shared memory
+
+
+def launch_shape(dtype: torch.dtype, num_slots: int, contact_rows: int,
+                 joint_rows: int = 0) -> LaunchShape:
+    """The kernel's launch for worlds of ``num_slots`` slots, C =
+    ``contact_rows`` and R = ``joint_rows``: ``MAX_WORLDS`` worlds a block
+    (fewer where a world's velocities leave too little room), each world's
+    share of ``SHARED_BYTES`` after its velocities staged with contact rows
+    and joint rows (joint rows at most half of it where there are contact
+    rows too). From the shapes alone: nothing is read on the host."""
+    size = _size(dtype)
+    vel = 6 * num_slots * size + 16          # and the live counts
+    row = (ROW_FIELDS + 3) * size + 12
+    jrow = (JOINT_FIELDS + 1) * size + 8
+
+    def stride_room(worlds):
+        """A world's room for its velocities and rows: its share, less the
+        stride's padding (128 + 16 bytes at most)."""
+        return SHARED_BYTES // worlds // 128 * 128 - 128
+
+    least = (vel + min(contact_rows, MIN_STAGED) * row
+             + min(joint_rows, MIN_STAGED) * jrow)
+    worlds = MAX_WORLDS
+    while worlds > 1 and stride_room(worlds) < least:
+        worlds -= 1
+    room = stride_room(worlds) - vel
+    staged_joints = min(joint_rows, max(room // 2 if contact_rows else room,
+                                        0) // jrow)
+    staged = min(contact_rows, max(room - staged_joints * jrow, 0) // row)
+    shared = worlds * _world_bytes(size, num_slots, staged, staged_joints)
+    return LaunchShape(worlds, staged, staged_joints, shared)
+
+
+def staged_rows(dtype: torch.dtype, num_slots: int) -> int:
+    """S: the most live contact rows a world stages in shared memory, for
+    any count of contact rows and no joint rows; a world's live rows past
+    it are read from device memory, in order."""
+    return launch_shape(dtype, num_slots, 1 << 30).staged
+
+
+def resources(dtype: torch.dtype) -> dict:
+    """What the card says of the built kernel of ``dtype``: registers a
+    thread, local bytes a thread (spills), the most threads a block and
+    the dynamic shared memory it may take."""
+    out = (ctypes.c_int * 4)()
+    err = _library().pgs_solve_resources(int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"pgs_solve resources: CUDA error {err}")
+    return dict(registers=out[0], local_bytes=out[1],
+                max_threads=out[2], max_dynamic_shared=out[3])
 
 
 def _tensors(vel, lam, rows, joints_rows):
@@ -187,48 +239,70 @@ def _check(vel, lam, rows, joints_rows, mode, in_shared=True):
                              f"expected {(bsz, c, 3)} {vel.dtype}")
 
 
-def pack(vel, lam, rows, joints_rows):
-    """The buffers of a launch: rec, idx, jrec, jidx, the velocities, λ as
-    (3, C, B) and the joints' λ as (R, B), each a tensor of its own that
-    the kernel updates in place."""
-    f, dev = vel.dtype, vel.device
-    bsz = vel.shape[0]
-    if rows is None:
-        rec = torch.empty((0, ROW_FIELDS, bsz), dtype=f, device=dev)
-        idx = torch.empty((0, 3, bsz), dtype=torch.int32, device=dev)
-        lam_k = torch.empty((3, 0, bsz), dtype=f, device=dev)
-    else:
-        rec, idx = pack_rows(rows, f)
-        lam_k = lam.permute(2, 1, 0).contiguous()
-    if joints_rows is None:
-        jrec = torch.empty((0, JOINT_FIELDS, bsz), dtype=f, device=dev)
-        jidx = torch.empty((0, 3, bsz), dtype=torch.int32, device=dev)
-    else:
-        jrec, jidx = pack_joint_rows(joints_rows, f)
-    jlam = torch.zeros((jidx.shape[0], bsz), dtype=f, device=dev)
-    vel_k = vel.contiguous().clone()
-    return rec, idx, jrec, jidx, vel_k, lam_k, jlam
+def _kernel_layout(key: str, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernel reads it: contiguous, the bodies int32, the
+    flags bool; the tensor itself where it already is."""
+    if key in ("a", "b") and x.dtype != torch.int32:
+        x = x.to(torch.int32)
+    elif key in _LIVE_KEYS and x.dtype != torch.bool:
+        x = x != 0
+    return x.contiguous()
 
 
-def launch(packed, *, iterations: int, omega: float, cfm_term: float,
-           mode: int, mu: float) -> None:
-    """One launch of the kernel on ``pack``'s buffers, on the current
-    stream of their card: the velocities and impulses are updated in
-    place. Counted in ``pgs_solve.launches``."""
-    rec, idx, jrec, jidx, vel_k, lam_k, jlam = packed
-    bsz, n = vel_k.shape[:2]
-    run = getattr(_library(), _LAUNCHERS[vel_k.dtype])
-    with torch.cuda.device(vel_k.device):
-        stream = torch.cuda.current_stream(vel_k.device).cuda_stream
-        err = run(rec.data_ptr(), idx.data_ptr(), idx.shape[0],
-                  jrec.data_ptr(), jidx.data_ptr(), jidx.shape[0],
-                  vel_k.data_ptr(), lam_k.data_ptr(), jlam.data_ptr(), bsz,
-                  n, int(iterations), float(omega), float(cfm_term), mode,
-                  float(mu), stream)
+class Launch(NamedTuple):
+    tensors: dict          # POINTERS' name → tensor, kept alive
+    pointers: ctypes.Array
+    num_worlds: int
+    num_slots: int
+    contact_rows: int
+    joint_rows: int
+    shape: LaunchShape
+
+
+def prepare(vel, lam, rows, joints_rows, mode: int) -> Launch:
+    """A launch on these tensors, checked by ``pgs_solve``: the table as
+    the kernel reads it (``_kernel_layout``), and the outputs allocated:
+    the velocities and impulses, and the joint rows' impulses past the
+    staged ones (scratch)."""
+    bsz, n = vel.shape[:2]
+    c = 0 if rows is None else rows["a"].shape[1]
+    r = 0 if joints_rows is None else joints_rows["a"].shape[1]
+    t = {"vel": vel.contiguous()}
+    t["vel_out"] = torch.empty_like(t["vel"])
+    if rows is not None:
+        t.update({k: _kernel_layout(k, rows[k]) for k in ROW_KEYS
+                  if k != "mu" or mode == MU_PER_ROW})
+        t["lam"] = lam.contiguous()
+        t["lam_out"] = torch.empty_like(t["lam"])
+    if joints_rows is not None:
+        t.update({"j_" + k: _kernel_layout(k, joints_rows[k])
+                  for k in JOINT_KEYS})
+        t["jlam"] = torch.empty((bsz, r), dtype=vel.dtype, device=vel.device)
+    pointers = (ctypes.c_void_p * len(POINTERS))(
+        *[t[k].data_ptr() if k in t and t[k].numel() else None
+          for k in POINTERS])
+    return Launch(t, pointers, bsz, n, c, r,
+                  launch_shape(vel.dtype, n, c, r))
+
+
+def launch(run: Launch, *, iterations: int, omega: float, cfm_term: float,
+           mode: int, mu: float):
+    """One launch of the kernel on ``prepare``'s tensors, on the current
+    stream of their card. Returns (vel', lam'), ``run``'s outputs; lam' is
+    None without contact rows. Counted in ``pgs_solve.launches``."""
+    vel = run.tensors["vel"]
+    fn = getattr(_library(), _LAUNCHERS[vel.dtype])
+    w, s, sj, _ = run.shape
+    with torch.cuda.device(vel.device):
+        stream = torch.cuda.current_stream(vel.device).cuda_stream
+        err = fn(run.pointers, run.num_worlds, run.num_slots,
+                 run.contact_rows, run.joint_rows, w, s, sj, int(iterations),
+                 float(omega), float(cfm_term), mode, float(mu), stream)
     if err != 0:
         raise RuntimeError(f"pgs_solve kernel launch failed: CUDA error "
                            f"{err}")
     pgs_solve.launches += 1
+    return run.tensors["vel_out"], run.tensors.get("lam_out")
 
 
 def pgs_solve(vel: torch.Tensor, lam, rows, joints_rows=None, *,
@@ -259,147 +333,232 @@ def pgs_solve(vel: torch.Tensor, lam, rows, joints_rows=None, *,
     if not vel.is_cuda:
         raise ValueError(f"tensors on {vel.device}: the kernel takes them "
                          f"on a card, the plain version on the CPU")
-    packed = pack(vel, lam, rows, joints_rows)
-    launch(packed, iterations=iterations, omega=omega, cfm_term=cfm_term,
-           mode=mode, mu=mu)
-    vel_k, lam_k = packed[4], packed[5]
-    lam_out = None if rows is None else lam_k.permute(2, 1, 0).contiguous()
-    return vel_k, lam_out
+    return launch(prepare(vel, lam, rows, joints_rows, mode),
+                  iterations=iterations, omega=omega, cfm_term=cfm_term,
+                  mode=mode, mu=mu)
 
 
 pgs_solve.launches = 0
 
 
+def live_rows(live: torch.Tensor, cap: int):
+    """``csrc/pgs_solve.cu:find_live``, the warp's scan of each world's
+    (B, n) live flags 32 at a time: a live row's place is the live count of
+    the chunks before it plus the live flags below it in its chunk (the
+    ballot's prefix popc). Returns (row (B, cap) int64: the buffer rows of
+    each world's first ``cap`` live rows, in buffer order, -1 past its
+    count; count (B,): its live rows; past (B,): its first live row after
+    them, n if none)."""
+    bsz, n = live.shape
+    dev = live.device
+    row = torch.full((bsz, cap), -1, dtype=torch.int64, device=dev)
+    count = torch.zeros(bsz, dtype=torch.int64, device=dev)
+    past = torch.full((bsz,), n, dtype=torch.int64, device=dev)
+    for base in range(0, n, 32):
+        on = live[:, base:base + 32] != 0
+        c = torch.arange(base, base + on.shape[1], device=dev).expand_as(on)
+        pos = count[:, None] + torch.cumsum(on, 1) - on.long()
+        put = on & (pos < cap)
+        row[put.nonzero(as_tuple=True)[0], pos[put]] = c[put]
+        past = torch.minimum(past, torch.where(on & (pos == cap), c,
+                                               n).amin(1))
+        count = count + on.sum(1)
+    return row, count, past
+
+
 def pgs_kernel_order(vel, lam, rows, joints_rows=None, *, iterations: int,
                      omega: float, cfm_term: float, friction: bool = True,
-                     mu: float = math.inf, per_body_surface: bool = False):
-    """``csrc/pgs_solve.cu``'s loop in PyTorch, on the kernel's own packed
-    buffers: the contract of ``pgs_solve``, computed operation by operation
-    in the kernel's order, batched over worlds as a warp's lanes (a world
-    whose row is dead or past its last live row keeps its values, as a
-    lane that skips it). Any device; it lies on no path."""
+                     mu: float = math.inf, per_body_surface: bool = False,
+                     staged: int | None = None,
+                     staged_joints: int | None = None):
+    """``csrc/pgs_solve.cu``'s loop in PyTorch, on the unpacked table: the
+    contract of ``pgs_solve``, computed operation by operation in the
+    kernel's order, batched over worlds as its warps. Each world's live
+    rows in ``live_rows``' order; its first ``staged`` (``staged_joints``)
+    gathered once, as the prologue stages them (default: the launch's S,
+    S_j of ``launch_shape``), the rest read from the table in each sweep
+    and their impulses updated in the output in place; a row's two bodies
+    loaded once, updated as registers through its axes (where a = b the
+    second starts from the first's result) and stored a first, b last. A
+    world with no row j is a masked lane. Any device; it lies on no
+    path."""
     mode = friction_mode(friction, mu, per_body_surface)
     _check(vel, lam, rows, joints_rows, mode)
-    rec, idx, jrec, jidx, vel_k, lam_k, jlam = pack(vel, lam, rows,
-                                                    joints_rows)
-    f = vel.dtype
-    bsz = vel.shape[0]
-    ar = torch.arange(bsz, device=vel.device)
-    # shared memory: [slot][component][world]
-    sv = vel_k.permute(1, 2, 0).contiguous()
-
-    def last_live(live):
-        """(rows, B) live flags → one past each world's last live row."""
-        k = torch.arange(live.shape[0] + 1, device=live.device)[:, None]
-        first = torch.ones((1, live.shape[1]), dtype=live.dtype,
-                           device=live.device)       # k = 0: none live
-        on = torch.cat([first, live]) != 0
-        return (k * on).amax(0)
-
-    last, jlast = last_live(idx[:, 2]), last_live(jidx[:, 2])
-
-    def at(body, k):
-        return sv[body, k, ar]
-
-    def add(on, body, k, x):
-        sv[body, k, ar] = torch.where(on, at(body, k) + x, at(body, k))
+    f, dev = vel.dtype, vel.device
+    bsz, n = vel.shape[:2]
+    c = 0 if rows is None else rows["a"].shape[1]
+    r = 0 if joints_rows is None else joints_rows["a"].shape[1]
+    shape = launch_shape(f, n, c, r)
+    s_cap = min(shape.staged if staged is None else staged, c)
+    sj_cap = min(shape.staged_joints if staged_joints is None
+                 else staged_joints, r)
+    ar = torch.arange(bsz, device=dev)
+    sv = vel.clone()           # each world's velocities in shared memory
+    inf = torch.full((bsz,), math.inf, dtype=f, device=dev)
 
     def cross_c(x1, y2, x2, y1):
         # the kernel's fma(x1, y2, −(x2·y1)): addcmul is one fused
         # multiply-add on the CPU
         return torch.addcmul(-(x2 * y1), x1, y2)
 
-    def rel_v(a, b, ra, rb, ax):
-        va = [at(a, k) for k in range(6)]
-        vb = [at(b, k) for k in range(6)]
-        va0 = va[0] + cross_c(va[4], ra[2], va[5], ra[1])
-        va1 = va[1] + cross_c(va[5], ra[0], va[3], ra[2])
-        va2 = va[2] + cross_c(va[3], ra[1], va[4], ra[0])
-        vb0 = vb[0] + cross_c(vb[4], rb[2], vb[5], rb[1])
-        vb1 = vb[1] + cross_c(vb[5], rb[0], vb[3], rb[2])
-        vb2 = vb[2] + cross_c(vb[3], rb[1], vb[4], rb[0])
-        return (((vb0 - va0) * ax[0] + (vb1 - va1) * ax[1])
-                + (vb2 - va2) * ax[2])
-
-    def push(on, body, r, im, ii, p):
-        t0 = cross_c(r[1], p[2], r[2], p[1])
-        t1 = cross_c(r[2], p[0], r[0], p[2])
-        t2 = cross_c(r[0], p[1], r[1], p[0])
-        for k in range(3):
-            add(on, body, k, im * p[k])
-        for k in range(3):
-            add(on, body, 3 + k,
-                (ii[3 * k] * t0 + ii[3 * k + 1] * t1) + ii[3 * k + 2] * t2)
-
-    def apply_pair(on, a, b, ra, rb, im_a, im_b, ii_a, ii_b, ax, dl):
-        p = [ax[k] * dl for k in range(3)]
-        push(on, a, ra, im_a, ii_a, [-x for x in p])
-        push(on, b, rb, im_b, ii_b, p)
-
     def clamp(x, lo, hi):
         x = torch.where(x < lo, lo, x)
         return torch.where(x > hi, hi, x)
 
-    inf = torch.full((bsz,), math.inf, dtype=f, device=vel.device)
-    for _ in range(iterations):
-        for c in range(int(last.max())):
-            on = (c < last) & (idx[c, 2] != 0)
-            a, b = idx[c, 0].long(), idx[c, 1].long()
-            fld = rec[c]
-            ra, rb = [fld[k] for k in range(0, 3)], [fld[k] for k in range(3, 6)]
-            nrm = [fld[k] for k in range(6, 9)]
-            axes = ([fld[k] for k in range(9, 12)],
-                    [fld[k] for k in range(12, 15)])
-            im_a, im_b = fld[20], fld[21]
-            ii_a = [fld[22 + k] for k in range(9)]
-            ii_b = [fld[31 + k] for k in range(9)]
-            ln = lam_k[0, c]
-            dl = omega * ((fld[18] - rel_v(a, b, ra, rb, nrm)) - cfm_term * ln
-                          ) / fld[15]
-            x = ln + dl
-            dl = torch.where(x < 0, torch.zeros_like(x), x) - ln
-            ln = torch.where(on, ln + dl, ln)
-            lam_k[0, c] = ln
-            apply_pair(on, a, b, ra, rb, im_a, im_b, ii_a, ii_b, nrm, dl)
-            if mode == NO_FRICTION:
-                continue
+    def bodies(on, a, b):
+        """A row's bodies (a masked lane's are slot 0) and their 12
+        components, loaded once into registers."""
+        a, b = torch.where(on, a, 0), torch.where(on, b, 0)
+        return (a, b, [sv[ar, a, k] for k in range(6)],
+                [sv[ar, b, k] for k in range(6)])
+
+    def store(on, a, b, va, vb):
+        for body, v in ((a, va), (b, vb)):             # b last
+            for k in range(6):
+                sv[ar, body, k] = torch.where(on, v[k], sv[ar, body, k])
+
+    def rel_v(va, vb, ra, rb, ax):
+        a0 = va[0] + cross_c(va[4], ra[2], va[5], ra[1])
+        a1 = va[1] + cross_c(va[5], ra[0], va[3], ra[2])
+        a2 = va[2] + cross_c(va[3], ra[1], va[4], ra[0])
+        b0 = vb[0] + cross_c(vb[4], rb[2], vb[5], rb[1])
+        b1 = vb[1] + cross_c(vb[5], rb[0], vb[3], rb[2])
+        b2 = vb[2] + cross_c(vb[3], rb[1], vb[4], rb[0])
+        return ((b0 - a0) * ax[0] + (b1 - a1) * ax[1]) + (b2 - a2) * ax[2]
+
+    def impulse(r_, im, ii, p):
+        t0 = cross_c(r_[1], p[2], r_[2], p[1])
+        t1 = cross_c(r_[2], p[0], r_[0], p[2])
+        t2 = cross_c(r_[0], p[1], r_[1], p[0])
+        return ([im * p[k] for k in range(3)]
+                + [(ii[3 * k] * t0 + ii[3 * k + 1] * t1) + ii[3 * k + 2] * t2
+                   for k in range(3)])
+
+    def add_pair(va, vb, same, da, db):
+        """va + da, then vb + db; where a = b, b's sum starts from a's."""
+        a1 = [x + d for x, d in zip(va, da)]
+        twice = [x + d for x, d in zip(a1, db)]
+        b1 = [x + d for x, d in zip(vb, db)]
+        return ([torch.where(same, t, x) for t, x in zip(twice, a1)],
+                [torch.where(same, t, x) for t, x in zip(twice, b1)])
+
+    def apply_pair(va, vb, same, g, ax, dl):
+        p = [ax[k] * dl for k in range(3)]
+        return add_pair(va, vb, same,
+                        impulse(g["r_a"], g["inv_m_a"], g["inv_i_a"],
+                                [-x for x in p]),
+                        impulse(g["r_b"], g["inv_m_b"], g["inv_i_b"], p))
+
+    def contact(on, g, a, b, lam3):
+        """One contact row, its fields g (B, ...) and impulses lam3 (three
+        (B,)): returns the new impulses (a masked lane's unchanged)."""
+        a, b, va, vb = bodies(on, a, b)
+        same = a == b
+        ln = lam3[0]
+        dl = omega * ((g["target"] - rel_v(va, vb, g["r_a"], g["r_b"],
+                                           g["n"]))
+                      - cfm_term * ln) / g["d_n"]
+        x = ln + dl
+        dl = torch.where(x < 0, torch.zeros_like(x), x) - ln
+        out = [ln + dl, lam3[1], lam3[2]]
+        va, vb = apply_pair(va, vb, same, g, g["n"], dl)
+        if mode != NO_FRICTION:
             bound = inf
             if mode == MU_GLOBAL:
-                bound = mu * ln
+                bound = mu * out[0]
             elif mode == MU_PER_ROW:
-                bound = torch.where(torch.isinf(fld[19]), inf, fld[19] * ln)
-            for k in range(2):
-                lt = lam_k[1 + k, c]
-                ds = omega * ((0.0 - rel_v(a, b, ra, rb, axes[k]))
-                              - cfm_term * lt) / fld[16 + k]
+                bound = torch.where(torch.isinf(g["mu"]), inf,
+                                    g["mu"] * out[0])
+            for k, (ax, d) in enumerate(((g["t1"], g["d_t1"]),
+                                         (g["t2"], g["d_t2"]))):
+                lt = lam3[1 + k]
+                ds = omega * ((0.0 - rel_v(va, vb, g["r_a"], g["r_b"], ax))
+                              - cfm_term * lt) / d
                 ds = clamp(lt + ds, -bound, bound) - lt
-                lam_k[1 + k, c] = torch.where(on, lt + ds, lt)
-                apply_pair(on, a, b, ra, rb, im_a, im_b, ii_a, ii_b,
-                           axes[k], ds)
-        for r in range(int(jlast.max())):
-            on = (r < jlast) & (jidx[r, 2] != 0)
-            a, b = jidx[r, 0].long(), jidx[r, 1].long()
-            g = jrec[r]
-            jn = [g[k] for k in range(3)]
-            s_lin = (((at(b, 0) - at(a, 0)) * jn[0]
-                      + (at(b, 1) - at(a, 1)) * jn[1])
-                     + (at(b, 2) - at(a, 2)) * jn[2])
-            s_b = (at(b, 3) * g[6] + at(b, 4) * g[7]) + at(b, 5) * g[8]
-            s_a = (at(a, 3) * g[3] + at(a, 4) * g[4]) + at(a, 5) * g[5]
-            rel = (s_lin + s_b) - s_a
-            lj = jlam[r]
-            dl = omega * ((g[18] - rel) - cfm_term * lj) / g[17]
-            dl = clamp(lj + dl, g[19], g[20]) - lj
-            jlam[r] = torch.where(on, lj + dl, lj)
-            for k in range(3):
-                add(on, a, k, -g[9] * (jn[k] * dl))
-            for k in range(3):
-                add(on, a, 3 + k, -g[11 + k] * dl)
-            for k in range(3):
-                add(on, b, k, g[10] * (jn[k] * dl))
-            for k in range(3):
-                add(on, b, 3 + k, g[14 + k] * dl)
+                out[1 + k] = lt + ds
+                va, vb = apply_pair(va, vb, same, g, ax, ds)
+        store(on, a, b, va, vb)
+        return [torch.where(on, o, i) for o, i in zip(out, lam3)]
 
-    vel_out = sv.permute(2, 0, 1).contiguous()
-    lam_out = None if rows is None else lam_k.permute(2, 1, 0).contiguous()
-    return vel_out, lam_out
+    def joint(on, g, a, b, lj):
+        a, b, va, vb = bodies(on, a, b)
+        same = a == b
+        nrm, wa, wb = g["n"], g["wa"], g["wb"]
+        s_lin = (((vb[0] - va[0]) * nrm[0] + (vb[1] - va[1]) * nrm[1])
+                 + (vb[2] - va[2]) * nrm[2])
+        s_b = (vb[3] * wb[0] + vb[4] * wb[1]) + vb[5] * wb[2]
+        s_a = (va[3] * wa[0] + va[4] * wa[1]) + va[5] * wa[2]
+        rel = (s_lin + s_b) - s_a
+        dl = omega * ((g["rhs"] - rel) - cfm_term * lj) / g["d_seq"]
+        dl = clamp(lj + dl, g["lob"], g["hib"]) - lj
+        da = ([-g["inv_m_a"] * (nrm[k] * dl) for k in range(3)]
+              + [-g["ang_resp_a"][k] * dl for k in range(3)])
+        db = ([g["inv_m_b"] * (nrm[k] * dl) for k in range(3)]
+              + [g["ang_resp_b"][k] * dl for k in range(3)])
+        store(on, a, b, *add_pair(va, vb, same, da, db))
+        return torch.where(on, lj + dl, lj)
+
+    def record(table, keys, idx):
+        """Row idx (B,) of each world from the (B, rows, ...) table: (B,)
+        fields, a vector's and a matrix's as lists of components."""
+        g = {}
+        for k in keys:
+            x = table[k][ar, idx.clamp_min(0)]
+            g[k] = (x.reshape(bsz, -1).unbind(1) if x.dim() > 1 else x)
+        return g
+
+    def stage(table, keys, order, cap):
+        """The first ``cap`` live rows of each world gathered once, as the
+        prologue stages them: (B, cap, ...) tensors."""
+        idx = order[:, :cap].clamp_min(0)
+        return {k: table[k][ar[:, None], idx] for k in keys}
+
+    row_keys = [k for k in ROW_KEYS[3:] if k != "mu" or mode == MU_PER_ROW]
+    joint_keys = list(JOINT_KEYS[3:])
+    tables = []
+    if rows is not None:
+        order, count, _ = live_rows(rows["valid"], c)
+        lam_out = lam.clone()          # dead rows' impulses pass through
+        st = stage(rows, row_keys + ["a", "b"], order, s_cap)
+        slam = lam[ar[:, None], order[:, :s_cap].clamp_min(0)].clone()
+        tables.append((rows, row_keys, order, count, s_cap, st, slam, lam_out,
+                       contact))
+    if joints_rows is not None:
+        jorder, jcount, _ = live_rows(joints_rows["live"], r)
+        jst = stage(joints_rows, joint_keys + ["a", "b"], jorder, sj_cap)
+        jslam = torch.zeros((bsz, sj_cap, 1), dtype=f, device=dev)
+        jl_out = torch.zeros((bsz, r, 1), dtype=f, device=dev)
+        tables.append((joints_rows, joint_keys, jorder, jcount, sj_cap, jst,
+                       jslam, jl_out, joint))
+
+    def solve(fn, on, g, a, b, lam_k):
+        """fn on impulses lam_k (B, k): the new (B, k)."""
+        if fn is joint:
+            return joint(on, g, a, b, lam_k[:, 0])[:, None]
+        return torch.stack(contact(on, g, a, b, lam_k.unbind(1)), 1)
+
+    for _ in range(iterations):
+        for table, keys, order, count, cap, st, slam, out, fn in tables:
+            held = count.clamp(max=cap)
+            for j in range(int(held.max()) if cap else 0):
+                g = {k: (st[k][:, j].reshape(bsz, -1).unbind(1)
+                         if st[k].dim() > 2 else st[k][:, j]) for k in keys}
+                slam[:, j] = solve(fn, j < held, g, st["a"][:, j].long(),
+                                   st["b"][:, j].long(), slam[:, j])
+            # the live rows past the staged ones, read in place, in order
+            for j in range(cap, int(count.max()) if count.numel() else 0):
+                on = j < count
+                idx = torch.where(on, order[:, j], 0)
+                g = record(table, keys, idx)
+                out[ar, idx] = solve(fn, on, g, table["a"][ar, idx].long(),
+                                     table["b"][ar, idx].long(),
+                                     out[ar, idx])
+    if rows is None:
+        return sv, None
+    _, _, order, count, cap, _, slam, lam_out, _ = tables[0]
+    held = count.clamp(max=cap)
+    for j in range(cap):
+        on = (j < held)[:, None]
+        idx = order[:, j].clamp_min(0)
+        lam_out[ar, idx] = torch.where(on, slam[:, j], lam_out[ar, idx])
+    return sv, lam_out

@@ -123,8 +123,10 @@ def pgs_bound(valid, jlive, num_slots: int, iterations: int, dtype=None,
               friction: bool = True) -> dict:
     """The least time of one ``pgs_solve`` launch on these rows: ``valid``
     (B, C) the live contact rows, ``jlive`` (B, R) the live joint rows or
-    None. Bytes: every row's live flag, each live row's record and bodies,
-    the velocities in and out, each live row's impulses in and out;
+    None. Bytes: every row's live flag (a bool), each live row's fields
+    and bodies, the velocities in and out, every contact row's impulses in
+    and out (the output is a new (B, C, 3) tensor, dead rows passed
+    through);
     operations: ``iterations`` sweeps of each live row's axes and joint
     rows. ``chain_ms``, not part of the bound: the longest world's chain of
     dependent operations (iterations × its live rows × axes) at
@@ -137,8 +139,8 @@ def pgs_bound(valid, jlive, num_slots: int, iterations: int, dtype=None,
              else rows.new_zeros(rows.shape))
     r = 0 if jlive is None else jlive.shape[1]
     live, jl = int(rows.sum()), int(jrows.sum())
-    n_bytes = (4 * b * (c + r) + live * (40 * size + 8) + jl * (21 * size + 8)
-               + 2 * b * num_slots * 6 * size + 2 * (live * axes + jl) * size)
+    n_bytes = (b * (c + r) + live * (40 * size + 8) + jl * (21 * size + 8)
+               + 2 * b * num_slots * 6 * size + 2 * b * c * 3 * size)
     ops = iterations * (live * (axes * PGS_OPS_PER_AXIS + int(friction))
                         + jl * PGS_OPS_PER_JOINT_ROW)
     chain = iterations * int((rows * axes * PGS_CHAIN_PER_AXIS

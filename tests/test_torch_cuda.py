@@ -15,7 +15,9 @@ bitwise to its eager loop (``disable_graphs``), and check the launch
 counts per replay, outputs that a later call does not write over, a new
 capture for a new shape, PGS graphed and DANTZIG running eagerly, and a
 forced capture of DANTZIG's host read raising. The PGS kernel is held to
-its plain version on every friction case, with joint rows and alone.
+its plain version on every friction case, with joint rows and alone, on
+scattered live rows, with more live rows than it stages and at the most
+slots a world may have.
 """
 
 import numpy as np
@@ -1128,6 +1130,82 @@ def test_pgs_kernel_with_joints_matches_plain_on_card(dtype):
                           what="joints in the sweeps")
     _kernel_against_plain((vel, None, None, jrows), config, dtype, 1.0,
                           what="joint passes alone")
+
+
+def _scattered_rows(lam, rows, seed):
+    """Each world's rows in a seeded random order of its own: the live
+    rows scattered over the buffer."""
+    bsz, c = rows["valid"].shape
+    gen = torch.Generator("cuda").manual_seed(seed)
+    perm = torch.argsort(torch.rand((bsz, c), generator=gen, device="cuda"),
+                         1)
+    ar = torch.arange(bsz, device="cuda")[:, None]
+    return lam[ar, perm], {k: None if v is None else v[ar, perm]
+                           for k, v in rows.items()}
+
+
+def _all_rows_live(lam, rows):
+    """Every one of a world's C rows live: row c a copy of its live row
+    c mod (its live count), in buffer order."""
+    valid = rows["valid"]
+    bsz, c = valid.shape
+    count = valid.sum(1, keepdim=True)
+    assert bool((count > 0).all())
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    src = order.gather(1, torch.arange(c, device="cuda")[None] % count)
+    ar = torch.arange(bsz, device="cuda")[:, None]
+    out = {k: None if v is None else v[ar, src] for k, v in rows.items()}
+    out["valid"] = torch.ones_like(valid)
+    return lam[ar, src], out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("layout", ["scattered", "all_live"])
+def test_pgs_kernel_on_scattered_and_overfull_rows_on_card(layout, dtype):
+    """The conformance configuration's rows on the settled mini stack,
+    scattered over each world's buffer; and every one of its 256 rows live
+    (each world's live rows repeated), more than the kernel stages
+    (``staged_rows``) in either dtype, so the rows past S are solved from
+    device memory."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel
+    config = EngineConfig.conformance(**CONF_CAPS, dtype=dtype)
+    vel, lam, rows, _ = _pgs_inputs(config, _settled_stack(config), True)
+    if layout == "scattered":
+        lam, rows = _scattered_rows(lam, rows, 7)
+        first = rows["valid"].float().argmax(1)
+        assert int(first.max()) > 0            # not a prefix any more
+    else:
+        lam, rows = _all_rows_live(lam, rows)
+        c = rows["valid"].shape[1]
+        assert bool(rows["valid"].all())
+        assert c > pgs_kernel.staged_rows(vel.dtype, vel.shape[1])
+    _kernel_against_plain((vel, lam, rows, None), config, dtype,
+                          what=layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pgs_kernel_at_the_most_slots_on_card(dtype):
+    """Worlds of ``max_slots`` slots (1,024 in float64, 2,048 in float32):
+    fewer worlds a block and fewer staged rows (``launch_shape``), the
+    kernel still the plain loop's, the rows of the settled mini stack in
+    its first 12 slots."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel
+    config = EngineConfig.conformance(**CONF_CAPS, dtype=dtype)
+    vel, lam, rows, _ = _pgs_inputs(config, _settled_stack(config, 2), False)
+    n = pgs_kernel.max_slots(vel.dtype)
+    shape = pgs_kernel.launch_shape(vel.dtype, n, rows["valid"].shape[1])
+    assert shape.worlds < pgs_kernel.MAX_WORLDS and shape.staged > 0
+    assert shape.shared_bytes <= pgs_kernel.SHARED_BYTES
+    wide = torch.zeros((vel.shape[0], n, 6), dtype=vel.dtype, device="cuda")
+    wide[:, :vel.shape[1]] = vel
+    _kernel_against_plain((wide, lam, rows, None), config, dtype,
+                          what="most slots")
 
 
 @pytest.mark.cuda

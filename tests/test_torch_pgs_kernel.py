@@ -1,13 +1,19 @@
 """The PGS kernel's arithmetic on the CPU: ``ops/pgs_kernel.pgs_kernel_order``
-(``csrc/pgs_solve.cu``'s loop in PyTorch, on the kernel's packed buffers)
-against the plain version (``ops/solver.pgs_sweeps_plain``, the Python row
-loop) and both against the JAX package's ``solve_pgs`` under ``vmap``.
+(``csrc/pgs_solve.cu``'s loop in PyTorch, on the unpacked row table: the
+warp's scan for the live rows, the staged rows, the rows past them read
+from the table, a row's bodies held as registers) against the plain
+version (``ops/solver.pgs_sweeps_plain``, the Python row loop) and both
+against the JAX package's ``solve_pgs`` under ``vmap``.
 
 The inputs are ``test_torch_pgs.py``'s: the settled pile's classic
 contacts in two worlds whose velocities differ, cold and warm started,
 at μ=∞, finite μ, per-body surfaces and without friction; and the hinge
 chain under PGS, joint rows in the sweeps, and its joint passes alone
-(DANTZIG's, at ω = 1).
+(DANTZIG's, at ω = 1). Beside them: the scan's order on scattered live
+masks against ``nonzero()``, and the kernel's order with each world's
+live rows past a small S (S forced through ``staged=``) on a synthetic
+table with scattered live rows and live rows whose bodies are one slot
+(a = b; the pipelines' live rows have a < b), and on the hinge chain.
 
 Tolerances:
 - the kernel's order against the plain version, float32 and float64:
@@ -325,23 +331,101 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     assert pgs_kernel.max_slots(torch.float64) == 1024
 
 
-def test_packed_layout():
-    """``pack_rows`` / ``pack_joint_rows`` put each field at the offset the
-    kernel reads it from, worlds innermost."""
-    vel, lam, rows = _small_table(bsz=3, c=4)
-    rec, idx = pgs_kernel.pack_rows(rows, torch.float32)
-    assert rec.shape == (4, pgs_kernel.ROW_FIELDS, 3) and rec.is_contiguous()
-    assert torch.equal(rec[:, 15], rows["d_n"].T)
-    assert torch.equal(rec[:, 19], rows["mu"].T)
-    assert torch.equal(rec[:, 22:31], rows["inv_i_a"].reshape(3, 4, 9)
-                       .permute(1, 2, 0))
-    assert torch.equal(idx[:, 2], rows["valid"].T.to(torch.int32))
-    assert idx.dtype == torch.int32
-    joints = {k: torch.randn(rows["d_n"].shape + s) for k, s in
-              pgs_kernel._JOINT_SHAPES.items() if k not in ("a", "b", "live")}
-    joints.update(a=rows["a"], b=rows["b"], live=rows["valid"])
-    jrec, jidx = pgs_kernel.pack_joint_rows(joints, torch.float32)
-    assert jrec.shape == (4, pgs_kernel.JOINT_FIELDS, 3)
-    assert torch.equal(jrec[:, 11:14], joints["ang_resp_a"].permute(1, 2, 0))
-    assert torch.equal(jrec[:, 20], joints["hib"].T)
-    assert torch.equal(jidx[:, 0], rows["a"].T.to(torch.int32))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_staging_order_on_scattered_live_rows(seed):
+    """The kernel's scan of the live flags (``live_rows``, 32 flags at a
+    time, a prefix popcount a chunk) gives each world's live rows in
+    ``valid.nonzero()``'s buffer order, its count, and the first live row
+    past the staged ones, on scattered masks (not a prefix) of several
+    chunks, at a cap below, at and above the counts."""
+    gen = torch.Generator().manual_seed(seed)
+    valid = torch.rand((6, 100), generator=gen) < torch.tensor(
+        [0.0, 0.05, 0.3, 0.6, 0.95, 1.0])[:, None]
+    assert not valid[2].cumprod(0).sum() == valid[2].sum()   # not a prefix
+    for cap in (0, 5, 30, 100):
+        row, count, past = pgs_kernel.live_rows(valid, cap)
+        assert row.shape == (6, cap)
+        for w in range(6):
+            live = valid[w].nonzero().flatten()
+            held = min(cap, len(live))
+            assert int(count[w]) == len(live)
+            assert torch.equal(row[w, :held], live[:held]), (cap, w)
+            assert bool((row[w, held:] == -1).all())
+            assert int(past[w]) == (int(live[cap]) if len(live) > cap
+                                    else valid.shape[1])
+
+
+def _stable_table(bsz=3, c=40, n=4, f=torch.float32, seed=0):
+    """A synthetic row table whose sweeps stay bounded (each row's d well
+    above its couplings), with scattered live rows and live rows whose two
+    bodies are one slot (a = b): the pipelines' broadphase pairs have
+    a < b, so only such a table has them."""
+    vel, lam, rows = _small_table(bsz, c, n, f, seed)
+    gen = torch.Generator().manual_seed(seed + 100)
+    rows.update({k: rows[k] + 4.0 for k in ("d_n", "d_t1", "d_t2")})
+    rows.update({k: 0.3 * rows[k] for k in ("inv_i_a", "inv_i_b")})
+    rows["valid"] = torch.rand((bsz, c), generator=gen) < 0.5
+    rows["b"][:, ::5] = rows["a"][:, ::5]
+    rows["valid"][:, ::5] = True
+    lam = torch.where(rows["valid"][..., None], 0.1 * torch.rand(
+        (bsz, c, 3), generator=gen, dtype=f), 0.0)
+    return vel, lam, rows
+
+
+@pytest.mark.parametrize("staged", [0, 3, None])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["mu_inf", "mu_finite", "per_body_surface",
+                                  "no_friction"])
+def test_kernel_order_past_the_staged_rows(case, dtype, staged):
+    """The kernel's order with each world's live rows past a small S read
+    from the table (S forced to 0 and 3, and the launch's own S) is
+    bitwise the plain loop, on a table with scattered live rows and live
+    rows with a = b."""
+    f = getattr(torch, dtype)
+    over = dict(mu_inf={}, mu_finite=dict(mu=0.5),
+                per_body_surface=dict(per_body_surface=True),
+                no_friction=dict(friction=False))[case]
+    params = dict(iterations=4, omega=1.3, cfm_term=1e-3, **over)
+    vel, lam, rows = _stable_table(f=f)
+    live = rows["valid"]
+    assert int(live.sum(1).min()) > 3
+    assert bool(((rows["a"] == rows["b"]) & live).any())
+    want = solver.pgs_sweeps_plain(vel, lam, rows, **params)
+    got = pgs_kernel.pgs_kernel_order(vel, lam, rows, staged=staged,
+                                      **params)
+    assert bool(torch.isfinite(want[0]).all())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(want[0], vel)
+
+
+@pytest.mark.parametrize("staged", [0, 3, None])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_joint_order_past_the_staged_rows(dtype, staged):
+    """The hinge chain's joint passes alone (ω = 1) with each world's live
+    joint rows past a small S_j read from the table, and its joint rows in
+    the sweeps past S and S_j: the kernel's order bitwise the plain
+    loop."""
+    f = getattr(torch, dtype)
+    _, tcfg, (js, jc, _), trows = _hinge_inputs()
+    trows = {k: (v.to(f) if v.is_floating_point() else v)
+             for k, v in trows.items()}
+    assert int(trows["live"].sum(1).min()) > 3
+    vel = torch.from_numpy(np.concatenate(
+        [np.asarray(js.linvel), np.asarray(js.angvel)], -1)).to(f)
+    params = dict(solver.pgs_params(tcfg), omega=1.0)
+    want = solver.pgs_sweeps_plain(vel, None, None, trows, **params)
+    got = pgs_kernel.pgs_kernel_order(vel, None, None, trows,
+                                      staged_joints=staged, **params)
+    assert got[1] is None and torch.equal(got[0], want[0])
+    assert not torch.equal(want[0], vel)
+
+    tstate, tcontacts = _ported(js, jc)
+    if dtype == "float64":
+        tstate, tcontacts = _f64(tstate), _f64(tcontacts)
+    vel, lam, rows = solver.pgs_inputs(tstate, tcontacts, tcfg)
+    assert int(rows["valid"].sum(1).min()) > 0
+    params = solver.pgs_params(tcfg)
+    want = solver.pgs_sweeps_plain(vel, lam, rows, trows, **params)
+    got = pgs_kernel.pgs_kernel_order(vel, lam, rows, trows, staged=staged,
+                                      staged_joints=staged, **params)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
