@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    limit of the card.
 1. build: compiles every hand-written kernel of the main paths from the
    checkout's sources with ``nvcc`` (one ``nvcc`` per source, all started
-   together: the compaction, the mesh kernels, ``pgs_solve``) and prints the build time; then ``launch_floor_ms``, what an
+   together: the compaction, the mesh kernels, ``pgs_solve``,
+   ``lcp_pivot``) and prints the build time; then ``launch_floor_ms``,
+   what an
    empty kernel reads under the timer of every kernel time below.
 2. ``compact_rows_t`` against its plain version on the card, at the bench
    path's shapes: B=8192 worlds, D=10, M=384, k=64, mask densities 0,
@@ -162,14 +164,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     side by side, ``compact_rows_t`` once per substep on each path; prints
     how bf16 products are taken on the card.
 19. DANTZIG in float64 (``tests/_traj_engine.py``'s ``make_cfg("dantzig")``:
-    the direct LCP solve, exact box clip, K=8, 96 rows): card against CPU
-    from phase 15's settled mini stack (atol 1e-9, tick and overflow
-    exact); world 0 of it in 1,024 worlds, 2 + 4 substeps, with ms a
-    substep, the pivot rounds of one substep's solve (max over worlds), its
-    host reads, and its launches under ``torch.profiler``; one substep
-    with a host read every 1, 2, 4 and 8 rounds, in turns; then phase 15's
-    settled ridge mesh in 1,024 worlds for 4 substeps under DANTZIG, the
-    float64 tile kernel once a substep.
+    the direct LCP solve, exact box clip, K=8, 96 contacts, R = 288 rows),
+    graphed: card against CPU from phase 15's settled mini stack (atol
+    1e-9, tick and overflow exact); world 0 of it in 1,024 worlds
+    (dantzig-1024), a warm-up launch of 2 substeps and a timed one of 4,
+    ``lcp_pivot_solve`` once a solve (counted), with ms a substep, the
+    pivot rounds of every world read from the kernel's (B,) output of the
+    timed launch's solves after the run, the solve of one more substep
+    under ``torch.cuda.set_sync_debug_mode("error")`` (0 host reads), the
+    peak memory, and one substep's launches and kernel time under
+    ``torch.profiler``; then phase 15's settled ridge mesh in 1,024 worlds
+    for 4 substeps under DANTZIG, the float64 tile kernel and the pivot
+    kernel once a substep. The pivot kernel's arguments of one more
+    substep of each are caught on an eager run, which the graphed run
+    equals bitwise.
+19b. ``lcp_pivot_solve`` against its plain version (``ops/lcp.py:
+    _pivot_solve``) on the card: dantzig-1024's own (A, b, masks, μ), the
+    same under μ = 0.4 (boxed rows), the ridge path's, and 16 synthetic
+    worlds of 96 contacts (``testing/lcp_systems``), all 288 rows valid
+    in half of them (the kernel's device-memory branch); float64: λ
+    within 1e-10 of max |λ| and every world's rounds equal; float32: A·λ
+    within 1e-5 of its largest. The kernel, the plain version and the
+    bound (``utils/bounds.lcp_pivot_bound``) timed on each but the μ =
+    0.4 case; the launch's shape, registers and spills.
 20. the hinge chain (``hinge_chain_scene``: a motorized, limited hinge and
     a ball joint): card against CPU under the referee's PGS and DANTZIG in
     float64 (atol 1e-9) and under ``core.config.hinge_chain_config`` (the
@@ -188,8 +205,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     its rows scattered over each world's buffer; every row live, more
     than the kernel stages), the ridge path's, the hinge chain's joint
     rows in the sweeps and its joint passes alone (DANTZIG's entry, ω =
-    1), each in float64 (atol 1e-12) and float32 (atol 1e-5) after one
-    20-sweep solve; the kernel alone on the path's unpacked tensors, the
+    1), conformance-1024's rows in worlds of ``max_slots`` + 1 slots
+    (velocities in device memory), each in float64 (atol 1e-12) and
+    float32 (atol 1e-5) after one 20-sweep solve; the wrapper on those
+    worlds timed beside worlds of ``max_slots`` slots (velocities in
+    shared memory); the kernel alone on the path's unpacked tensors, the
     wrapper and the plain loop timed on the path's own inputs, beside the
     bound (``utils/bounds.pgs_bound``: bytes and operations, and the chain
     floor of the longest world); the launch's W and S against every
@@ -215,9 +235,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``GameServer`` on the native transport with two clients over loopback
     UDP for 5 s (32 M-key spawns, 8 thrown spheres): both mirror every
     body; ticks per wall second and ms a broadcast (``body_states`` +
-    encoding). Then the CLI's server (``--device cuda``) and a ``client
-    --spawn 3`` in subprocesses started together: the client mirrors 7
-    bodies.
+    encoding). Then the CLI's server (``--device cuda``) and, once it
+    prints "Server started", a ``client --spawn 3`` for 8 s in
+    subprocesses: the client mirrors 7 bodies, and the server, ended with
+    SIGINT once the client is done, returns 0.
 22. the world axis over a mesh (``parallel/mesh.py``): ``tests/
     test_mesh.py``'s batch (``stack_world`` of 10 bodies, seed 3, in 16
     worlds raised 0.013 m a world index; ``EngineConfig(16, 64, 128)``, 3
@@ -285,12 +306,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``utils/orientation_probe``'s nine probes with k1=8 and k2=64, each
     printed with the card's name and power limit; the kernels line carries
     the three records as ``on_<path>_data``.
-28. graphs (``utils/graphs.py``): every path's step function, graphed or
-    eager with the host read that keeps it so (DANTZIG eager, every JACOBI
-    and PGS path graphed); conformance-1024, its ridge-mesh half and the
-    hinge chain under PGS (float64, 1,024 worlds), 4 substeps graphed
-    against eager, bitwise, ms a substep in turns and each route's
-    ``route_profile`` of one substep; then each JACOBI
+28. graphs (``utils/graphs.py``): every path's step function graphed
+    (none eager); conformance-1024, its ridge-mesh half and the hinge
+    chain under PGS, dantzig-1024 and its ridge mesh (float64, 1,024
+    worlds), 4 substeps graphed against eager, bitwise, ms a substep in
+    turns and each route's ``route_profile`` of one substep; then each
+    JACOBI
     entry point at full width, graphed against its eager loop from the
     same state, bitwise: the bench (``bench_config(64)``, phase 4's
     settled 8192 worlds, 96 substeps) at unroll 1, 4 and 96, each
@@ -305,15 +326,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     and the busy and idle shares of one traced call.
 29. prints one JSON line of every kernel the run launched (each float64
     instance as a sub-entry of its kernel, with its own launches;
-    ``pgs_solve``'s record is of its float64 path, its float32 instance the
-    sub-entry ``f32``), then the last line ``{"ok": true, "device":
-    {...}}``.
+    ``pgs_solve``'s and ``lcp_pivot_solve``'s records are of their float64
+    paths, their float32 instances the sub-entry ``f32``), then the last
+    line ``{"ok": true, "device": {...}}``.
 
-Every JACOBI and PGS path runs graphed by default (``utils/graphs.py``),
-and the launch counts are per replay (a capture records what the wrappers
-counted, each replay adds it). A kernel's hold on a path's own tensors
-(phases 4, 6, 9, 10, 13, 16, 20, 21, 22, 26, 27) catches the wrapper during
-an eager run of the same work (``disable_graphs``), because a captured
+Every path runs graphed by default (``utils/graphs.py``), and the launch
+counts are per replay (a capture records what the wrappers counted, each
+replay adds it). A kernel's hold on a path's own tensors (phases 4, 6, 9,
+10, 13, 16, 19, 20, 21, 22, 26, 27) catches the wrapper during an eager
+run of the same work (``disable_graphs``), because a captured
 call's tensors hold no computed values; where that work returns tensors
 it runs once more graphed and must equal the eager run bitwise, and a
 tool's eager run must call the kernel as often as its graphed run counted
@@ -401,6 +422,13 @@ LEVER_SUBSTEPS = 24
 DANTZIG_WARMUP = 2
 DANTZIG_SUBSTEPS = 4
 DANTZIG_RIDGE_SUBSTEPS = 4
+# lcp_pivot against its plain version: float64 λ within 1e-10 of max |λ|
+# with the same rounds a world (each sums in its own order); float32 held
+# as ROADMAP's float32 trap holds DANTZIG, on the velocity change in
+# constraint space, A·λ, within 1e-5 of its largest; the synthetic worlds
+LCP_F64_RTOL = 1e-10
+LCP_F32_RTOL = 1e-5
+LCP_SYNTH_SEED, LCP_SYNTH_WORLDS = 11, 16
 # the hinge chain: CPU settling, the throughput path's 144 substeps (the
 # horizon its capacities were sized over), PGS float64 at 1,024 worlds
 HINGE_SETTLE = 40
@@ -426,7 +454,8 @@ PHYSICS_HZ = 120             # net/server.PHYSICS_DT
 SESSION_SECONDS = 5.0
 SESSION_SPAWNS = 32
 SESSION_THROWS = 8
-CLI_SERVER_SECONDS = 8
+CLI_SERVER_SECONDS = 8       # the client's window
+CLI_SERVER_WINDOW = 180      # the server's: ended by SIGINT once it is done
 # the mesh: tests/test_mesh.py's batch, and multichip_scaling.py's rows at
 # mesh sizes 1 and 2 (two shards of the one card)
 MESH_CAPS = dict(max_bodies=16, max_pair_candidates=64, max_contacts=128)
@@ -487,10 +516,13 @@ PROBE_NAMES = ("probe_kernel_matmuls", "probe_kernel_vpu", "probe_mxu_peak")
 GRAPH_UNROLLS = (1, 4, SUBSTEPS_PER_LAUNCH)
 GRAPH_BENCH_TURNS = 1
 GRAPH_TURNS = 2
+# the rollout's and the ES step's timed turns: one each, to pay for phase
+# 19b and the DANTZIG cells
+GRAPH_ROLLOUT_ES_TURNS = 1
 GRAPH_PROFILED = 8
 GRAPH_MESH_SUBSTEPS = 8
-# the PGS paths graphed against eager (float64, 1,024 worlds): substeps a
-# call
+# the PGS and DANTZIG paths graphed against eager (float64, 1,024 worlds):
+# substeps a call
 GRAPH_PGS_SUBSTEPS = 4
 
 
@@ -516,10 +548,11 @@ def phase_device():
 
 def phase_build():
     from rl_ode_physics_tpu_torch.ops import (
-        compaction_kernel, kernel_build, mesh_kernels, pgs_kernel)
+        compaction_kernel, kernel_build, lcp_kernel, mesh_kernels,
+        pgs_kernel)
     from rl_ode_physics_tpu_torch.utils.timing import launch_floor_ms
     builds = [compaction_kernel.build, mesh_kernels.build, pgs_kernel.build,
-              lambda: kernel_build.build("launch_floor.cu")]
+              lcp_kernel.build, lambda: kernel_build.build("launch_floor.cu")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         libs = [f.result() for f in [pool.submit(b) for b in builds]]
@@ -1379,10 +1412,10 @@ def phase_pipelines_card_vs_cpu():
 
 def _hand_kernels():
     from rl_ode_physics_tpu_torch.ops import (
-        compaction_kernel, mesh_kernels, pgs_kernel)
+        compaction_kernel, lcp_kernel, mesh_kernels, pgs_kernel)
     return (compaction_kernel.compact_rows_t,
             mesh_kernels.sphere_mesh_d2_tiles, mesh_kernels.sphere_mesh_d2,
-            pgs_kernel.pgs_solve)
+            pgs_kernel.pgs_solve, lcp_kernel.lcp_pivot_solve)
 
 
 def _check_batch(batch, label, tick):
@@ -1507,7 +1540,7 @@ def phase_mini_main_path(config, card):
         f"overflow 0, tick {total}, peak memory {peak_gb:.3f} GB, hand "
         f"kernel launches {launches}")
     want = {"compact_rows_t": total, "sphere_mesh_d2_tiles": 0,
-            "sphere_mesh_d2": 0, "pgs_solve": 0}
+            "sphere_mesh_d2": 0, "pgs_solve": 0, "lcp_pivot_solve": 0}
     if launches != want:
         raise AssertionError(f"mini-stack path launches {launches}, "
                              f"expected {want}")
@@ -1804,7 +1837,8 @@ def phase_conformance_path(card, stack, ridge):
     _check_batch(batch, "conformance path",
                  int(stack.tick[0]) + CONF_WARMUP + timed)
     want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": 0,
-            "sphere_mesh_d2": 0, "pgs_solve": CONF_WARMUP + timed}
+            "sphere_mesh_d2": 0, "pgs_solve": CONF_WARMUP + timed,
+            "lcp_pivot_solve": 0}
     if launches != want:
         raise AssertionError(f"conformance path launches {launches}, "
                              f"expected {want}")
@@ -1864,7 +1898,8 @@ def phase_conformance_path(card, stack, ridge):
     _check_batch(rbatch, "ridge-mesh conformance path",
                  int(state.tick[0]) + RIDGE_SUBSTEPS)
     want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": RIDGE_SUBSTEPS,
-            "sphere_mesh_d2": 1, "pgs_solve": RIDGE_SUBSTEPS}
+            "sphere_mesh_d2": 1, "pgs_solve": RIDGE_SUBSTEPS,
+            "lcp_pivot_solve": 0}
     if rlaunches != want:
         raise AssertionError(f"ridge-mesh conformance path launches "
                              f"{rlaunches}, expected {want}")
@@ -2164,18 +2199,65 @@ def _one_substep_profile(config, batch, mesh=None, joints=None):
     return _launches_of(lambda: one(batch))
 
 
-def phase_dantzig(card, stack, ridge):
-    """DANTZIG in float64: card against CPU on the settled mini stack, the
-    referee's DANTZIG configuration at 1,024 worlds (pivot rounds, host
-    reads and launches of a substep), and the ridge mesh under it with the
-    float64 tile kernel counted. The pivot rounds are those of the timed
-    substeps' own solves: ``lcp._pivot_solve`` is wrapped while they run,
-    and the host reads are one more a solve than its rounds (a read before
-    each round and one that finds every world done)."""
+def _keeping_rounds(drive):
+    """``drive()`` with ``lcp_kernel.lcp_pivot_solve`` wrapped so that each
+    call's outputs are kept: the rounds (B,) and the live normal rows
+    (B, R) of every solve a graph captured, which its replays write anew.
+    Returns (what ``drive()`` returned, [(rounds, live normals), ...])."""
+    import functools
+    from rl_ode_physics_tpu_torch.ops import lcp_kernel
+    pivot, kept = lcp_kernel.lcp_pivot_solve, []
+
+    @functools.wraps(pivot)
+    def keeping(a_mat, b, valid, is_normal, *args, **kwargs):
+        out = pivot(a_mat, b, valid, is_normal, *args, **kwargs)
+        kept.append((out[1], valid & is_normal))
+        return out
+
+    # the wrapper counts its launches on the module's name for it
+    keeping.launches = pivot.launches
+    lcp_kernel.lcp_pivot_solve = keeping
+    try:
+        out = drive()
+    finally:
+        lcp_kernel.lcp_pivot_solve = pivot
+        pivot.launches = keeping.launches
+    return out, kept
+
+
+def _no_host_read(solve):
+    """``solve()`` under ``torch.cuda.set_sync_debug_mode("error")``: raises
+    if any of its operations waits on the card."""
     import torch
-    from rl_ode_physics_tpu_torch.ops import lcp
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = solve()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_dantzig(card, stack, ridge):
+    """DANTZIG in float64, graphed: card against CPU on the settled mini
+    stack; dantzig-1024 (the referee's DANTZIG configuration on the settled
+    stack's first world in 1,024 worlds: a warm-up launch of 2 substeps and
+    a timed one of 4, each one graph) with ``lcp_pivot_solve`` once a
+    solve, the per-world pivot rounds read from the kernel's (B,) output
+    of the timed launch's solves after the run, the solve of one more
+    substep under ``set_sync_debug_mode("error")`` (no host read), one
+    substep's launches and kernel time and the peak memory; then the ridge
+    mesh under it, the float64 tile kernel and the pivot kernel once a
+    substep. The pivot kernel's arguments of one more substep of each are
+    caught eagerly, for phase 19b. Returns ({path: launches}, those
+    arguments, the two settled batches)."""
+    import torch
+    from rl_ode_physics_tpu_torch.ops import (
+        broadphase, integrator, lcp, lcp_kernel, narrowphase)
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate, take_worlds)
+    from rl_ode_physics_tpu_torch.utils import graphs
 
     config = referee_dantzig_config()
     _card_matches_cpu(config, stack, None, "DANTZIG float64, mini stack",
@@ -2185,50 +2267,78 @@ def phase_dantzig(card, stack, ridge):
     for fn in _hand_kernels():
         fn.launches = 0
     tick = int(stack.tick[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     batch, warm_s = _timed_run(
         make_batched_step_fn(config, substeps=DANTZIG_WARMUP, device="cuda"),
         batch, "DANTZIG path", tick + DANTZIG_WARMUP)
-    pivot_solve, solves = lcp._pivot_solve, []
-
-    def counted(a_mat, b, valid, is_normal, *args):
-        lam, rounds = pivot_solve(a_mat, b, valid, is_normal, *args)
-        solves.append((rounds, valid & is_normal))
-        return lam, rounds
-
-    lcp._pivot_solve = counted
-    try:
-        batch, secs = _timed_run(
-            make_batched_step_fn(config, substeps=DANTZIG_SUBSTEPS,
-                                 device="cuda"),
-            batch, "DANTZIG path", tick + DANTZIG_WARMUP + DANTZIG_SUBSTEPS)
-    finally:
-        lcp._pivot_solve = pivot_solve
+    step = make_batched_step_fn(config, substeps=DANTZIG_SUBSTEPS,
+                                device="cuda")
+    if not step.graphed:
+        raise AssertionError(f"DANTZIG path eager: {step.eager_reason}")
+    (batch, secs), kept = _keeping_rounds(lambda: _timed_run(
+        step, batch, "DANTZIG path",
+        tick + DANTZIG_WARMUP + DANTZIG_SUBSTEPS))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
-    if any(launches.values()):
-        raise AssertionError(f"DANTZIG path launched hand kernels {launches}")
-    if len(solves) != DANTZIG_SUBSTEPS:
-        raise AssertionError(f"DANTZIG path: {len(solves)} pivot solves in "
-                             f"{DANTZIG_SUBSTEPS} substeps")
-    rounds = [r for r, _ in solves]
-    reads = [min(r + 1, lcp.MAX_PIVOT_ROUNDS) for r in rounds]
-    contacts = torch.stack([live.sum(1) for _, live in solves])
-    del solves
+    want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": 0,
+            "sphere_mesh_d2": 0, "pgs_solve": 0,
+            "lcp_pivot_solve": DANTZIG_WARMUP + DANTZIG_SUBSTEPS}
+    if launches != want:
+        raise AssertionError(f"DANTZIG path launches {launches}, expected "
+                             f"{want}")
+    # the warm-up body call first, then the captured solves the replay ran
+    kept = kept[-DANTZIG_SUBSTEPS:]
+    rounds = torch.stack([r for r, _ in kept])
+    contacts = torch.stack([live.sum(1) for _, live in kept])
+    if int(rounds.min()) < 1 or int(rounds.max()) >= lcp.MAX_PIVOT_ROUNDS:
+        raise AssertionError(f"DANTZIG path: pivot rounds "
+                             f"{int(rounds.min())}-{int(rounds.max())}")
+    spread = {int(k): int(v) for k, v in zip(*torch.unique(
+        rounds, return_counts=True))}
+    del kept
+    # the solve of one more substep: no host read
+    contacts_now = narrowphase.narrowphase(
+        batch, broadphase.broadphase(batch, config), config)
+    state = integrator.apply_external_forces(batch, config)
+    solved = _no_host_read(
+        lambda: lcp.solve_dantzig(state, contacts_now, config))
+    if not bool(torch.isfinite(solved.linvel).all()):
+        raise AssertionError("DANTZIG path: non-finite solve")
+    del contacts_now, state, solved
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    with_eager = make_batched_step_fn(config, substeps=1, device="cuda")
+    with graphs.disable_graphs():
+        with_eager(batch)
+    torch.cuda.synchronize()
+    eager_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
     prof = _one_substep_profile(config, batch)
     dynamic = int((stack.inv_mass[0] > 0).sum())
     substep_ms = secs / DANTZIG_SUBSTEPS * 1e3
-    log(f"DANTZIG path (referee configuration, float64, {config.max_contacts}"
-        f" rows): {CONF_WORLDS} worlds x {dynamic} dynamic bodies of the "
-        f"settled mini stack, {DANTZIG_SUBSTEPS} substeps in {secs:.3f} s "
-        f"({substep_ms:.3f} ms/substep; warm-up {DANTZIG_WARMUP} substeps "
-        f"{warm_s:.3f} s): {CONF_WORLDS * dynamic * DANTZIG_SUBSTEPS / secs:.1f}"
-        f" body-steps/s on {card}; overflow 0; contacts per world "
-        f"{int(contacts.min())}-{int(contacts.max())}; pivot rounds of the "
-        f"timed substeps {rounds} (max over worlds), host reads {reads} "
-        f"(one a round and one more); one substep under torch.profiler: "
-        f"{prof['launches']} launches, {prof['device_ms']:.3f} ms of kernel "
-        f"time, idle {max(0.0, 1.0 - prof['device_ms'] / substep_ms):.3f} "
-        f"of the untraced substep; hand kernel launches {launches}")
-    del batch, contacts
+    log(f"DANTZIG path (referee configuration, float64, "
+        f"{3 * config.max_contacts} rows), graphed: {CONF_WORLDS} worlds x "
+        f"{dynamic} dynamic bodies of the settled mini stack, "
+        f"{DANTZIG_SUBSTEPS} substeps in {secs:.3f} s ({substep_ms:.3f} "
+        f"ms/substep; warm-up launch of {DANTZIG_WARMUP} substeps with its "
+        f"capture {warm_s:.3f} s): "
+        f"{CONF_WORLDS * dynamic * DANTZIG_SUBSTEPS / secs:.1f} body-steps/s"
+        f" on {card}; overflow 0; contacts per world "
+        f"{int(contacts.min())}-{int(contacts.max())}; pivot rounds per "
+        f"world of the timed substeps' solves (the kernel's output) "
+        f"{int(rounds.min())}-{int(rounds.max())}, worlds by rounds "
+        f"{spread}; host reads 0 (the substeps are one graph, and one "
+        f"solve under set_sync_debug_mode('error') ran); peak memory "
+        f"{peak_gb:.3f} GB with the graphs' capture, {eager_peak_gb:.3f} GB "
+        f"above the batch for one eager substep; one graphed substep under "
+        f"torch.profiler: {prof['launches']} launches, "
+        f"{prof['device_ms']:.3f} ms of kernel time, idle "
+        f"{max(0.0, 1.0 - prof['device_ms'] / substep_ms):.3f} of the "
+        f"untraced substep; hand kernel launches {launches}")
+    one = make_batched_step_fn(config, substeps=1, device="cuda")
+    _, args = _caught_last(lcp_kernel, "lcp_pivot_solve",
+                           lambda: one(batch), "DANTZIG path", 1)
+    del contacts, rounds
     torch.cuda.empty_cache()
 
     state, mesh = ridge
@@ -2236,23 +2346,186 @@ def phase_dantzig(card, stack, ridge):
     rbatch = replicate(take_worlds(state, 0, 1), CONF_WORLDS, device="cuda")
     for fn in _hand_kernels():
         fn.launches = 0
-    rbatch, rsecs = _timed_run(
-        make_batched_step_fn(config, substeps=DANTZIG_RIDGE_SUBSTEPS,
-                             device="cuda", trimesh=mesh),
-        rbatch, "DANTZIG ridge mesh",
-        int(state.tick[0]) + DANTZIG_RIDGE_SUBSTEPS)
+    rstep = make_batched_step_fn(config, substeps=DANTZIG_RIDGE_SUBSTEPS,
+                                 device="cuda", trimesh=mesh)
+    (rbatch, rsecs), rkept = _keeping_rounds(lambda: _timed_run(
+        rstep, rbatch, "DANTZIG ridge mesh",
+        int(state.tick[0]) + DANTZIG_RIDGE_SUBSTEPS))
     rlaunches = {fn.__name__: fn.launches for fn in _hand_kernels()}
     want = {"compact_rows_t": 0,
             "sphere_mesh_d2_tiles": DANTZIG_RIDGE_SUBSTEPS,
-            "sphere_mesh_d2": 0, "pgs_solve": 0}
+            "sphere_mesh_d2": 0, "pgs_solve": 0,
+            "lcp_pivot_solve": DANTZIG_RIDGE_SUBSTEPS}
     if rlaunches != want:
         raise AssertionError(f"DANTZIG ridge mesh launches {rlaunches}, "
                              f"expected {want}")
-    log(f"DANTZIG ridge mesh (float64): {CONF_WORLDS} worlds of the settled "
-        f"ridge scene, {DANTZIG_RIDGE_SUBSTEPS} substeps in {rsecs:.3f} s "
-        f"({rsecs / DANTZIG_RIDGE_SUBSTEPS * 1e3:.3f} ms/substep); overflow "
-        f"0; launches {rlaunches} (the float64 tile kernel once a substep)")
-    return {"dantzig_mini_stack": launches, "dantzig_ridge_mesh": rlaunches}
+    rrounds = torch.stack([r for r, _ in rkept[-DANTZIG_RIDGE_SUBSTEPS:]])
+    rcontacts = torch.stack([live.sum(1) for _, live
+                             in rkept[-DANTZIG_RIDGE_SUBSTEPS:]])
+    del rkept
+    rprof = _one_substep_profile(config, rbatch, mesh)
+    rsub_ms = rsecs / DANTZIG_RIDGE_SUBSTEPS * 1e3
+    log(f"DANTZIG ridge mesh (float64), graphed: {CONF_WORLDS} worlds of "
+        f"the settled ridge scene, {DANTZIG_RIDGE_SUBSTEPS} substeps in "
+        f"{rsecs:.3f} s ({rsub_ms:.3f} ms/substep) on {card}; overflow 0; "
+        f"contacts per world {int(rcontacts.min())}-{int(rcontacts.max())};"
+        f" pivot rounds per world {int(rrounds.min())}-"
+        f"{int(rrounds.max())}; one graphed substep under torch.profiler: "
+        f"{rprof['launches']} launches, {rprof['device_ms']:.3f} ms of "
+        f"kernel time, idle "
+        f"{max(0.0, 1.0 - rprof['device_ms'] / rsub_ms):.3f}; launches "
+        f"{rlaunches} (the float64 tile kernel and the pivot kernel once a "
+        f"substep)")
+    rone = make_batched_step_fn(config, substeps=1, device="cuda",
+                                trimesh=mesh)
+    _, rargs = _caught_last(lcp_kernel, "lcp_pivot_solve",
+                            lambda: rone(rbatch), "DANTZIG ridge mesh", 1)
+    return ({"dantzig_mini_stack": launches, "dantzig_ridge_mesh": rlaunches},
+            {"dantzig-1024": args, "ridge": rargs},
+            {"dantzig": batch, "ridge": (rbatch, mesh)})
+
+
+def phase_lcp_kernel(card, dantzig_args):
+    """``lcp_pivot_solve`` against its plain version, ``lcp._pivot_solve``,
+    on the card: on dantzig-1024's own (A, b, masks, μ) of one substep,
+    the same under μ = 0.4 (boxed rows), the ridge path's, and synthetic
+    worlds of 96 contacts (``testing/lcp_systems``) with all 288 rows valid
+    in half of them, more than the kernel stages (its device-memory
+    branch), 10 contacts in the others. Float64: λ within ``LCP_F64_RTOL``
+    of max |λ| and each world's rounds equal; float32: the velocity change
+    in constraint space, A·λ, within ``LCP_F32_RTOL`` of its largest
+    (ROADMAP's float32 trap). The kernel and the plain version timed on
+    each (the plain version not under μ = 0.4, where its rounds may run
+    long), beside the bound (``utils/bounds.lcp_pivot_bound``); the
+    launch's shape and the built kernel's registers and spills. Returns
+    the kernels line's entry. Also the device memory that one dantzig-1024
+    solve takes above its inputs, of the kernel and of the plain version."""
+    import numpy as np
+    import torch
+    from rl_ode_physics_tpu_torch.ops import lcp, lcp_kernel
+    from rl_ode_physics_tpu_torch.testing.lcp_systems import (
+        random_contact_lcp)
+    from rl_ode_physics_tpu_torch.utils.bounds import lcp_pivot_bound
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    a_mat, b, valid, is_normal, friction, mu = dantzig_args["dantzig-1024"]
+    ridge = dantzig_args["ridge"]
+    synth = random_contact_lcp(LCP_SYNTH_SEED, worlds=LCP_SYNTH_WORLDS,
+                               contacts=96, bodies=128, live=1.0)
+    synth[2][1::2] = np.tile(np.arange(96) < 10, 3)
+    synth = [None if x is None else torch.from_numpy(x).to("cuda")
+             for x in synth]
+    cases = {"dantzig-1024": (a_mat, b, valid, is_normal, mu),
+             "dantzig-1024, mu 0.4": (a_mat, b, valid, is_normal,
+                                      torch.full_like(mu, 0.4)),
+             "ridge": ridge[:4] + (ridge[5],),
+             "synthetic, 288 rows valid": tuple(synth)}
+    timed = ("dantzig-1024", "ridge", "synthetic, 288 rows valid")
+
+    def held(system, f, label):
+        a, bb, v, n, m = system
+        a, bb = a.to(f).contiguous(), bb.to(f)
+        m = None if m is None else m.to(f)
+        before = lcp_kernel.lcp_pivot_solve.launches
+        lam, rounds = lcp_kernel.lcp_pivot_solve(a, bb, v, n, friction, m)
+        if lcp_kernel.lcp_pivot_solve.launches != before + 1:
+            raise AssertionError(f"lcp_pivot_solve {label}: not one launch")
+        want, want_rounds = lcp._pivot_solve(a, bb, v, n, friction, m)
+        torch.cuda.synchronize()
+        if not bool((lam[~v] == 0).all()):
+            raise AssertionError(f"lcp_pivot_solve {label}: an invalid row "
+                                 f"is not 0")
+        scale = float(want.abs().max())
+        if f == torch.float64:
+            err = float((lam - want).abs().max())
+            rel, tol = err / scale, LCP_F64_RTOL
+            if not torch.equal(rounds, want_rounds):
+                differ = int((rounds != want_rounds).sum())
+                raise AssertionError(f"lcp_pivot_solve {label}: {differ} "
+                                     f"worlds take other rounds than the "
+                                     f"plain version")
+        else:
+            moved = torch.bmm(a, want[..., None])
+            err = float(torch.bmm(a, (lam - want)[..., None]).abs().max())
+            rel, tol = err / float(moved.abs().max()), LCP_F32_RTOL
+        if not rel <= tol:
+            raise AssertionError(f"lcp_pivot_solve {label} ({f}): "
+                                 f"{rel:.3e} of the plain version's scale "
+                                 f"> {tol}")
+        return dict(max_abs_err=float((lam - want).abs().max()),
+                    rel_err=rel, max_abs_lam=scale,
+                    rounds=[int(rounds.min()), int(rounds.max())],
+                    valid_rows=[int(v.sum(1).min()), int(v.sum(1).max())],
+                    shape=list(v.shape)), (a, bb, v, n, m), rounds
+
+    out = {}
+    for f in (torch.float64, torch.float32):
+        name = "float64" if f == torch.float64 else "float32"
+        records = {}
+        for label, system in cases.items():
+            rec, (a, bb, v, n, m), rounds = held(system, f, label)
+            if label in timed:
+                rec["ms"] = cuda_ms(lambda: lcp_kernel.lcp_pivot_solve(
+                    a, bb, v, n, friction, m), iters=5)
+                rec["plain_ms"] = cuda_ms(lambda: lcp._pivot_solve(
+                    a, bb, v, n, friction, m), iters=2)
+                bound = lcp_pivot_bound(v, rounds, f, m is not None)
+                rec.update({k: bound[k] for k in ("bound_ms", "bound_by",
+                                                   "bytes_ms", "ops_ms")})
+            records[label] = rec
+            del a, bb, v, n, m
+        shape = lcp_kernel.launch_shape(f, valid.shape[0], valid.shape[1])
+        res = lcp_kernel.resources(f)
+        path = records["dantzig-1024"]
+        # device memory a solve takes above its inputs, kernel and plain
+        a, bb = a_mat.to(f), b.to(f)
+        m = mu.to(f)
+        for key, solve in (("peak_mb", lcp_kernel.lcp_pivot_solve),
+                           ("plain_peak_mb", lcp._pivot_solve)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            solve(a, bb, valid, is_normal, friction, m)
+            torch.cuda.synchronize()
+            path[key] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        del a, bb, m
+        out[name] = dict(
+            max_abs_err=max(r["max_abs_err"] for r in records.values()),
+            ms=path["ms"], plain_ms=path["plain_ms"],
+            bound_ms=path["bound_ms"], bound_by=path["bound_by"],
+            bytes_ms=path["bytes_ms"], ops_ms=path["ops_ms"],
+            library_ms=None, cases=records, staged_rows=shape.cap,
+            shared_bytes=shape.shared_bytes, pool_worlds=shape.pool_worlds,
+            slot_bytes=shape.slot_bytes, registers=res["registers"],
+            local_bytes=res["local_bytes"], peak_mb=path["peak_mb"],
+            plain_peak_mb=path["plain_peak_mb"])
+        for label, r in records.items():
+            times = ("" if "ms" not in r else
+                     f" kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.3f}"
+                     f" bound_ms={r['bound_ms']:.6f} ({r['bound_by']}; bytes"
+                     f" {r['bytes_ms']:.6f}, operations {r['ops_ms']:.6f})")
+            held_on = ("λ, the same rounds a world" if f == torch.float64
+                       else "A·λ")
+            log(f"lcp_pivot_solve {name}, {label} (B={r['shape'][0]} "
+                f"worlds, R={r['shape'][1]} rows, {r['valid_rows'][0]}-"
+                f"{r['valid_rows'][1]} valid a world, rounds "
+                f"{r['rounds'][0]}-{r['rounds'][1]}): {r['rel_err']:.3e} of "
+                f"the plain version's scale ({held_on}), max abs err "
+                f"{r['max_abs_err']:.3e};{times} on {card}")
+        log(f"lcp_pivot_solve {name}: up to {shape.cap} valid rows staged in "
+            f"{shape.shared_bytes} shared bytes a block, {shape.pool_worlds} "
+            f"device-memory slots of {shape.slot_bytes} bytes for the worlds "
+            f"past them; {res['registers']} registers a thread, "
+            f"{res['local_bytes']} local bytes (spills); a dantzig-1024 solve "
+            f"takes {path['peak_mb']:.1f} MB of device memory above its "
+            f"inputs, the plain version {path['plain_peak_mb']:.1f} MB; "
+            f"library_ms=null (no one PyTorch call runs the pivot loop)")
+    entry = dict(name="lcp_pivot_solve", route="cuda",
+                 source="rl_ode_physics_tpu_torch/csrc/lcp_pivot.cu",
+                 replaces="rl_ode_physics_tpu/ops/lcp.py:206",
+                 launches=None, dtype="float64", **out["float64"])
+    entry["f32"] = out["float32"]
+    return entry
 
 
 def phase_hinge_chain(card):
@@ -2268,12 +2541,12 @@ def phase_hinge_chain(card):
         SolverKind, hinge_chain_config)
     from rl_ode_physics_tpu_torch.models.scenes import hinge_chain_scene
     from rl_ode_physics_tpu_torch.ops import joints as joint_ops
-    from rl_ode_physics_tpu_torch.ops import pgs_kernel, solver
+    from rl_ode_physics_tpu_torch.ops import lcp_kernel, pgs_kernel, solver
     from rl_ode_physics_tpu_torch.parallel.batch import (
         make_batched_step_fn, replicate)
 
     jacobi = hinge_chain_config()
-    pgs = pgs_kernel.pgs_solve
+    pgs, pivot = pgs_kernel.pgs_solve, lcp_kernel.lcp_pivot_solve
     paths = {}
     for label, config, atol in (
             ("PGS float64", referee_config(), CONF_ATOL),
@@ -2282,17 +2555,19 @@ def phase_hinge_chain(card):
         world, joints = hinge_chain_scene(config, device="cpu")
         start = settled_on_cpu(config, world, None, HINGE_SETTLE,
                                kick_seed=5, joints=joints)
-        before = pgs.launches
+        before = (pgs.launches, pivot.launches)
         _card_matches_cpu(config, start, None, f"hinge chain, {label}",
                           atol=atol, joints=joints)
         want = 0 if config.solver is SolverKind.JACOBI else 8
-        if pgs.launches - before != want:
-            raise AssertionError(f"hinge chain, {label}: pgs_solve launched "
-                                 f"{pgs.launches - before} times in 8 card "
-                                 f"substeps")
+        want_pivot = 8 if config.solver is SolverKind.DANTZIG else 0
+        got = (pgs.launches - before[0], pivot.launches - before[1])
+        if got != (want, want_pivot):
+            raise AssertionError(f"hinge chain, {label}: pgs_solve and "
+                                 f"lcp_pivot_solve launched {got} times in "
+                                 f"8 card substeps")
         if want:
             paths[f"hinge_chain_card_vs_cpu_{config.solver.name.lower()}"] = {
-                "pgs_solve": want}
+                "pgs_solve": want, "lcp_pivot_solve": want_pivot}
 
     caught = None
     for label, config, worlds, warm, timed in (
@@ -2315,7 +2590,8 @@ def phase_hinge_chain(card):
         want = {"compact_rows_t": (warm + timed
                                    if config.typed_buckets else 0),
                 "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0,
-                "pgs_solve": warm + timed if is_pgs else 0}
+                "pgs_solve": warm + timed if is_pgs else 0,
+                "lcp_pivot_solve": 0}
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, expected "
                                  f"{want}")
@@ -2401,7 +2677,9 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
     world's live rows repeated over its 256: more than ``staged_rows`` in
     both dtypes, so the rows past S are read from device memory); the
     ridge path's rows; the hinge chain's joint rows in the sweeps, and its
-    joint passes alone (the joint-only entry, ω = 1); in float64 within
+    joint passes alone (the joint-only entry, ω = 1); the path's rows in
+    worlds of ``max_slots`` + 1 slots (velocities in device memory), timed
+    beside the same in worlds of ``max_slots`` (in shared); in float64 within
     ``PGS_ATOL_F64`` and float32 within ``PGS_ATOL_F32``. The kernel alone
     (launches on the path's own unpacked tensors, prepared once), the
     wrapper and the plain loop timed on the path's own inputs in each
@@ -2492,6 +2770,20 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
                                           hjrows, hbase, f, "hinge chain")
         errs["joint_only"] = held(hv, None, None, hjrows,
                                   dict(hbase, omega=1.0), f, "joint-only")
+        # C3: worlds past max_slots keep their velocities in device memory;
+        # the same rows in worlds of max_slots slots keep them in shared
+        wide = {n: _past_the_most_slots(vel64, rows64, n) for n in (
+            pgs_kernel.max_slots(f), pgs_kernel.max_slots(f) + 1)}
+        wvel, wrows = wide[pgs_kernel.max_slots(f) + 1]
+        errs["past_max_slots"] = held(wvel, lam64, wrows, None, base, f,
+                                      "past max_slots")
+        slots_ms = {}
+        for n, (wvel, wrows) in wide.items():
+            wvel, wrows = cast(wvel, f), cast(wrows, f)
+            wl = cast(lam64, f)
+            slots_ms[n] = cuda_ms(lambda: pgs_kernel.pgs_solve(
+                wvel, wl, wrows, **base))
+        del wide
         # the kernel alone, the wrapper and the plain loop on the path's
         # own inputs
         vel, lam, rows = (cast(x, f) for x in (vel64, lam64, rows64))
@@ -2529,7 +2821,8 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
             worlds_per_block=shape.worlds, staged_rows=shape.staged,
             shared_bytes=shape.shared_bytes,
             hinge_launch=list(hshape), paths_live_rows_max=live_max,
-            registers=res["registers"], local_bytes=res["local_bytes"])
+            registers=res["registers"], local_bytes=res["local_bytes"],
+            wrapper_ms_by_slots={str(n): t for n, t in slots_ms.items()})
         past = {k: v for k, v in live_max.items() if v > shape.staged}
         log(f"pgs_solve {name} at conformance-1024's own inputs (B="
             f"{vel.shape[0]} worlds, N={n_slots} slots, C={c_rows} rows, "
@@ -2549,13 +2842,28 @@ def phase_pgs_kernel(card, conf_args, hinge_args):
             f"{tuple(hshape)}); the paths' largest live-row counts "
             f"{live_max}, past S: {past or 'none but the cases built so'}; "
             f"{res['registers']} registers a thread, {res['local_bytes']} "
-            f"local bytes (spills) on {card}")
+            f"local bytes (spills); the wrapper on the path's rows in worlds "
+            f"of N slots, velocities in shared memory up to max_slots and "
+            f"in device memory past it: "
+            f"{ {n: round(t, 5) for n, t in slots_ms.items()} } ms on "
+            f"{card}")
     entry = dict(name="pgs_solve", route="cuda",
                  source="rl_ode_physics_tpu_torch/csrc/pgs_solve.cu",
                  replaces="rl_ode_physics_tpu/ops/solver.py:285",
                  launches=None, dtype="float64", **out["float64"])
     entry["f32"] = out["float32"]
     return entry
+
+
+def _past_the_most_slots(vel, rows, n):
+    """Worlds of ``n`` slots holding ``vel``'s bodies in their last slots,
+    the rows' bodies moved with them."""
+    import torch
+    m = vel.shape[1]
+    wide = torch.zeros((vel.shape[0], n, 6), dtype=vel.dtype,
+                       device=vel.device)
+    wide[:, n - m:] = vel
+    return wide, dict(rows, a=rows["a"] + (n - m), b=rows["b"] + (n - m))
 
 
 def _server_session(sim, ticks, timed_from, at_ticks=()):
@@ -2649,36 +2957,59 @@ def body_api_sequence(device):
 
 
 def _cli_session() -> str:
-    """``python -m rl_ode_physics_tpu_torch.net server --device cuda
-    --duration CLI_SERVER_SECONDS`` and a ``client --spawn 3`` for as long,
-    in subprocesses started together: each takes seconds to import torch,
-    and a client started only once the server prints would spend its own
-    import in the server's serving window. Raises unless the client
+    """``python -m rl_ode_physics_tpu_torch.net server --device cuda`` and,
+    once it prints "Server started", a ``client --spawn 3 --duration
+    CLI_SERVER_SECONDS``: the server's window (``CLI_SERVER_WINDOW``)
+    covers the client's import of torch and its whole run, and the server
+    is ended with SIGINT (its ``KeyboardInterrupt`` closes it, rc 0) once
+    the client is done. Raises unless the server returned 0 and the client
     mirrored 7 bodies (4 arena boxes and its 3); returns their lines."""
+    import signal
     import socket
+    import threading
     with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     cli = [sys.executable, "-m", "rl_ode_physics_tpu_torch.net"]
-    duration = ["--port", str(port), "--duration", str(CLI_SERVER_SECONDS)]
-    server = subprocess.Popen(cli + ["server", "--device", "cuda"] + duration,
-                              cwd=ROOT, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-    client = subprocess.Popen(cli + ["client", "--spawn", "3"] + duration,
-                              cwd=ROOT, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+    server = subprocess.Popen(
+        cli + ["server", "--device", "cuda", "--port", str(port),
+               "--duration", str(CLI_SERVER_WINDOW)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, started = [], threading.Event()
+
+    def read():
+        for line in server.stdout:
+            lines.append(line)
+            if "Server started" in line:
+                started.set()
+        started.set()                       # the server ended
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    client, said = None, ""
     try:
-        said, _ = client.communicate(timeout=120)
-        out, _ = server.communicate(timeout=120)
+        if started.wait(CLI_SERVER_WINDOW) and server.poll() is None:
+            client = subprocess.Popen(
+                cli + ["client", "--spawn", "3", "--port", str(port),
+                       "--duration", str(CLI_SERVER_SECONDS)],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+            said, _ = client.communicate(timeout=120)
+            server.send_signal(signal.SIGINT)
+        server.wait(timeout=120)
+        reader.join(timeout=30)
     finally:
         for proc in (client, server):
-            proc.kill()
-            proc.wait()
-    first = out.splitlines()[0] if out else ""
-    if (server.returncode != 0 or "Server started" not in first
+            if proc is not None:
+                proc.kill()
+                proc.wait()
+    out = "".join(lines)
+    first = next((x for x in lines if "Server started" in x), "")
+    if (server.returncode != 0 or not first
             or "mirrored 7 bodies" not in said):
-        raise AssertionError(f"CLI: server rc {server.returncode} {out}; "
-                             f"client rc {client.returncode} {said}")
+        raise AssertionError(
+            f"CLI: server rc {server.returncode} {out}; client rc "
+            f"{None if client is None else client.returncode} {said}")
     return f"{first.strip()} {said.strip()}"
 
 
@@ -2786,7 +3117,8 @@ def phase_game_server(card):
     replay_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
     want = {"compact_rows_t": SERVER_TICKS + SERVER_THROUGHPUT_REPLAYED,
-            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0, "pgs_solve": 0}
+            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0, "pgs_solve": 0,
+            "lcp_pivot_solve": 0}
     if launches != want:
         raise AssertionError(f"server, throughput policy: launches "
                              f"{launches}, expected {want}")
@@ -3486,7 +3818,7 @@ def _route_table():
         config, device="cuda", joints=joints), label)
         for label, (config, joints) in rows.items()}
     eager = sorted(k for k, v in graphed.items() if not v)
-    if eager != ["dantzig (float64)"]:
+    if eager:
         raise AssertionError(f"eager step functions: {eager}")
 
 
@@ -3667,25 +3999,31 @@ def _in_turns(calls: dict, turns: int) -> dict:
     return out
 
 
-def _graphed_pgs(card, pgs_paths):
-    """conformance-1024, its ridge-mesh half and hinge-chain PGS (float64,
-    1,024 worlds) from their settled batches: ``GRAPH_PGS_SUBSTEPS``
-    substeps graphed against the eager loop, bitwise; ms a substep of each
-    route in turns; each route's ``route_profile`` of a one-substep call
-    (host launches a call, device ms, busy and idle shares)."""
+def _graphed_pgs(card, pgs_paths, dantzig_paths):
+    """conformance-1024, its ridge-mesh half and hinge-chain PGS, and
+    dantzig-1024 and its ridge mesh (float64, 1,024 worlds) from their
+    settled batches: ``GRAPH_PGS_SUBSTEPS`` substeps graphed against the
+    eager loop, bitwise; ms a substep of each route in turns; each route's
+    ``route_profile`` of a one-substep call (host launches a call, device
+    ms, busy and idle shares)."""
     import torch
     from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
     from rl_ode_physics_tpu_torch.utils import graphs, profiling
 
-    config = referee_config()
+    pgs, dantzig = referee_config(), referee_dantzig_config()
     rbatch, mesh = pgs_paths["ridge"]
     hbatch, joints = pgs_paths["hinge"]
-    cells = {"conformance-1024": (pgs_paths["conformance"], {}),
-             "ridge-mesh conformance-1024": (rbatch, dict(trimesh=mesh)),
-             "hinge-chain PGS float64": (hbatch, dict(joints=joints))}
+    dbatch, dmesh = dantzig_paths["ridge"]
+    cells = {"conformance-1024": (pgs, pgs_paths["conformance"], {}),
+             "ridge-mesh conformance-1024": (pgs, rbatch,
+                                             dict(trimesh=mesh)),
+             "hinge-chain PGS float64": (pgs, hbatch, dict(joints=joints)),
+             "dantzig-1024": (dantzig, dantzig_paths["dantzig"], {}),
+             "ridge-mesh dantzig-1024": (dantzig, dbatch,
+                                         dict(trimesh=dmesh))}
     out = {}
     n = GRAPH_PGS_SUBSTEPS
-    for label, (batch, extra) in cells.items():
+    for label, (config, batch, extra) in cells.items():
         fn = make_batched_step_fn(config, n, False, device="cuda", **extra)
         one = make_batched_step_fn(config, 1, False, device="cuda", **extra)
         if not (fn.graphed and one.graphed):
@@ -3715,7 +4053,7 @@ def _graphed_pgs(card, pgs_paths):
     return out
 
 
-def phase_graphs(card, settled, server, pgs_paths):
+def phase_graphs(card, settled, server, pgs_paths, dantzig_paths):
     """Each JACOBI entry point at full width, graphed against its eager
     loop from the same state: the bench (unroll 1, 4, 96), server-512 under
     both policies, one rollout, one ES train step and two shards of the
@@ -3736,7 +4074,7 @@ def phase_graphs(card, settled, server, pgs_paths):
             return fn(*args)
 
     _route_table()
-    out = {"pgs": _graphed_pgs(card, pgs_paths)}
+    out = {"pgs": _graphed_pgs(card, pgs_paths, dantzig_paths)}
     torch.cuda.empty_cache()
     out["bench"] = _graphed_bench(bench_config(64), settled, card)
     torch.cuda.empty_cache()
@@ -3753,7 +4091,8 @@ def phase_graphs(card, settled, server, pgs_paths):
                      "rollout: graphed against eager")
     del got
     ms = _in_turns({"graphed": lambda: env.rollout(state, actions),
-                    "eager": lambda: eager(env.rollout, state, actions)}, 2)
+                    "eager": lambda: eager(env.rollout, state, actions)},
+                   GRAPH_ROLLOUT_ES_TURNS)
     out["rollout"] = {k: WORLDS * ROLLOUT_HORIZON / (min(v) / 1e3)
                       for k, v in ms.items()}
     log(f"rollout ({WORLDS} worlds, horizon {ROLLOUT_HORIZON}, lidar): the "
@@ -3776,7 +4115,8 @@ def phase_graphs(card, settled, server, pgs_paths):
              "ES train step: graphed against eager")
     ms = _in_turns({
         "graphed": lambda: trainer.step_with_noise(params, ew, eb),
-        "eager": lambda: eager(trainer.step_with_noise, params, ew, eb)}, 2)
+        "eager": lambda: eager(trainer.step_with_noise, params, ew, eb)},
+        GRAPH_ROLLOUT_ES_TURNS)
     out["es"] = {k: min(v) for k, v in ms.items()}
     prof = {"graphed": profiling.route_profile(
                 lambda: trainer.step_with_noise(params, ew, eb), 1),
@@ -3931,9 +4271,13 @@ def main() -> int:
 
     by_path.update(phase_bench_levers(config, card, bench_settled))
     lap("18")
-    dantzig = phase_dantzig(card, stack, ridge)
+    dantzig, dantzig_args, dantzig_paths = phase_dantzig(card, stack, ridge)
     by_path.update(dantzig)
     lap("19")
+    kernels.append(phase_lcp_kernel(card, dantzig_args))
+    del dantzig_args
+    torch.cuda.empty_cache()
+    lap("19b (lcp_pivot_solve)")
     hinge_paths, (hinge_args, hbatch, hjoints) = phase_hinge_chain(card)
     by_path.update(hinge_paths)
     pgs_paths["hinge"] = (hbatch, hjoints)
@@ -3967,8 +4311,8 @@ def main() -> int:
     for path, record in on_bench_paths.items():
         compaction[f"on_{path}_data"] = record
     lap("27 (bench module)")
-    phase_graphs(card, bench_settled, server, pgs_paths)
-    del bench_settled, pgs_paths
+    phase_graphs(card, bench_settled, server, pgs_paths, dantzig_paths)
+    del bench_settled, pgs_paths, dantzig_paths
     lap("28 (graphs)")
     # the float64 tile kernel on the DANTZIG ridge path
     f64_ridge = dantzig["dantzig_ridge_mesh"]["sphere_mesh_d2_tiles"]

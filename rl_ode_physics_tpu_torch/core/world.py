@@ -320,9 +320,9 @@ def make_step_fn(config: EngineConfig, substeps: int = 1,
     JAX's buffer donation there: with ``donate=True`` the state is updated
     in the graph's buffers and the caller does not read the old handle
     again, with ``donate=False`` the input is left as it was and the result
-    is a new state. DANTZIG reads the device from the host during a solve,
-    so its step functions run eagerly (``fn.graphed`` False, the host read
-    in ``fn.eager_reason``). On the CPU it is the eager loop."""
+    is a new state. Under every solver, DANTZIG included (its pivot loop
+    is one hand kernel that reads nothing on the host), and with joints.
+    On the CPU it is the eager loop."""
     config.validate()
     if substeps < 1:
         raise ValueError(f"substeps={substeps} must be at least 1")
@@ -336,8 +336,8 @@ def make_diagnostics_step_fn(config: EngineConfig):
     state → (state, {name: (B,) tensor}), the JAX server's
     ``jax.jit(lambda s: step_with_diagnostics(s, cfg))``
     (``rl_ode_physics_tpu/net/server.py:79``), not donated as there: the
-    state and the counters are new tensors at every call. Eager on the CPU
-    and under DANTZIG, as ``make_step_fn``."""
+    state and the counters are new tensors at every call. Eager on the
+    CPU, as ``make_step_fn``."""
     config.validate()
     return graphs.Graphed(
         lambda state, _: _step_impl(state, config, None, with_metrics=True),

@@ -36,7 +36,12 @@
 //     SMs and each world has ~28 KB of the 227 KB of shared memory a block
 //     may opt into.
 //   * Prologue, a warp a world: the world's (N, 6) velocities into shared
-//     memory; the impulses copied to the output (dead rows pass through);
+//     memory, or, in a world of more than kVelocityBytes of them (past
+//     ops/pgs_kernel.max_slots: 1,024 slots in float64, 2,048 in float32),
+//     into the output in device memory, where the sweeps then work on them
+//     in place: the kernel's slower branch for such a world, which keeps
+//     its share of shared memory for its staged rows; the impulses copied
+//     to the output (dead rows pass through);
 //     the live rows found 32 flags at a time (__ballot_sync, and a prefix
 //     __popc for each live row's place, which keeps buffer order); the
 //     first S live contact rows and S_j live joint rows staged into shared
@@ -56,17 +61,21 @@
 //     Where a = b the second body's update starts from the first one's
 //     result, as the plain loop's two `vel[ar, body] +=` do (add_pair, in
 //     an instantiation of its own: the pipelines' rows have a < b).
-//     No device memory is read inside the chain. The worlds' regions lie
+//     No device memory is read inside the chain (but in the slower
+//     branches: a world's velocities past kVelocityBytes, the live rows
+//     past S). The worlds' regions lie
 //     128·k + 16 bytes apart, so the lanes' accesses fall in distinct banks.
 //   * Live rows past S (S_j) are solved in the same order from the table
 //     in device memory, found by scanning the flags on from the first of
 //     them: the kernel's slower branch, right at any count of live rows.
-//   * Epilogue, after a barrier, a warp a world: the velocities and the
-//     staged rows' impulses written out.
+//   * Epilogue, after a barrier, a warp a world: the velocities (where
+//     they were in shared memory) and the staged rows' impulses written
+//     out.
 // TMA and wgmma do not fit: there is no matrix product, and the rows to
 // gather are scattered by the live mask. W, S and S_j are the caller's
 // (ops/pgs_kernel.launch_shape: from N, C, R and the dtype, never from a
-// host read); the launcher refuses a shape that does not fit.
+// host read); the launcher refuses a shape that does not fit. No world
+// is refused for its count of slots.
 //
 // Rounding follows the plain version on the CPU: each operation is
 // rounded as PyTorch rounds it there, in its order ((x0 + x1) + x2 for a
@@ -100,6 +109,7 @@ constexpr int kRowFields = 40;
 constexpr int kJointFields = 21;
 constexpr int kMaxWorlds = 8;            // worlds a block
 constexpr int kMaxShared = 232448;       // 227 KB, opted into per device
+constexpr int kVelocityBytes = 48 * 1024; // a world's velocities in shared
 constexpr unsigned kAll = 0xffffffffu;
 
 enum FrictionMode { kNoFriction = 0, kMuInf = 1, kMuGlobal = 2,
@@ -130,13 +140,21 @@ __device__ __forceinline__ const T* in(const Pointers& P, int k) {
   return static_cast<const T*>(P.p[k]);
 }
 
-// One world's region of shared memory: velocities (N, 6), the staged
-// contact rows (S, 40) and impulses (S, 3), the staged joint rows (S_j,
-// 21) and impulses (S_j), then the ints: the staged rows' bodies and
-// buffer rows, the joint rows' bodies, and the world's live counts. The
-// regions lie a multiple of 128 bytes plus 16 apart, so that the lanes of
-// the sweeping warp, a world each, reach the same field of their worlds
-// in distinct banks. ops/pgs_kernel._world_bytes is the same sum.
+// Whether a world of n slots keeps its (n, 6) velocities in shared memory
+// (ops/pgs_kernel.max_slots); past that they stay in device memory.
+template <typename T>
+__host__ __device__ bool vel_in_shared(int n) {
+  return static_cast<size_t>(n) * 6 * sizeof(T) <= kVelocityBytes;
+}
+
+// One world's region of shared memory: velocities (N, 6; none past
+// vel_in_shared), the staged contact rows (S, 40) and impulses (S, 3), the
+// staged joint rows (S_j, 21) and impulses (S_j), then the ints: the
+// staged rows' bodies and buffer rows, the joint rows' bodies, and the
+// world's live counts. The regions lie a multiple of 128 bytes plus 16
+// apart, so that the lanes of the sweeping warp, a world each, reach the
+// same field of their worlds in distinct banks. ops/pgs_kernel._world_bytes
+// is the same sum.
 template <typename T>
 struct World {
   T* vel;
@@ -154,7 +172,8 @@ struct World {
 
 template <typename T>
 __host__ __device__ size_t world_bytes(int n, int s, int sj) {
-  const size_t t = sizeof(T) * (static_cast<size_t>(n) * 6
+  const size_t nv = vel_in_shared<T>(n) ? n : 0;
+  const size_t t = sizeof(T) * (nv * 6
                                 + static_cast<size_t>(s) * (kRowFields + 3)
                                 + static_cast<size_t>(sj)
                                   * (kJointFields + 1));
@@ -163,21 +182,30 @@ __host__ __device__ size_t world_bytes(int n, int s, int sj) {
   return (t + i + 127) / 128 * 128 + 16;
 }
 
-template <typename T>
-__device__ World<T> carve(unsigned char* base, int n, int s, int sj) {
-  World<T> w;
-  w.vel = reinterpret_cast<T*>(base);
-  w.rec = w.vel + n * 6;
-  w.lam = w.rec + s * kRowFields;
-  w.jrec = w.lam + s * 3;
-  w.jlam = w.jrec + sj * kJointFields;
-  w.a = reinterpret_cast<int*>(w.jlam + sj);
-  w.b = w.a + s;
-  w.row = w.b + s;
-  w.ja = w.row + s;
-  w.jb = w.ja + sj;
-  w.live = w.jb + sj;
-  return w;
+// World w's region at base; its velocities there (kShared, as
+// vel_in_shared says), or in the output in device memory. A compile-time
+// choice: the shared pointer's address space then stays known to the
+// compiler, which keeps its accesses shared-memory instructions.
+template <typename T, bool kShared>
+__device__ World<T> carve(const Pointers& P, unsigned char* base, int w,
+                          int n, int s, int sj) {
+  World<T> r;
+  r.rec = reinterpret_cast<T*>(base) + (kShared ? n * 6 : 0);
+  if (kShared)
+    r.vel = reinterpret_cast<T*>(base);
+  else
+    r.vel = const_cast<T*>(in<T>(P, pVelOut))
+            + static_cast<size_t>(w) * n * 6;
+  r.lam = r.rec + s * kRowFields;
+  r.jrec = r.lam + s * 3;
+  r.jlam = r.jrec + sj * kJointFields;
+  r.a = reinterpret_cast<int*>(r.jlam + sj);
+  r.b = r.a + s;
+  r.row = r.b + s;
+  r.ja = r.row + s;
+  r.jb = r.ja + sj;
+  r.live = r.jb + sj;
+  return r;
 }
 
 template <typename T>
@@ -658,7 +686,8 @@ __device__ __forceinline__ void write_back(const Pointers& P,
   const int staged = min(s.live[0], S);
   T* vel_out = const_cast<T*>(in<T>(P, pVelOut))
                + static_cast<size_t>(w) * N * 6;
-  for (int e = lane; e < N * 6; e += 32) vel_out[e] = s.vel[e];
+  if (vel_in_shared<T>(N))              // else they are there already
+    for (int e = lane; e < N * 6; e += 32) vel_out[e] = s.vel[e];
   T* lam_out = const_cast<T*>(in<T>(P, pLamOut));
   for (int e = lane; e < staged * 3; e += 32)
     lam_out[(cw + s.row[e / 3]) * 3 + e % 3] = s.lam[e];
@@ -667,29 +696,42 @@ __device__ __forceinline__ void write_back(const Pointers& P,
 // W warps a block, warp k staging and writing back world blockIdx.x·W + k;
 // between two barriers, warp 0 runs the sweeps of all W worlds, lane k
 // world k, so that one instruction steps W worlds.
+template <typename T, bool kShared>
+__device__ __forceinline__ void solve_block(const Pointers& P,
+                                            unsigned char* smem, int B,
+                                            int N, int C, int R, int S,
+                                            int SJ, int iterations,
+                                            const Params<T>& q) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const size_t stride = world_bytes<T>(N, S, SJ);
+  const bool mu_per_row = q.friction == kMuPerRow;
+  const int w = blockIdx.x * W + warp;
+  if (w < B)
+    stage(P, carve<T, kShared>(P, smem + warp * stride, w, N, S, SJ), w, N,
+          C, R, S, SJ, mu_per_row, lane);
+  __syncthreads();
+  if (warp == 0 && lane < W && blockIdx.x * W + lane < B) {
+    const int v = blockIdx.x * W + lane;
+    sweeps(P, carve<T, kShared>(P, smem + lane * stride, v, N, S, SJ), v, N,
+           C, R, S, SJ, iterations, mu_per_row, q);
+  }
+  __syncthreads();
+  if (w < B)
+    write_back(P, carve<T, kShared>(P, smem + warp * stride, w, N, S, SJ), w,
+               N, C, S, lane);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxWorlds * 32, 1)
 pgs_solve_kernel(Pointers P, int B, int N, int C, int R, int S, int SJ,
                  int iterations, T omega, T cfm, int friction, T mu) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int W = blockDim.x >> 5;
-  const size_t stride = world_bytes<T>(N, S, SJ);
-  const bool mu_per_row = friction == kMuPerRow;
-  const int w = blockIdx.x * W + warp;
-  if (w < B)
-    stage(P, carve<T>(smem + warp * stride, N, S, SJ), w, N, C, R, S, SJ,
-          mu_per_row, lane);
-  __syncthreads();
-  if (warp == 0 && lane < W && blockIdx.x * W + lane < B) {
-    const Params<T> q{omega, cfm, mu, friction};
-    sweeps(P, carve<T>(smem + lane * stride, N, S, SJ), blockIdx.x * W + lane,
-           N, C, R, S, SJ, iterations, mu_per_row, q);
-  }
-  __syncthreads();
-  if (w < B)
-    write_back(P, carve<T>(smem + warp * stride, N, S, SJ), w, N, C, S,
-               lane);
+  const Params<T> q{omega, cfm, mu, friction};
+  if (vel_in_shared<T>(N))
+    solve_block<T, true>(P, smem, B, N, C, R, S, SJ, iterations, q);
+  else
+    solve_block<T, false>(P, smem, B, N, C, R, S, SJ, iterations, q);
 }
 
 // The opt-in to more than 48 KB of dynamic shared memory, once per device.

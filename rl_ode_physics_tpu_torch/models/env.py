@@ -33,8 +33,8 @@ a call (``utils/graphs.py``), the JAX env's ``jax.jit`` of the control
 step and of its ``lax.scan`` over the horizon: the actions are the graph's
 input, the lidar is swept inside it, and every tensor returned is new, so
 no later call writes over it. ``env.graphed`` and ``env.eager_reason`` say
-which route the env takes; under ``disable_graphs()``, on the CPU and
-under DANTZIG it is the eager loop.
+which route the env takes; under ``disable_graphs()`` and on the CPU it
+is the eager loop.
 
 The env runs on ``device`` (the card unless the caller asks for the CPU)
 and raises on a state that lies elsewhere. Gradients through the env are

@@ -17,14 +17,17 @@ them, until the set, the sides and the iterate are stable, for at most
 ``MAX_PIVOT_ROUNDS`` rounds.
 
 The JAX package runs the rounds in a ``lax.while_loop`` under ``vmap``: a
-world that is done keeps its carry while the others go on. Here the rounds
-run batched over worlds, each world frozen (``torch.where`` on the whole
-carry) once it is done or at the cap, and the loop stops when every world
-is frozen: one host read of "all frozen" a round (on the H100 a read every
-2 or 4 rounds was no faster and every 8 slower, PERF.md). The solves are ``torch.linalg.solve_ex`` with ``check_errors=False``
-(``torch.linalg.solve`` reads an error flag back to the host at every call
-on CUDA). A is dense (3C × 3C) a world: this is the conformance path, not
-a throughput solver.
+world that is done keeps its carry while the others go on. On the card the
+port runs that loop as one hand kernel a solve
+(``ops/lcp_kernel.lcp_pivot_solve``, ``csrc/lcp_pivot.cu``): each world to
+its own fixed point, its active rows alone factored, nothing read back to
+the host, so a CUDA graph holds a DANTZIG step. Its plain version,
+``_pivot_solve`` here, which CPU tensors take, runs the rounds batched over
+worlds, each world frozen (``torch.where`` on the whole carry) once it is
+done or at the cap, and stops when every world is frozen: one host read of
+"all frozen" a round. Its solves are ``torch.linalg.solve_ex`` with
+``check_errors=False`` of each world's whole (3C × 3C) masked matrix. This
+is the conformance path, not a throughput solver.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import WorldState, world_inv_inertia
+from rl_ode_physics_tpu_torch.ops import lcp_kernel
 from rl_ode_physics_tpu_torch.ops import solver as sol
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
 
@@ -104,9 +108,10 @@ def _build_lcp(state: WorldState, contacts: Contacts, config: EngineConfig):
 
 def _pivot_solve(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
     """Murty principal block pivoting with boxed friction rows, every world
-    of the batch at once: λ (B, R) for rows [normal | t1 | t2], and the
-    pivot rounds the batch ran (its slowest world's; the host reads made
-    are one more, up to the cap).
+    of the batch at once: λ (B, R) for rows [normal | t1 | t2], and each
+    world's pivot rounds (B,) int32, those it takes alone (the batch runs
+    its slowest world's; the host reads made are one more, up to the cap).
+    The plain version of ``ops/lcp_kernel.lcp_pivot_solve``.
 
     ``mu_row``: (B, C) friction coefficient per contact (``inf`` = a
     bilateral row), or None (all ``inf``). Friction bounds ±μ·λ_n follow
@@ -149,8 +154,9 @@ def _pivot_solve(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
     side = torch.zeros((bsz, r), dtype=torch.int32, device=b.device)
     lam = torch.zeros((bsz, r), dtype=f, device=b.device)
     done = torch.zeros((bsz,), dtype=torch.bool, device=b.device)
-    rounds = 0
-    while rounds < MAX_PIVOT_ROUNDS and not bool(done.all()):
+    rounds = torch.zeros((bsz,), dtype=torch.int32, device=b.device)
+    ran = 0
+    while ran < MAX_PIVOT_ROUNDS and not bool(done.all()):
         running = ~done
         hi = bounds(lam)
         tiny = boxed & (hi < _TOL)        # bound collapsed (λ_n = 0)
@@ -188,7 +194,8 @@ def _pivot_solve(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
         side = torch.where(keep, new_side, side)
         lam = torch.where(keep, lam_new, lam)
         done = torch.where(running, new_done, done)
-        rounds += 1
+        rounds += running.to(torch.int32)
+        ran += 1
     # final consistent solve + projection on the converged set and bounds
     hi = bounds(lam)
     lam = masked_solve(act, clamp_values(side, hi))
@@ -202,15 +209,18 @@ def solve_dantzig(state: WorldState, contacts: Contacts,
                   config: EngineConfig) -> WorldState:
     """Exact contact solve (dWorldStep semantics) of every world: μ = ∞
     (bilateral friction rows), a finite global μ or per-body surfaces
-    (boxed rows with ODE's findex coupling)."""
+    (boxed rows with ODE's findex coupling). The pivot loop is
+    ``lcp_kernel.lcp_pivot_solve``: one launch of the hand kernel on the
+    card, which reads nothing back to the host; the plain loop on the
+    CPU."""
     sol._check_solver(state)
     jw, a_mat, b, valid, is_normal, mu_row = _build_lcp(
         state, contacts, config)
     if not config.friction:
         # only the first C rows take part
         valid = valid & is_normal
-    lam, _ = _pivot_solve(a_mat, b, valid, is_normal, config.friction,
-                          mu_row)
+    lam, _ = lcp_kernel.lcp_pivot_solve(a_mat, b, valid, is_normal,
+                                        config.friction, mu_row)
     bsz, n = state.num_worlds, state.num_slots
     dv6 = torch.bmm(lam[:, None, :],
                     jw.reshape(bsz, lam.shape[1], n * 6)).reshape(bsz, n, 6)

@@ -20,7 +20,9 @@ wrapper checks them, makes contiguous and casts only what is not already in
 the layout the kernel reads (int32 bodies, bool flags), allocates the
 outputs and reads nothing back to the host, so a CUDA graph can hold the
 launch. Each world's first ``staged_rows`` live rows are staged in shared
-memory once a solve; ``launch_shape`` sizes the launch from the shapes.
+memory once a solve, with its velocities where they fit (``max_slots``; a
+larger world's are worked on in place in device memory, so no world is
+refused for its slots); ``launch_shape`` sizes the launch from the shapes.
 
 ``pgs_kernel_order`` is the kernel's loop transcribed to PyTorch on the
 same unpacked table: the staging order, the staged rows, the rows past
@@ -46,7 +48,8 @@ _LAUNCHERS = {torch.float32: "pgs_solve_launch",
 FLAGS = ("-fmad=false",)
 
 # shared memory a block may opt into on Hopper (227 KB); the velocities of
-# one world, (N, 6), take at most 48 KB of it
+# one world, (N, 6), take at most 48 KB of it: a larger world's stay in
+# device memory
 SHARED_BYTES = 232_448
 VELOCITY_BYTES = 48 * 1024
 MAX_WORLDS = 8          # worlds a block: a warp each stages, one steps all
@@ -112,18 +115,27 @@ def _size(dtype: torch.dtype) -> int:
 
 
 def max_slots(dtype: torch.dtype) -> int:
-    """The most slots a world may have: its (N, 6) velocities fit
-    ``VELOCITY_BYTES`` of the block's shared memory."""
+    """The most slots a world may have for its (N, 6) velocities to be
+    kept in ``VELOCITY_BYTES`` of the block's shared memory; a larger
+    world's are worked on in place in device memory (the kernel's slower
+    branch), and no world is refused for its slots."""
     return VELOCITY_BYTES // (6 * _size(dtype))
+
+
+def _shared_slots(size: int, n: int) -> int:
+    """The slots whose velocities a world keeps in shared memory: all N,
+    or none past ``max_slots``."""
+    return n if 6 * n * size <= VELOCITY_BYTES else 0
 
 
 def _world_bytes(size: int, n: int, staged: int, staged_joints: int) -> int:
     """A world's stride in shared memory (``csrc/pgs_solve.cu:
-    world_bytes``): its velocities, the staged rows' fields and impulses,
+    world_bytes``): its velocities (none past ``max_slots``), the staged
+    rows' fields and impulses,
     their bodies and buffer rows and its 4 live counts, rounded up to 128
     bytes, and 16 more (the sweeping warp's lanes then reach their worlds'
     fields in distinct banks)."""
-    t = size * (6 * n + staged * (ROW_FIELDS + 3)
+    t = size * (6 * _shared_slots(size, n) + staged * (ROW_FIELDS + 3)
                 + staged_joints * (JOINT_FIELDS + 1))
     return -(-(t + 4 * (3 * staged + 2 * staged_joints + 4)) // 128) * 128 + 16
 
@@ -144,7 +156,7 @@ def launch_shape(dtype: torch.dtype, num_slots: int, contact_rows: int,
     and joint rows (joint rows at most half of it where there are contact
     rows too). From the shapes alone: nothing is read on the host."""
     size = _size(dtype)
-    vel = 6 * num_slots * size + 16          # and the live counts
+    vel = 6 * _shared_slots(size, num_slots) * size + 16  # and live counts
     row = (ROW_FIELDS + 3) * size + 12
     jrow = (JOINT_FIELDS + 1) * size + 8
 
@@ -193,10 +205,8 @@ def _tensors(vel, lam, rows, joints_rows):
     return out
 
 
-def _check(vel, lam, rows, joints_rows, mode, in_shared=True):
-    """Raise on what the kernel does not take; ``in_shared``: also on a
-    world too large for the block's shared memory (the plain version has
-    no such limit)."""
+def _check(vel, lam, rows, joints_rows, mode):
+    """Raise on what the kernel does not take."""
     if vel.dtype not in _LAUNCHERS:
         raise TypeError(f"velocities of dtype {vel.dtype}: float32 or "
                         f"float64")
@@ -206,10 +216,6 @@ def _check(vel, lam, rows, joints_rows, mode, in_shared=True):
     bsz, n = vel.shape[:2]
     if bsz == 0 or n == 0:
         raise ValueError("no worlds or no slots to solve")
-    if in_shared and n > max_slots(vel.dtype):
-        raise ValueError(f"{n} slots: the kernel keeps a world's (N, 6) "
-                         f"velocities in shared memory, at most "
-                         f"{max_slots(vel.dtype)} slots in {vel.dtype}")
     if (rows is None) != (lam is None):
         raise ValueError("contact rows and their impulses go together")
     if rows is None and joints_rows is None:
@@ -323,7 +329,7 @@ def pgs_solve(vel: torch.Tensor, lam, rows, joints_rows=None, *,
         raise ValueError(f"tensors on {sorted(map(str, devices))}: the "
                          f"kernel takes them on one card, the plain version "
                          f"on the CPU")
-    _check(vel, lam, rows, joints_rows, mode, in_shared=vel.is_cuda)
+    _check(vel, lam, rows, joints_rows, mode)
     if vel.device.type == "cpu":
         from rl_ode_physics_tpu_torch.ops import solver
         return solver.pgs_sweeps_plain(

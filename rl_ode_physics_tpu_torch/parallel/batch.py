@@ -104,10 +104,10 @@ def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
     result is a new batch. ``chunk``: step the batch in world-chunks of
     this size, each through all its substeps before the next (JAX's
     ``lax.map``), to bound peak device memory: one chunk-sized graph, with
-    a copy in and a copy out a chunk, into a new batch. DANTZIG reads the
-    device from the host during a solve and runs the eager loop
-    (``fn.graphed`` False, the host read in ``fn.eager_reason``), as does
-    every step function on the CPU and under ``disable_graphs()``.
+    a copy in and a copy out a chunk, into a new batch. Every solver's
+    step is graphed on a card, DANTZIG's included; every step function on
+    the CPU and under ``disable_graphs()`` runs the eager loop
+    (``fn.graphed`` False on the CPU, the reason in ``fn.eager_reason``).
 
     The batch must lie on ``device``: the function raises rather than step
     it anywhere else. ``trimesh``: an optional static

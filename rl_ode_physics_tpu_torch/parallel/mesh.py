@@ -17,13 +17,11 @@ one CUDA graph (``utils/graphs.py``) captured on its device, and one host
 thread launches the shards in turn, one launch a shard, so that every
 card has work queued while the host moves on to the next.
 
-Three things bound what that overlap gives. A host read inside a step
-(DANTZIG's pivot rounds) keeps it eager and waits for that shard's card
-before the host goes on to the next shard, so under that solver the
-cards run one after the other. An
-eager step, bound by the host's launches, costs D times the host time on
-D shards. And two shards of one card run on its one stream, one after
-the other.
+Two things bound what that overlap gives. An eager step (under
+``disable_graphs()``), bound by the host's launches, costs D times the
+host time on D shards. And two shards of one card run on its one stream,
+one after the other. No solver's step reads the host (DANTZIG's pivot
+loop is one hand kernel), so every solver's shards are graphed.
 
 No tensor of one shard meets a tensor of another: PyTorch raises on any
 operation that mixes devices, so a step that ran is a step that did not

@@ -1,0 +1,57 @@
+"""Contact LCPs made from a seed, for holding DANTZIG's pivot kernel to its
+plain version where a scene gives too few contacts.
+
+``random_contact_lcp`` forms the system as ``ops/lcp._build_lcp`` does for
+random contacts between free bodies: one normal and two friction rows a
+contact, R = 3C rows ordered [normal | t1 | t2], A = J M⁻¹ Jᵀ + (cfm/dt)·I
+(symmetric positive definite), b = J v − target. With more bodies than
+contacts J has full rank, so every row may be valid and the system stays
+well conditioned: a world of all its rows valid is the kernel's
+device-memory branch (more valid rows than it stages).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def random_contact_lcp(seed: int, worlds: int = 4, contacts: int = 12,
+                       bodies: int = 16, mu=None, live: float = 0.7):
+    """(A (B, R, R), b (B, R), valid (B, R), is_normal (B, R), μ (B, C) or
+    None) as float64 and bool numpy arrays: each contact between two random
+    bodies of unit-range inverse masses, with a random unit normal, lever
+    arms in [−0.5, 0.5]³ and a target in [0, 0.2] on its normal row; a
+    contact valid with probability ``live``. ``mu``: None (all ∞), a float,
+    or "mixed" (a μ in [0.2, 1] a contact, a third of them ∞)."""
+    rng = np.random.default_rng(seed)
+    c, r = contacts, 3 * contacts
+    a_out = np.empty((worlds, r, r))
+    b_out = np.empty((worlds, r))
+    for w in range(worlds):
+        jac = np.zeros((r, 6 * bodies))
+        for k in range(c):
+            ba, bb = rng.choice(bodies, 2, replace=False)
+            n = rng.normal(size=3)
+            n /= np.linalg.norm(n)
+            t1 = np.cross(n, rng.normal(size=3))
+            t1 /= np.linalg.norm(t1)
+            t2 = np.cross(n, t1)
+            ra, rb = rng.uniform(-0.5, 0.5, (2, 3))
+            for row, u in ((k, n), (c + k, t1), (2 * c + k, t2)):
+                jac[row, 6 * bb:6 * bb + 6] = np.r_[u, np.cross(rb, u)]
+                jac[row, 6 * ba:6 * ba + 6] -= np.r_[u, np.cross(ra, u)]
+        inv_m = np.repeat(rng.uniform(0.5, 2.0, bodies), 6)
+        a_out[w] = (jac * inv_m) @ jac.T + 6e-4 * np.eye(r)
+        target = np.r_[rng.uniform(0.0, 0.2, c), np.zeros(2 * c)]
+        b_out[w] = jac @ rng.normal(size=6 * bodies) - target
+    valid = np.tile(rng.random((worlds, c)) < live, 3)
+    is_normal = np.zeros((worlds, r), bool)
+    is_normal[:, :c] = True
+    if mu is None:
+        mu_row = None
+    elif mu == "mixed":
+        mu_row = rng.uniform(0.2, 1.0, (worlds, c))
+        mu_row[:, ::3] = np.inf
+    else:
+        mu_row = np.full((worlds, c), float(mu))
+    return a_out, b_out, valid, is_normal, mu_row

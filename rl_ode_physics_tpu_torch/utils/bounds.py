@@ -152,3 +152,30 @@ def pgs_bound(valid, jlive, num_slots: int, iterations: int, dtype=None,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 chain_ms=chain * CYCLES_PER_DEPENDENT_OP / BOOST_CLOCK_HZ
                 * 1e3, live_rows=live, live_joint_rows=jl)
+
+
+def lcp_pivot_bound(valid, rounds, dtype=None, mu_given: bool = True
+                    ) -> dict:
+    """The least time of one ``lcp_pivot_solve`` launch on these worlds:
+    ``valid`` (B, R) the valid rows, ``rounds`` (B,) the pivot rounds each
+    world took. Bytes: every row's valid flag (a bool), each world's V × V
+    block of A, b and the normal flag of its V valid rows, μ of its V / 3
+    contacts (``mu_given``), λ (B, R) and the rounds (int32) out.
+    Operations: each world's rounds and final solve, each an elimination
+    of its active block (2/3·n³) and two products of its V valid rows
+    (4·V²), with every valid row taken as active (the bilateral friction
+    rows always are, and a resting stack's normal rows are)."""
+    size, rate = _rates(dtype)
+    b, r = valid.shape
+    v = valid.sum(1).double()
+    solves = rounds.double() + 1
+    n_bytes = (b * r + float((v * v * size + v * (size + 1)).sum())
+               + (float((v / 3).ceil().sum()) * size if mu_given else 0)
+               + b * r * size + 4 * b)
+    ops = float((solves * (2.0 / 3.0 * v ** 3 + 4 * v * v)).sum())
+    ops_ms = ops / rate * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                bytes_ms=bytes_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                valid_rows=int(v.sum()), rounds=int(rounds.sum()))

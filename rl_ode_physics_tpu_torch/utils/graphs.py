@@ -44,13 +44,12 @@ a tuple, a dict):
 eagerly where it does not graph, so an entry point calls one object.
 ``disable_graphs()`` is the counterpart of ``jax.disable_jit``: under it
 every call runs the eager loop. ``capturable(config, joints)`` says
-whether a configuration's step can be captured at all: JACOBI and PGS
-can, joints included (PGS's sweeps are one hand kernel that finds the live
-rows on the device); DANTZIG reads the device from the host once a pivot
-round, which a graph cannot hold, and its step functions run eagerly on
-the card with ``graphed = False`` and the reason in ``eager_reason``; so
-does a function made for the CPU. A capture that fails raises; no call falls
-back to the eager loop from it.
+whether a configuration's step can be captured at all: every solver's can,
+joints included (PGS's sweeps and DANTZIG's pivot loop are each one hand
+kernel that reads nothing on the host). A function made for the CPU runs
+its eager loop, with ``graphed = False`` and the reason in
+``eager_reason``. A capture that fails (a host read that a body makes)
+raises; no call falls back to the eager loop from it.
 
 The hand kernels' wrappers count their launches in Python, which a replay
 does not run. Each capture records what the counters added while it was
@@ -73,7 +72,7 @@ import weakref
 
 import torch
 
-from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
+from rl_ode_physics_tpu_torch.core.config import EngineConfig
 
 # bounded: a configuration sweep would otherwise hold every graph's pool
 MAX_GRAPHS = 64
@@ -107,23 +106,15 @@ def on_card(tensor: torch.Tensor) -> bool:
 # What a graph cannot hold
 # ---------------------------------------------------------------------------
 
-_SOLVER_READS = {
-    SolverKind.DANTZIG: "DANTZIG reads whether every world is done on the "
-                        "host once a pivot round (bool(done.all()), "
-                        "ops/lcp.py:153)",
-}
-
-
 def capturable(config: EngineConfig, joints=None):
     """(True, "") where a step under ``config`` (with ``joints``, a joint
     table or None) can be captured into a CUDA graph; (False, the host read
-    that forbids it, with its file:line) where it cannot. The joint passes
-    read nothing on the host under any solver (under PGS and DANTZIG they
-    are ``ops/pgs_kernel.pgs_solve``), so ``joints`` changes no answer."""
-    reason = _SOLVER_READS.get(config.solver)
-    if reason is None:
-        return True, ""
-    return False, reason
+    that forbids it, with its file:line) where it cannot. No solver's step
+    reads the host: JACOBI's is tensor code, PGS's sweeps are
+    ``ops/pgs_kernel.pgs_solve`` and DANTZIG's pivot loop is
+    ``ops/lcp_kernel.lcp_pivot_solve``, and the joint passes are
+    ``pgs_solve`` under both, so every configuration is capturable."""
+    return True, ""
 
 
 def for_card(device) -> bool:
@@ -151,11 +142,12 @@ def kernel_counters() -> dict:
     """name → the hand kernel's wrapper whose ``launches`` counts it,
     looked up on its module at every call (a caller may have wrapped it)."""
     from rl_ode_physics_tpu_torch.ops import (
-        compaction_kernel, mesh_kernels, pgs_kernel)
+        compaction_kernel, lcp_kernel, mesh_kernels, pgs_kernel)
     return {"compact_rows_t": compaction_kernel.compact_rows_t,
             "sphere_mesh_d2_tiles": mesh_kernels.sphere_mesh_d2_tiles,
             "sphere_mesh_d2": mesh_kernels.sphere_mesh_d2,
-            "pgs_solve": pgs_kernel.pgs_solve}
+            "pgs_solve": pgs_kernel.pgs_solve,
+            "lcp_pivot_solve": lcp_kernel.lcp_pivot_solve}
 
 
 def read_counts(counters: dict) -> dict:

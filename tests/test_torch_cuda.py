@@ -9,15 +9,18 @@ The tests marked ``cuda`` skip where no card is present. The others run
 everywhere: the compaction's plain version against a numpy loop, and the
 mesh kernels' wrappers taking their plain versions on CPU tensors.
 
-On the card every JACOBI step entry point replays CUDA graphs
+On the card every step entry point replays CUDA graphs
 (``utils/graphs.py``); the tests at the end of this file hold each one
 bitwise to its eager loop (``disable_graphs``), and check the launch
 counts per replay, outputs that a later call does not write over, a new
-capture for a new shape, PGS graphed and DANTZIG running eagerly, and a
-forced capture of DANTZIG's host read raising. The PGS kernel is held to
-its plain version on every friction case, with joint rows and alone, on
-scattered live rows, with more live rows than it stages and at the most
-slots a world may have.
+capture for a new shape, PGS and DANTZIG graphed, and a forced capture of
+a body's host read raising. The PGS kernel is held to its plain version
+on every friction case, with joint rows and alone, on scattered live
+rows, with more live rows than it stages, at the most slots whose
+velocities a block keeps and past them. DANTZIG's pivot kernel is held to
+its plain version on the settled stack's systems, under a finite μ, on
+worlds of more valid rows than it stages, and its solve reads nothing back
+to the host.
 """
 
 import numpy as np
@@ -667,6 +670,138 @@ def test_dantzig_card_matches_cpu_in_float64():
     assert card.pos.dtype == torch.float64
 
 
+# lcp_pivot against its plain version: float64 λ within 1e-10 of max |λ|
+# and the same rounds a world (each sums in its own order); float32 held
+# as ROADMAP's float32 trap holds DANTZIG, on the solve's velocity change
+# in constraint space, A·λ, within 1e-5 of its largest (λ itself
+# amplifies roundoff through near-redundant rows)
+LCP_F64_RTOL = 1e-10
+LCP_F32_RTOL = 1e-5
+
+
+def _dantzig_systems(config, worlds=4):
+    """The LCPs of the next DANTZIG solve of ``mini_stack_world`` in
+    kicked worlds settled 40 substeps on the card: (A, b, valid,
+    is_normal, μ a contact)."""
+    from rl_ode_physics_tpu_torch.models import scenes
+    from rl_ode_physics_tpu_torch.ops import (
+        broadphase, integrator, lcp, narrowphase)
+    world = scenes.mini_stack_world(config, device="cuda")
+    batch = make_batched_step_fn(config, 40, device="cuda")(
+        _kicked(replicate(world, worlds, device="cuda"), 3))
+    contacts = narrowphase.narrowphase(
+        batch, broadphase.broadphase(batch, config), config)
+    state = integrator.apply_external_forces(batch, config)
+    return lcp._build_lcp(state, contacts, config)[1:]
+
+
+def _synthetic_systems():
+    """Random contact LCPs of 96 contacts (R = 288) between 128 bodies
+    (``testing/lcp_systems``), μ = ∞: worlds 0 and 3 with every row valid
+    (the kernel's device-memory branch), world 1 with 10 contacts (staged),
+    world 2 with 20 (past the float64 stage)."""
+    from rl_ode_physics_tpu_torch.testing.lcp_systems import (
+        random_contact_lcp)
+    a_mat, b, valid, is_normal, _ = random_contact_lcp(
+        11, worlds=4, contacts=96, bodies=128, live=1.0)
+    for w, k in ((1, 10), (2, 20)):
+        valid[w] = np.tile(np.arange(96) < k, 3)
+    return tuple(torch.from_numpy(x).to("cuda")
+                 for x in (a_mat, b, valid, is_normal)) + (None,)
+
+
+def _lcp_kernel_against_plain(system, friction, dtype, what=""):
+    """lcp_pivot_solve (one launch) and ``lcp._pivot_solve`` on the same
+    card tensors; returns the kernel's rounds and the largest
+    difference."""
+    from rl_ode_physics_tpu_torch.ops import lcp, lcp_kernel
+    a_mat, b, valid, is_normal, mu = system
+    f = getattr(torch, dtype)
+    a_mat, b = a_mat.to(f), b.to(f)
+    mu = None if mu is None else mu.to(f)
+    before = lcp_kernel.lcp_pivot_solve.launches
+    lam, rounds = lcp_kernel.lcp_pivot_solve(a_mat, b, valid, is_normal,
+                                             friction, mu)
+    assert lcp_kernel.lcp_pivot_solve.launches == before + 1
+    want, want_rounds = lcp._pivot_solve(a_mat, b, valid, is_normal,
+                                         friction, mu)
+    torch.cuda.synchronize()
+    assert lam.dtype == f and rounds.dtype == torch.int32
+    assert bool((lam[~valid] == 0).all())
+    assert float(want.abs().max()) > 0
+    if f == torch.float64:
+        err = float((lam - want).abs().max())
+        assert err <= LCP_F64_RTOL * float(want.abs().max()), (what, err)
+        assert torch.equal(rounds, want_rounds), (what, rounds, want_rounds)
+    else:
+        moved = torch.bmm(a_mat, want[..., None])
+        err = float(torch.bmm(a_mat, (lam - want)[..., None]).abs().max())
+        assert err <= LCP_F32_RTOL * float(moved.abs().max()), (what, err)
+    return rounds, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["stack", "stack_mu_finite",
+                                  "more_rows_than_staged"])
+def test_lcp_pivot_kernel_matches_plain_on_card(case, dtype):
+    """The referee's DANTZIG configuration's systems on the settled mini
+    stack (μ = ∞; μ = 0.4, boxed rows), and worlds of more valid rows than
+    the kernel stages, up to all 288 (its device-memory branch)."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
+    from rl_ode_physics_tpu_torch.ops import lcp_kernel
+    if case == "more_rows_than_staged":
+        system = _synthetic_systems()
+        count = system[2].sum(1)
+        assert int(count.max()) == 288
+        staged = lcp_kernel.STAGED_ROWS
+        assert int((count > staged[torch.float64]).sum()) == 3
+        assert int((count > staged[torch.float32]).sum()) == 2
+    else:
+        config = EngineConfig(**REFEREE_DANTZIG, solver=SolverKind.DANTZIG)
+        system = _dantzig_systems(config)
+        assert int(system[2].sum(1).min()) >= 12
+        if case == "stack_mu_finite":
+            system = system[:4] + (torch.full_like(system[4], 0.4),)
+    _lcp_kernel_against_plain(system, True, dtype, case)
+
+
+@pytest.mark.cuda
+def test_dantzig_solve_reads_nothing_back_on_card():
+    """``solve_dantzig`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation of the
+    solve waits on the card (the plain pivot loop's round read would
+    raise)."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
+    from rl_ode_physics_tpu_torch.models import scenes
+    from rl_ode_physics_tpu_torch.ops import (
+        broadphase, integrator, lcp, narrowphase)
+    config = EngineConfig(**REFEREE_DANTZIG, solver=SolverKind.DANTZIG)
+    batch = replicate(scenes.mini_stack_world(config, device="cuda"), 2,
+                      device="cuda")
+    batch = make_batched_step_fn(config, 40, device="cuda")(batch)
+    contacts = narrowphase.narrowphase(
+        batch, broadphase.broadphase(batch, config), config)
+    state = integrator.apply_external_forces(batch, config)
+    lcp.solve_dantzig(state, contacts, config)        # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = lcp.solve_dantzig(state, contacts, config)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out.linvel).all())
+    with pytest.raises(RuntimeError):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lcp._pivot_solve(*lcp._build_lcp(state, contacts, config)[1:5],
+                             True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["JACOBI", "PGS", "DANTZIG"])
 def test_hinge_chain_card_matches_cpu(solver):
@@ -1214,17 +1349,56 @@ def test_pgs_kernel_refuses_on_card():
     from rl_ode_physics_tpu_torch.core.config import EngineConfig
     from rl_ode_physics_tpu_torch.ops import pgs_kernel, solver
     config = EngineConfig.conformance(**CONF_CAPS)
-    vel, lam, rows, _ = _pgs_inputs(config, _settled_stack(config, 2, 4),
-                                    False)
+    vel, lam, rows, _ = _pgs_inputs(config, _settled_stack(config, 2),
+                                    True)
     params = solver.pgs_params(config)
     with pytest.raises(ValueError):            # two devices
         pgs_kernel.pgs_solve(vel, lam.cpu(), rows, **params)
     with pytest.raises(TypeError):
         pgs_kernel.pgs_solve(vel.half(), lam, rows, **params)
-    big = torch.zeros((2, pgs_kernel.max_slots(torch.float32) + 1, 6),
-                      device="cuda")
-    with pytest.raises(ValueError):
-        pgs_kernel.pgs_solve(big, lam, rows, **params)
+    # a world past max_slots is no longer refused: its velocities stay in
+    # device memory, and the kernel is the plain loop's there too
+    wide, wrows = _past_the_most_slots(
+        vel, rows, pgs_kernel.max_slots(torch.float32) + 1)
+    _kernel_against_plain((wide, lam, wrows, None), config, "float32",
+                          what="max_slots + 1")
+
+
+def _past_the_most_slots(vel, rows, n):
+    """Worlds of ``n`` slots holding ``vel``'s bodies in their last
+    slots, the rows' bodies moved with them."""
+    m = vel.shape[1]
+    wide = torch.zeros((vel.shape[0], n, 6), dtype=vel.dtype, device="cuda")
+    wide[:, n - m:] = vel
+    return wide, dict(rows, a=rows["a"] + (n - m), b=rows["b"] + (n - m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,slots", [("float32", "max_slots + 1"),
+                                         ("float64", "max_slots + 1"),
+                                         ("float64", 1448)])
+def test_pgs_kernel_past_the_most_slots_on_card(dtype, slots):
+    """Worlds past ``max_slots`` (their velocities worked on in place in
+    device memory), up to 1,448 slots in float64 at K = 8, the largest
+    world that ``validate()`` admits: the kernel is the plain loop's, the
+    rows of the settled mini stack in the worlds' last 12 slots."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    from rl_ode_physics_tpu_torch.ops import pgs_kernel
+    config = EngineConfig.conformance(**CONF_CAPS, dtype=dtype)
+    vel, lam, rows, _ = _pgs_inputs(config, _settled_stack(config, 2), True)
+    n = (pgs_kernel.max_slots(vel.dtype) + 1 if slots == "max_slots + 1"
+         else slots)
+    assert n > pgs_kernel.max_slots(vel.dtype)
+    if slots == 1448:          # the largest world validate() admits, K = 8
+        EngineConfig.conformance(**dict(CONF_CAPS, max_bodies=n),
+                                 dtype=dtype)
+        with pytest.raises(ValueError):
+            EngineConfig.conformance(**dict(CONF_CAPS, max_bodies=n + 1),
+                                     dtype=dtype)
+    wide, wrows = _past_the_most_slots(vel, rows, n)
+    _kernel_against_plain((wide, lam, wrows, None), config, dtype,
+                          what=f"{n} slots")
 
 
 @pytest.mark.cuda
@@ -1370,24 +1544,32 @@ def test_new_shape_captures_anew_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["PGS", "DANTZIG"])
 def test_pgs_and_dantzig_step_functions_run_eager_on_card(solver):
-    """PGS's step functions replay graphs (its sweeps are one kernel that
-    reads nothing on the host), bitwise their eager loop; DANTZIG's run
-    eagerly (a host read a pivot round)."""
+    """PGS's and DANTZIG's step functions replay graphs (the sweeps and the
+    pivot loop are each one kernel that reads nothing on the host),
+    bitwise their eager loop, with one kernel launch a substep. (The name
+    is the test's history: DANTZIG ran eagerly before its pivot loop was a
+    kernel.)"""
     _require_card()
     from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
     from rl_ode_physics_tpu_torch.core.world import make_step_fn
+    from rl_ode_physics_tpu_torch.ops import lcp_kernel, pgs_kernel
     config = EngineConfig(max_bodies=16, max_pair_candidates=64,
                           max_contacts=96, solver=SolverKind[solver])
-    graphed = solver == "PGS"
     for fn in (make_batched_step_fn(config, 2, device="cuda"),
                make_step_fn(config, 2)):
-        assert fn.graphed is graphed
-        assert ("host" in fn.eager_reason) is not graphed
+        assert fn.graphed and fn.eager_reason == ""
     batch = replicate(bench_world(config, num_bodies=10, device="cuda"), 4,
                       device="cuda")
+    kernel = (pgs_kernel.pgs_solve if solver == "PGS"
+              else lcp_kernel.lcp_pivot_solve)
     fn = make_batched_step_fn(config, 2, device="cuda")
-    _trees_equal(fn(batch), _eager(fn, batch), solver)
-    assert bool(fn.graphs.captures) is graphed
+    want = _eager(fn, batch)
+    before = kernel.launches
+    got = fn(batch)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 2
+    _trees_equal(got, want, solver)
+    assert fn.graphs.captures
 
 
 @pytest.mark.cuda
@@ -1482,19 +1664,29 @@ def test_graphed_shards_of_the_card_are_bitwise_eager():
 
 # last in the file: a capture that fails ends with its stream
 @pytest.mark.cuda
-def test_forced_capture_of_a_host_read_raises_on_card(monkeypatch):
-    """DANTZIG forced through the graphs: the capture raises on its host
-    read, and nothing falls back to the eager loop."""
+def test_forced_capture_of_a_host_read_raises_on_card():
+    """A ``graphs.Graphed`` body that reads the card from the host (an
+    ``.item()`` a call, as DANTZIG's plain pivot loop reads "every world
+    done" a round): the capture raises on the read, and nothing falls
+    back to the eager loop."""
     _require_card()
-    from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
     from rl_ode_physics_tpu_torch.utils import graphs
-    config = EngineConfig(max_bodies=16, max_pair_candidates=64,
-                          max_contacts=96, solver=SolverKind.DANTZIG)
-    monkeypatch.setattr(graphs, "capturable", lambda c, j=None: (True, ""))
-    fn = make_batched_step_fn(config, 2, device="cuda")
-    batch = replicate(bench_world(config, num_bodies=10, device="cuda"), 4,
-                      device="cuda")
+    calls = []
+
+    def body(carry, _):
+        calls.append(1)
+        step = carry + 1.0
+        if step.sum().item() > 0:          # the host read
+            step = step * 2.0
+        return step, None
+
+    fn = graphs.Graphed(body, device="cuda")
+    assert fn.graphed
+    x = torch.ones(8, device="cuda")
     with pytest.raises(RuntimeError):
-        fn(batch)
+        fn(x, None, 2)
     torch.cuda.synchronize()
     graphs.release_all()
+    # the warm-up ran the body eagerly once and the capture reached its
+    # read: no eager loop ran after the failure
+    assert len(calls) == 2

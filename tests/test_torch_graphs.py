@@ -308,9 +308,9 @@ def test_cache_is_bounded_and_frees_the_evicted(cpu_graphs, monkeypatch):
     ("JACOBI", False, True, None),
     ("JACOBI", True, True, None),
     ("PGS", False, True, None),
-    ("DANTZIG", False, False, "ops/lcp.py:153"),
+    ("DANTZIG", False, True, None),
     ("PGS", True, True, None),
-    ("DANTZIG", True, False, "ops/lcp.py:153"),
+    ("DANTZIG", True, True, None),
 ])
 def test_capturable(solver, joints, graphed, read):
     config = EngineConfig(solver=SolverKind[solver])

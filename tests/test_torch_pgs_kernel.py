@@ -323,11 +323,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         pgs_kernel.pgs_solve(vel.to("meta"), lam.to("meta"),
                              {k: v.to("meta") for k, v in rows.items()},
                              **PARAMS)
-    # a world's velocities must fit the block's shared memory
+    # a world past max_slots is taken: its velocities stay in device
+    # memory, and its share of shared memory holds none of them
     n = pgs_kernel.max_slots(torch.float32) + 1
-    big = torch.zeros((2, n, 6))
-    with pytest.raises(ValueError):
-        pgs_kernel.pgs_kernel_order(big, lam, rows, **PARAMS)
+    big = torch.zeros((vel.shape[0], n, 6))
+    big[:, :vel.shape[1]] = vel
+    want = solver.pgs_sweeps_plain(big, lam, rows, **PARAMS)
+    got = pgs_kernel.pgs_kernel_order(big, lam, rows, **PARAMS)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    c = rows["valid"].shape[1]
+    assert (pgs_kernel.launch_shape(torch.float32, n, c).shared_bytes
+            < pgs_kernel.launch_shape(torch.float32, n - 1, c).shared_bytes)
     assert pgs_kernel.max_slots(torch.float64) == 1024
 
 
