@@ -180,13 +180,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     equals bitwise.
 19b. ``lcp_pivot_solve`` against its plain version (``ops/lcp.py:
     _pivot_solve``) on the card: dantzig-1024's own (A, b, masks, μ), the
-    same under μ = 0.4 (boxed rows), the ridge path's, and 16 synthetic
-    worlds of 96 contacts (``testing/lcp_systems``), all 288 rows valid
-    in half of them (the kernel's device-memory branch); float64: λ
-    within 1e-10 of max |λ| and every world's rounds equal; float32: A·λ
-    within 1e-5 of its largest. The kernel, the plain version and the
-    bound (``utils/bounds.lcp_pivot_bound``) timed on each but the μ =
-    0.4 case; the launch's shape, registers and spills.
+    same under μ = 0.4 (boxed rows), the ridge path's, the capsule pile's
+    (one world settled 60 substeps, graphed, in 1,024 worlds: ~42 valid
+    rows, past the float64 stage), 16 synthetic worlds of 96 contacts
+    (``testing/lcp_systems``), all 288 rows valid in half of them (the
+    large tier's blocked elimination), and a world at each tier boundary
+    (``lcp_kernel.boundary_counts``); float64: λ within 1e-10 of max |λ|
+    and every world's rounds equal; float32: A·λ within 1e-5 of its
+    largest; every world in the tier of its valid count. The kernel, the
+    plain version, the bound and the chain floor
+    (``utils/bounds.lcp_pivot_bound``) timed on each but the μ = 0.4
+    case, the 1,024-world cases' first 132 worlds alone too (one an SM);
+    the launch's shape, its launches a solve, the worlds each tier took,
+    each tier kernel's registers and spills.
 20. the hinge chain (``hinge_chain_scene``: a motorized, limited hinge and
     a ball joint): card against CPU under the referee's PGS and DANTZIG in
     float64 (atol 1e-9) and under ``core.config.hinge_chain_config`` (the
@@ -429,6 +435,9 @@ DANTZIG_RIDGE_SUBSTEPS = 4
 LCP_F64_RTOL = 1e-10
 LCP_F32_RTOL = 1e-5
 LCP_SYNTH_SEED, LCP_SYNTH_WORLDS = 11, 16
+# the capsule pile's settling substeps on the card (14 contacts, 42 valid
+# rows a world, past the float64 stage, from substep 40 on)
+LCP_PILE_SETTLE = 60
 # the hinge chain: CPU settling, the throughput path's 144 substeps (the
 # horizon its capacities were sized over), PGS float64 at 1,024 worlds
 HINGE_SETTLE = 40
@@ -479,8 +488,9 @@ MINIMAL_CLIENT_SECONDS = 8
 # the measurement tools (phase 26): capacity_audit's seeds and substeps,
 # tpu_default_conformance's steps, profile_step's (worlds, substeps) and
 # table rows, solver_iter's, teapot_bench's and rl_rollout_bench's worlds,
-# phase_timings' settling substeps
-TOOL_AUDIT_SEEDS = (42, 7)
+# phase_timings' settling substeps; the audit's second seed (7) was cut
+# to pay for phase 19b's capsule pile and tier boundaries
+TOOL_AUDIT_SEEDS = (42,)
 TOOL_AUDIT_SUBSTEPS = 96
 TOOL_CONFORMANCE_STEPS = 200
 TOOL_PROFILE = (2048, 8)
@@ -2385,42 +2395,79 @@ def phase_dantzig(card, stack, ridge):
             {"dantzig": batch, "ridge": (rbatch, mesh)})
 
 
+def _capsule_pile_args():
+    """The pivot kernel's arguments on the capsule pile: ``capsule_pile_
+    world`` under ``referee_dantzig_config()``, one world settled
+    ``LCP_PILE_SETTLE`` substeps on the card (graphed), then replicated to
+    ``CONF_WORLDS`` worlds; one more substep's arguments caught on an eager
+    run, which the graphed run equals bitwise."""
+    from rl_ode_physics_tpu_torch.models import scenes
+    from rl_ode_physics_tpu_torch.ops import lcp_kernel
+    from rl_ode_physics_tpu_torch.parallel.batch import (
+        make_batched_step_fn, replicate)
+    config = referee_dantzig_config()
+    world = scenes.capsule_pile_world(config, device="cuda")
+    settle = make_batched_step_fn(config, substeps=LCP_PILE_SETTLE,
+                                  device="cuda")
+    if not settle.graphed:
+        raise AssertionError(f"capsule pile eager: {settle.eager_reason}")
+    world = settle(world)
+    if int(world.overflow.sum()) != 0:
+        raise AssertionError("capsule pile: overflow while settling")
+    batch = replicate(world, CONF_WORLDS, device="cuda")
+    one = make_batched_step_fn(config, substeps=1, device="cuda")
+    _, args = _caught_last(lcp_kernel, "lcp_pivot_solve", lambda: one(batch),
+                           "capsule pile", 1)
+    return args
+
+
 def phase_lcp_kernel(card, dantzig_args):
     """``lcp_pivot_solve`` against its plain version, ``lcp._pivot_solve``,
     on the card: on dantzig-1024's own (A, b, masks, μ) of one substep,
-    the same under μ = 0.4 (boxed rows), the ridge path's, and synthetic
-    worlds of 96 contacts (``testing/lcp_systems``) with all 288 rows valid
-    in half of them, more than the kernel stages (its device-memory
-    branch), 10 contacts in the others. Float64: λ within ``LCP_F64_RTOL``
-    of max |λ| and each world's rounds equal; float32: the velocity change
-    in constraint space, A·λ, within ``LCP_F32_RTOL`` of its largest
-    (ROADMAP's float32 trap). The kernel and the plain version timed on
-    each (the plain version not under μ = 0.4, where its rounds may run
-    long), beside the bound (``utils/bounds.lcp_pivot_bound``); the
-    launch's shape and the built kernel's registers and spills. Returns
-    the kernels line's entry. Also the device memory that one dantzig-1024
-    solve takes above its inputs, of the kernel and of the plain version."""
+    the same under μ = 0.4 (boxed rows), the ridge path's, the capsule
+    pile's (``_capsule_pile_args``: ~42 valid rows a world, past the
+    float64 stage), 16 synthetic worlds of 96 contacts
+    (``testing/lcp_systems``) with all 288 rows valid in half of them and
+    10 contacts in the others, and one synthetic world at each tier
+    boundary of the dtype (``lcp_kernel.boundary_counts``). Float64: λ
+    within ``LCP_F64_RTOL`` of max |λ| and each world's rounds equal;
+    float32: the velocity change in constraint space, A·λ, within
+    ``LCP_F32_RTOL`` of its largest (ROADMAP's float32 trap); each world
+    taken by the tier of its valid count (the kernel's counters). The
+    kernel and the plain version timed on each but the μ = 0.4 case
+    (where the plain version's rounds may run long), beside the bound and
+    the chain floor (``utils/bounds.lcp_pivot_bound``); the launch's
+    shape, its launches a solve and each tier kernel's registers and
+    spills. Returns the kernels line's entry. Also the device memory that
+    one dantzig-1024 solve takes above its inputs, of the kernel and of the
+    plain version."""
     import numpy as np
     import torch
     from rl_ode_physics_tpu_torch.ops import lcp, lcp_kernel
     from rl_ode_physics_tpu_torch.testing.lcp_systems import (
-        random_contact_lcp)
+        random_contact_lcp, tier_boundary_lcp)
     from rl_ode_physics_tpu_torch.utils.bounds import lcp_pivot_bound
     from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
 
     a_mat, b, valid, is_normal, friction, mu = dantzig_args["dantzig-1024"]
     ridge = dantzig_args["ridge"]
+    pile = _capsule_pile_args()
     synth = random_contact_lcp(LCP_SYNTH_SEED, worlds=LCP_SYNTH_WORLDS,
                                contacts=96, bodies=128, live=1.0)
     synth[2][1::2] = np.tile(np.arange(96) < 10, 3)
-    synth = [None if x is None else torch.from_numpy(x).to("cuda")
-             for x in synth]
+
+    def on_card(system):
+        return tuple(None if x is None else torch.from_numpy(x).to("cuda")
+                     for x in system)
+
     cases = {"dantzig-1024": (a_mat, b, valid, is_normal, mu),
              "dantzig-1024, mu 0.4": (a_mat, b, valid, is_normal,
                                       torch.full_like(mu, 0.4)),
              "ridge": ridge[:4] + (ridge[5],),
-             "synthetic, 288 rows valid": tuple(synth)}
-    timed = ("dantzig-1024", "ridge", "synthetic, 288 rows valid")
+             "capsule pile": pile[:4] + (pile[5],),
+             "synthetic, 288 rows valid": on_card(synth)}
+    timed = ("dantzig-1024", "ridge", "capsule pile",
+             "synthetic, 288 rows valid", "tier boundaries")
 
     def held(system, f, label):
         a, bb, v, n, m = system
@@ -2430,6 +2477,19 @@ def phase_lcp_kernel(card, dantzig_args):
         lam, rounds = lcp_kernel.lcp_pivot_solve(a, bb, v, n, friction, m)
         if lcp_kernel.lcp_pivot_solve.launches != before + 1:
             raise AssertionError(f"lcp_pivot_solve {label}: not one launch")
+        # the tiers from a second launch's counters, which must give the
+        # same bits
+        again, _, counters = lcp_kernel.launch(a, bb, v, n, friction, m)
+        if not torch.equal(again, lam):
+            raise AssertionError(f"lcp_pivot_solve {label}: two launches "
+                                 f"differ")
+        counts = v.sum(1).tolist()
+        tiers = lcp_kernel.tier_counts(len(counts), counters)
+        want_tiers = {t: sum(lcp_kernel.tier_of(f, v.shape[1], c) == t
+                             for c in counts) for t in lcp_kernel.TIERS}
+        if {t: tiers[t] for t in lcp_kernel.TIERS} != want_tiers:
+            raise AssertionError(f"lcp_pivot_solve {label} ({f}): tiers "
+                                 f"{tiers}, by the valid counts {want_tiers}")
         want, want_rounds = lcp._pivot_solve(a, bb, v, n, friction, m)
         torch.cuda.synchronize()
         if not bool((lam[~v] == 0).all()):
@@ -2455,12 +2515,14 @@ def phase_lcp_kernel(card, dantzig_args):
         return dict(max_abs_err=float((lam - want).abs().max()),
                     rel_err=rel, max_abs_lam=scale,
                     rounds=[int(rounds.min()), int(rounds.max())],
-                    valid_rows=[int(v.sum(1).min()), int(v.sum(1).max())],
+                    valid_rows=[min(counts), max(counts)], tiers=tiers,
                     shape=list(v.shape)), (a, bb, v, n, m), rounds
 
     out = {}
     for f in (torch.float64, torch.float32):
         name = "float64" if f == torch.float64 else "float32"
+        bounds = lcp_kernel.boundary_counts(f, 288)
+        cases["tier boundaries"] = on_card(tier_boundary_lcp(bounds))
         records = {}
         for label, system in cases.items():
             rec, (a, bb, v, n, m), rounds = held(system, f, label)
@@ -2470,8 +2532,16 @@ def phase_lcp_kernel(card, dantzig_args):
                 rec["plain_ms"] = cuda_ms(lambda: lcp._pivot_solve(
                     a, bb, v, n, friction, m), iters=2)
                 bound = lcp_pivot_bound(v, rounds, f, m is not None)
-                rec.update({k: bound[k] for k in ("bound_ms", "bound_by",
-                                                   "bytes_ms", "ops_ms")})
+                rec.update({k: bound[k] for k in (
+                    "bound_ms", "bound_by", "bytes_ms", "ops_ms",
+                    "chain_ms")})
+                if v.shape[0] >= 4 * lcp_kernel.SMS:
+                    # one world an SM: a world's own latency
+                    sub = [None if x is None else x[:lcp_kernel.SMS]
+                           .contiguous() for x in (a, bb, v, n, m)]
+                    rec["ms_one_world_an_sm"] = cuda_ms(
+                        lambda: lcp_kernel.lcp_pivot_solve(
+                            *sub[:4], friction, sub[4]), iters=5)
             records[label] = rec
             del a, bb, v, n, m
         shape = lcp_kernel.launch_shape(f, valid.shape[0], valid.shape[1])
@@ -2494,32 +2564,46 @@ def phase_lcp_kernel(card, dantzig_args):
             ms=path["ms"], plain_ms=path["plain_ms"],
             bound_ms=path["bound_ms"], bound_by=path["bound_by"],
             bytes_ms=path["bytes_ms"], ops_ms=path["ops_ms"],
-            library_ms=None, cases=records, staged_rows=shape.cap,
-            shared_bytes=shape.shared_bytes, pool_worlds=shape.pool_worlds,
-            slot_bytes=shape.slot_bytes, registers=res["registers"],
-            local_bytes=res["local_bytes"], peak_mb=path["peak_mb"],
-            plain_peak_mb=path["plain_peak_mb"])
+            chain_ms=path["chain_ms"], library_ms=None, cases=records,
+            launch_shape=shape._asdict(), launches_a_solve=shape.launches,
+            registers=res["staged"]["registers"],
+            local_bytes=res["staged"]["local_bytes"], resources=res,
+            peak_mb=path["peak_mb"], plain_peak_mb=path["plain_peak_mb"])
         for label, r in records.items():
             times = ("" if "ms" not in r else
                      f" kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.3f}"
                      f" bound_ms={r['bound_ms']:.6f} ({r['bound_by']}; bytes"
-                     f" {r['bytes_ms']:.6f}, operations {r['ops_ms']:.6f})")
+                     f" {r['bytes_ms']:.6f}, operations {r['ops_ms']:.6f})"
+                     f" chain_ms={r['chain_ms']:.6f}"
+                     + ("" if "ms_one_world_an_sm" not in r else
+                        f"; the first {lcp_kernel.SMS} worlds alone (one an"
+                        f" SM) {r['ms_one_world_an_sm']:.5f} ms"))
             held_on = ("λ, the same rounds a world" if f == torch.float64
                        else "A·λ")
             log(f"lcp_pivot_solve {name}, {label} (B={r['shape'][0]} "
                 f"worlds, R={r['shape'][1]} rows, {r['valid_rows'][0]}-"
                 f"{r['valid_rows'][1]} valid a world, rounds "
-                f"{r['rounds'][0]}-{r['rounds'][1]}): {r['rel_err']:.3e} of "
-                f"the plain version's scale ({held_on}), max abs err "
-                f"{r['max_abs_err']:.3e};{times} on {card}")
-        log(f"lcp_pivot_solve {name}: up to {shape.cap} valid rows staged in "
-            f"{shape.shared_bytes} shared bytes a block, {shape.pool_worlds} "
-            f"device-memory slots of {shape.slot_bytes} bytes for the worlds "
-            f"past them; {res['registers']} registers a thread, "
-            f"{res['local_bytes']} local bytes (spills); a dantzig-1024 solve "
-            f"takes {path['peak_mb']:.1f} MB of device memory above its "
-            f"inputs, the plain version {path['plain_peak_mb']:.1f} MB; "
-            f"library_ms=null (no one PyTorch call runs the pivot loop)")
+                f"{r['rounds'][0]}-{r['rounds'][1]}; worlds by tier "
+                f"{r['tiers']}): {r['rel_err']:.3e} of the plain version's "
+                f"scale ({held_on}), max abs err {r['max_abs_err']:.3e};"
+                f"{times} on {card}")
+        tiers = ", ".join(f"{t} {v['registers']} registers and "
+                          f"{v['local_bytes']} local bytes"
+                          for t, v in res.items())
+        log(f"lcp_pivot_solve {name}: {shape.launches} launches a solve at "
+            f"R={valid.shape[1]} (the counters' memset and the staged, "
+            f"medium and large tiers' kernels); staged up to "
+            f"{shape.staged_rows} valid rows in {shape.staged_bytes} shared "
+            f"bytes a block, medium up to {shape.medium_rows} in "
+            f"{shape.medium_bytes} ({shape.medium_blocks} blocks), large "
+            f"{shape.large_blocks} blocks of {shape.large_bytes} bytes, "
+            f"active blocks of up to {shape.shared_rows} rows in shared "
+            f"memory, slots of {shape.slot_bytes} bytes for the blocked "
+            f"elimination; tier boundaries {bounds}; {tiers}; a "
+            f"dantzig-1024 solve takes {path['peak_mb']:.1f} MB of device "
+            f"memory above its inputs, the plain version "
+            f"{path['plain_peak_mb']:.1f} MB; library_ms=null (no one "
+            f"PyTorch call runs the pivot loop)")
     entry = dict(name="lcp_pivot_solve", route="cuda",
                  source="rl_ode_physics_tpu_torch/csrc/lcp_pivot.cu",
                  replaces="rl_ode_physics_tpu/ops/lcp.py:206",

@@ -1,33 +1,36 @@
 """DANTZIG's pivot loop on the card: the hand-written Hopper kernel.
 
 ``csrc/lcp_pivot.cu`` runs the whole Murty principal block pivoting of
-every world's contact LCP, boxed friction rows included, in one launch a
-solve: the warm guess, each world's rounds to its own fixed point or to
-``MAX_PIVOT_ROUNDS``, the final solve and the projection. It replaces no
-Pallas kernel: it is the port's form of the JAX package's
+every world's contact LCP, boxed friction rows included, in a fixed number
+of launches a solve: the warm guess, each world's rounds to its own fixed
+point or to ``MAX_PIVOT_ROUNDS``, the final solve and the projection. It
+replaces no Pallas kernel: it is the port's form of the JAX package's
 ``lax.while_loop`` over pivot rounds (``rl_ode_physics_tpu/ops/lcp.py:206``),
 which runs under ``jit`` and ``vmap`` on the device. It is built with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
 first use and loaded with ``ctypes`` (``ops/kernel_build.py``).
 
-``lcp_pivot_solve`` launches the kernel for CUDA tensors, float32 or
+``lcp_pivot_solve`` launches the kernels for CUDA tensors, float32 or
 float64. For CPU tensors, and only for those, it runs the kernel's plain
 version, ``ops/lcp.py:_pivot_solve``, the batched Python loop with a host
-read a round. ``lcp_pivot_solve.launches`` counts the kernel's launches.
-The wrapper checks its inputs, allocates the outputs (λ, each world's
-rounds) and the slower branch's pool, and reads nothing back to the host,
-so a CUDA graph can hold the launch.
+read a round. ``lcp_pivot_solve.launches`` counts its calls on the card,
+one a solve. The wrapper checks its inputs, allocates the outputs (λ, each
+world's rounds) and the kernels' work space, and reads nothing back to the
+host, so a CUDA graph can hold the solve.
 
-The kernel solves only each world's active rows: an inactive or invalid
+The kernels solve only each world's active rows: an inactive or invalid
 row of the plain version's masked matrix is the identity's, and so is its
-column, so the active block's solve gives the same λ. A world stages its
-valid rows' block of A in shared memory where it has at most
-``STAGED_ROWS`` of them; a world with more works in one of ``POOL_WORLDS``
-slots of device memory (``launch_shape``). What bounds it: each world's
-dependent chain of pivot steps; its bytes (each world's valid block of A,
-b, μ and flags in, λ and rounds out) and operations are a few
-microseconds of the card's rates at dantzig-1024's shapes
-(``utils/bounds.lcp_pivot_bound``).
+column, so the active block's solve gives the same λ. A world's tier comes
+from its valid count V, counted on the card (``tier_of``): up to
+``STAGED_ROWS`` (32) a warp a world, a thread a valid row, its entries of
+the active block in registers; up to ``MEDIUM_ROWS`` (64) the same on two
+warps, persistent blocks that take the worlds past the stage from a
+worklist; past that persistent blocks of 256 threads with the 227 KB
+opt-in, the active block in shared memory up to ``shared_rows`` rows and
+in a slot of device memory past them (a blocked elimination).
+``launch_shape`` sizes all of it from the shapes alone. What bounds it: each world's chain of pivot steps; its bytes and
+operations are a few microseconds of the card's rates at dantzig-1024's
+shapes (``utils/bounds.lcp_pivot_bound``).
 """
 
 from __future__ import annotations
@@ -42,18 +45,31 @@ from rl_ode_physics_tpu_torch.ops import kernel_build
 
 _LAUNCHERS = {torch.float32: "lcp_pivot_launch",
               torch.float64: "lcp_pivot_launch_f64"}
-# the valid rows a world stages in shared memory: its work space then
-# stays under 48 KB a block (``world_bytes``)
-STAGED_ROWS = {torch.float32: 64, torch.float64: 48}
-# device-memory slots of the worlds past STAGED_ROWS: at most this many
-# are solved at once
-POOL_WORLDS = 32
+# the register tiers' most valid rows: a thread a row, its entries of the
+# active block in registers; a warp a world (staged), two warps (medium)
+STAGED_ROWS = 32
+MEDIUM_ROWS = 64
+# the medium tier's persistent blocks an SM (at least as many as fit)
+MEDIUM_BLOCKS_PER_SM = 8
+# the H100 SXM's SMs: the worklist tiers' persistent blocks are sized by it
+SMS = 132
+# a block's dynamic shared memory with the opt-in, and an SM's
+MAX_SHARED = 232448
+SM_SHARED = 233472
+# the blocked elimination's panel columns and the trailing update's column
+# tile; csrc/lcp_pivot.cu's kScratch, kCounters
+PANEL = 32
+TILE = 64
+_SCRATCH = 64
+_COUNTERS = 8
+TIERS = ("staged", "medium", "large")
 
 # the library's C interface: function → argtypes
 FUNCTIONS = {
-    name: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    name: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     for name in _LAUNCHERS.values()}
-FUNCTIONS["lcp_pivot_resources"] = [ctypes.c_int,
+FUNCTIONS["lcp_pivot_resources"] = [ctypes.c_int, ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int)]
 
 
@@ -68,45 +84,122 @@ def _library() -> ctypes.CDLL:
     return kernel_build.load(build(), FUNCTIONS)
 
 
-def world_bytes(dtype: torch.dtype, cap: int, staged: bool) -> int:
-    """A world's work space for up to ``cap`` rows (``csrc/lcp_pivot.cu:
-    world_bytes``): the active block's matrix at an odd row stride, with
-    ``staged`` the copy of A's valid block too, 6 vectors of ``dtype``,
-    3 of ints and 3 of bytes, rounded up to 16 bytes."""
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def work_bytes(dtype: torch.dtype, cap: int, region: int) -> int:
+    """A large-tier block's work space (``csrc/lcp_pivot.cu:work_bytes``):
+    ``region`` elements of ``dtype`` for the elimination, 8 vectors of
+    ``cap`` rows and 64 scratch elements, 7 vectors of ints and 64 scratch
+    ints, 3 of bytes, each part rounded up to 16 bytes."""
     size = torch.empty((), dtype=dtype).element_size()
-    mat = cap * (cap | 1)
-    total = size * ((2 if staged else 1) * mat + 6 * cap) + 4 * 3 * cap \
-        + 3 * cap
-    return -(-total // 16) * 16
+    elems = region + 8 * cap + _SCRATCH
+    return (_align16(elems * size) + _align16((7 * cap + _SCRATCH) * 4)
+            + _align16(3 * cap))
+
+
+def register_bytes(dtype: torch.dtype, warps: int) -> int:
+    """A register tier's block's static shared memory
+    (``csrc/lcp_pivot.cu:RegShared``), near enough: A's valid block at row
+    stride rows + 1, 3 vectors and the pivot row, each warp's maxima, keys
+    and flags, the valid rows, the active rows, the pivot threads."""
+    size = torch.empty((), dtype=dtype).element_size()
+    rows = 32 * warps
+    return (size * (rows * (rows + 1) + 3 * rows + 1 + 2 * warps)
+            + 20 * warps + 12 * rows + 8)
+
+
+def _square(m: int) -> int:
+    """The elements of an m × (m + 1) augmented matrix at an odd row
+    stride."""
+    return m * ((m + 1) | 1)
 
 
 class LaunchShape(NamedTuple):
-    cap: int               # the most valid rows a world stages
-    shared_bytes: int      # a block's dynamic shared memory
-    pool_worlds: int       # device-memory slots (0: every world fits)
-    slot_bytes: int        # one slot's bytes
+    staged_rows: int       # the staged tier's most valid rows (cap_s)
+    staged_bytes: int      # its block's (static) shared memory
+    medium_rows: int       # the medium tier's most valid rows (0: none)
+    medium_blocks: int     # its persistent blocks
+    medium_bytes: int      # its block's (static) shared memory
+    large_blocks: int      # the large tier's persistent blocks (0: none)
+    large_bytes: int
+    large_region: int      # elements of its elimination's region
+    shared_rows: int       # the most active rows it eliminates in shared
+    slot_bytes: int        # a large block's device-memory slot (0: none)
+    launches: int          # kernel launches a solve, the memset included
 
 
 def launch_shape(dtype: torch.dtype, num_worlds: int, rows: int
                  ) -> LaunchShape:
-    """The launch for ``num_worlds`` worlds of R = ``rows`` rows, from the
-    shapes alone: nothing is read on the host."""
-    cap = min(rows, STAGED_ROWS[dtype])
-    pool = min(num_worlds, POOL_WORLDS) if rows > cap else 0
-    return LaunchShape(cap, world_bytes(dtype, cap, True), pool,
-                       world_bytes(dtype, rows, False) if pool else 0)
+    """The launches for ``num_worlds`` worlds of R = ``rows`` rows, from
+    the shapes alone: nothing is read on the host. Raises where R is more
+    than the large tier's blocked elimination holds (its panel of R rows
+    in shared memory: R > 597 in float64, 1,146 in float32)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    cap_s = min(rows, STAGED_ROWS)
+    staged = register_bytes(dtype, 1)
+    if rows <= cap_s:
+        return LaunchShape(cap_s, staged, 0, 0, 0, 0, 0, 0, 0, 0, 1)
+    cap_m = min(rows, MEDIUM_ROWS)
+    medium = (cap_m, min(num_worlds, MEDIUM_BLOCKS_PER_SM * SMS),
+              register_bytes(dtype, 2))
+    if rows <= cap_m:
+        return LaunchShape(cap_s, staged, *medium, 0, 0, 0, 0, 0, 3)
+    region = (MAX_SHARED - work_bytes(dtype, rows, 0)) // size
+    while region > 0 and work_bytes(dtype, rows, region) > MAX_SHARED:
+        region -= 1
+    nm = min(rows, int((region + 0.25) ** 0.5))
+    while nm > 0 and _square(nm) > region:
+        nm -= 1
+    while nm < rows and _square(nm + 1) <= region:
+        nm += 1
+    if nm < 1 or (nm < rows and (
+            nm < PANEL or rows * (PANEL + 1) + PANEL * TILE > region)):
+        raise ValueError(f"R = {rows} rows in {dtype}: more than the pivot "
+                         f"kernel's blocked elimination holds")
+    slot = rows * (rows + 1) * size if nm < rows else 0
+    return LaunchShape(cap_s, staged, *medium, min(num_worlds, SMS),
+                       work_bytes(dtype, rows, region), region, nm, slot,
+                       4)
+
+
+def tier_of(dtype: torch.dtype, rows: int, valid_count: int) -> str:
+    """The tier that takes a world of ``valid_count`` valid rows of R =
+    ``rows``: "staged", "medium" or "large"."""
+    if valid_count <= min(rows, STAGED_ROWS):
+        return "staged"
+    return "medium" if valid_count <= MEDIUM_ROWS else "large"
+
+
+def boundary_counts(dtype: torch.dtype, rows: int) -> list:
+    """The valid counts at each tier boundary of R = ``rows``: the stage's
+    cap and one more, the medium tier's and one more, the large tier's
+    shared rows (the most active rows it eliminates in shared memory) less
+    and plus one, and every row valid."""
+    shape = launch_shape(dtype, 1, rows)
+    cuts = [shape.staged_rows, shape.staged_rows + 1, shape.medium_rows,
+            shape.medium_rows + 1, shape.shared_rows - 1,
+            shape.shared_rows + 1, rows]
+    return sorted({v for v in cuts if 1 <= v <= rows})
 
 
 def resources(dtype: torch.dtype) -> dict:
-    """What the card says of the built kernel of ``dtype``: registers a
-    thread, local bytes a thread (spills), the most threads a block and
-    the dynamic shared memory it may take."""
-    out = (ctypes.c_int * 4)()
-    err = _library().lcp_pivot_resources(int(dtype == torch.float64), out)
-    if err != 0:
-        raise RuntimeError(f"lcp_pivot resources: CUDA error {err}")
-    return dict(registers=out[0], local_bytes=out[1],
-                max_threads=out[2], max_dynamic_shared=out[3])
+    """What the card says of each tier's built kernel of ``dtype``:
+    registers a thread, local bytes a thread (spills), the most threads a
+    block, the dynamic shared memory it may take and its static shared
+    memory."""
+    out = {}
+    for which, tier in enumerate(TIERS):
+        res = (ctypes.c_int * 5)()
+        err = _library().lcp_pivot_resources(int(dtype == torch.float64),
+                                             which, res)
+        if err != 0:
+            raise RuntimeError(f"lcp_pivot resources: CUDA error {err}")
+        out[tier] = dict(registers=res[0], local_bytes=res[1],
+                         max_threads=res[2], max_dynamic_shared=res[3],
+                         static_shared=res[4])
+    return out
 
 
 def _check(a_mat, b, valid, is_normal, mu_row):
@@ -144,9 +237,10 @@ def _check(a_mat, b, valid, is_normal, mu_row):
 
 
 def launch(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
-    """One launch of the kernel on checked CUDA tensors, on the current
-    stream of their card: (λ (B, R), rounds (B,) int32), new tensors.
-    Counted in ``lcp_pivot_solve.launches``."""
+    """The kernels of one solve on checked CUDA tensors, on the current
+    stream of their card: (λ (B, R), rounds (B,) int32, the worklists'
+    counters (``tier_counts``) or None where no world can pass the stage),
+    new tensors. Counted once in ``lcp_pivot_solve.launches``."""
     bsz, r = b.shape
     f = a_mat.dtype
     shape = launch_shape(f, bsz, r)
@@ -156,12 +250,14 @@ def launch(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
     mu = None if mu_row is None else mu_row.to(f).contiguous()
     lam = torch.empty((bsz, r), dtype=f, device=dev)
     rounds = torch.empty((bsz,), dtype=torch.int32, device=dev)
-    pool = locks = None
-    if shape.pool_worlds:
-        pool = torch.empty((shape.pool_worlds * shape.slot_bytes,),
-                           dtype=torch.uint8, device=dev)
-        locks = torch.zeros((shape.pool_worlds,), dtype=torch.int32,
-                            device=dev)
+    counters = lists = slots = None
+    if shape.medium_rows:
+        work = torch.empty((_COUNTERS + 2 * bsz,), dtype=torch.int32,
+                           device=dev)
+        counters, lists = work[:_COUNTERS], work[_COUNTERS:]
+    if shape.slot_bytes:
+        slots = torch.empty((shape.large_blocks * shape.slot_bytes,),
+                            dtype=torch.uint8, device=dev)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -170,13 +266,27 @@ def launch(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(a_mat), ptr(b), ptr(valid), ptr(is_normal), ptr(mu),
-                 ptr(lam), ptr(rounds), ptr(pool), ptr(locks), bsz, r,
-                 shape.cap, shape.pool_worlds, int(bool(friction)), stream)
+                 ptr(lam), ptr(rounds), ptr(counters), ptr(lists),
+                 ptr(slots), bsz, r, shape.staged_rows, shape.medium_rows,
+                 shape.medium_blocks, shape.large_blocks, shape.large_region,
+                 shape.shared_rows, int(bool(friction)), stream)
     if err != 0:
         raise RuntimeError(f"lcp_pivot kernel launch failed: CUDA error "
                            f"{err}")
     lcp_pivot_solve.launches += 1
-    return lam, rounds
+    return lam, rounds, counters
+
+
+def tier_counts(num_worlds: int, counters) -> dict:
+    """The worlds each tier took in a solve on the card, and the solves of
+    the large tier that took the blocked elimination, from the counters
+    ``launch`` returned (a host read); every world staged where the solve
+    needed no worklist (None)."""
+    if counters is None:
+        return dict(staged=num_worlds, medium=0, large=0, blocked_solves=0)
+    medium, _, large, _, blocked = (int(x) for x in counters[:5].tolist())
+    return dict(staged=num_worlds - medium - large, medium=medium,
+                large=large, blocked_solves=blocked)
 
 
 def lcp_pivot_solve(a_mat: torch.Tensor, b: torch.Tensor,
@@ -197,7 +307,7 @@ def lcp_pivot_solve(a_mat: torch.Tensor, b: torch.Tensor,
     if not a_mat.is_cuda:
         raise ValueError(f"tensors on {a_mat.device}: the kernel takes them "
                          f"on a card, the plain version on the CPU")
-    return launch(a_mat, b, valid, is_normal, friction, mu_row)
+    return launch(a_mat, b, valid, is_normal, friction, mu_row)[:2]
 
 
 lcp_pivot_solve.launches = 0

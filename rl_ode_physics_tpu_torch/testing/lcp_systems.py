@@ -6,8 +6,9 @@ random contacts between free bodies: one normal and two friction rows a
 contact, R = 3C rows ordered [normal | t1 | t2], A = J M⁻¹ Jᵀ + (cfm/dt)·I
 (symmetric positive definite), b = J v − target. With more bodies than
 contacts J has full rank, so every row may be valid and the system stays
-well conditioned: a world of all its rows valid is the kernel's
-device-memory branch (more valid rows than it stages).
+well conditioned: a world of all its rows valid is the kernel's large
+tier and its blocked elimination. ``tier_boundary_lcp`` gives one world at
+each of the kernel's tier boundaries.
 """
 
 from __future__ import annotations
@@ -55,3 +56,28 @@ def random_contact_lcp(seed: int, worlds: int = 4, contacts: int = 12,
     else:
         mu_row = np.full((worlds, c), float(mu))
     return a_out, b_out, valid, is_normal, mu_row
+
+
+def valid_of_count(count: int, contacts: int):
+    """(3 · contacts,) bool: ``count`` valid rows, whole contacts first
+    (their normal, t1 and t2 rows), then the next contact's normal row and
+    its t1 row."""
+    k, extra = divmod(count, 3)
+    valid = np.tile(np.arange(contacts) < k, 3)
+    if extra >= 1:
+        valid[k] = True
+    if extra == 2:
+        valid[contacts + k] = True
+    return valid
+
+
+def tier_boundary_lcp(counts, seed: int = 13, mu=None, contacts: int = 96):
+    """``random_contact_lcp`` of ``contacts`` contacts (R = 288 by default)
+    between 128 bodies, world i with ``counts[i]`` valid rows
+    (``valid_of_count``): e.g. ``ops/lcp_kernel.boundary_counts``."""
+    a_mat, b, valid, is_normal, mu_row = random_contact_lcp(
+        seed, worlds=len(counts), contacts=contacts, bodies=128, mu=mu,
+        live=1.0)
+    for w, count in enumerate(counts):
+        valid[w] = valid_of_count(count, contacts)
+    return a_mat, b, valid, is_normal, mu_row

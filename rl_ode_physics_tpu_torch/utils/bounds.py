@@ -154,6 +154,15 @@ def pgs_bound(valid, jlive, num_slots: int, iterations: int, dtype=None,
                 * 1e3, live_rows=live, live_joint_rows=jl)
 
 
+# csrc/lcp_pivot.cu's dependent operations of one pivot step (the
+# permutation's and the column's loads, |·| and compare, 5 levels of the
+# warp's argmax tree at a shuffle and a select each, the pivot's load, its
+# reciprocal, the multiplier, the update's FMA and store, the barrier) and
+# of one back-substitution step (a shuffle, a multiply, an FMA)
+LCP_CHAIN_PER_PIVOT_STEP = 20
+LCP_CHAIN_PER_BACK_STEP = 3
+
+
 def lcp_pivot_bound(valid, rounds, dtype=None, mu_given: bool = True
                     ) -> dict:
     """The least time of one ``lcp_pivot_solve`` launch on these worlds:
@@ -164,7 +173,10 @@ def lcp_pivot_bound(valid, rounds, dtype=None, mu_given: bool = True
     Operations: each world's rounds and final solve, each an elimination
     of its active block (2/3·n³) and two products of its V valid rows
     (4·V²), with every valid row taken as active (the bilateral friction
-    rows always are, and a resting stack's normal rows are)."""
+    rows always are, and a resting stack's normal rows are). ``chain_ms``,
+    not part of the bound: the longest world's chain, its solves × its
+    valid rows' pivot and back-substitution steps at
+    ``CYCLES_PER_DEPENDENT_OP`` cycles a dependent operation."""
     size, rate = _rates(dtype)
     b, r = valid.shape
     v = valid.sum(1).double()
@@ -173,9 +185,12 @@ def lcp_pivot_bound(valid, rounds, dtype=None, mu_given: bool = True
                + (float((v / 3).ceil().sum()) * size if mu_given else 0)
                + b * r * size + 4 * b)
     ops = float((solves * (2.0 / 3.0 * v ** 3 + 4 * v * v)).sum())
+    chain = float((solves * v).max()) * (LCP_CHAIN_PER_PIVOT_STEP
+                                         + LCP_CHAIN_PER_BACK_STEP)
     ops_ms = ops / rate * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
                 bytes_ms=bytes_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                valid_rows=int(v.sum()), rounds=int(rounds.sum()))
+                chain_ms=chain * CYCLES_PER_DEPENDENT_OP / BOOST_CLOCK_HZ
+                * 1e3, valid_rows=int(v.sum()), rounds=int(rounds.sum()))

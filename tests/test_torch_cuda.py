@@ -679,16 +679,19 @@ LCP_F64_RTOL = 1e-10
 LCP_F32_RTOL = 1e-5
 
 
-def _dantzig_systems(config, worlds=4):
-    """The LCPs of the next DANTZIG solve of ``mini_stack_world`` in
-    kicked worlds settled 40 substeps on the card: (A, b, valid,
-    is_normal, μ a contact)."""
+def _dantzig_systems(config, worlds=4, scene="mini_stack_world",
+                     substeps=40, kick=True):
+    """The LCPs of the next DANTZIG solve of ``scene`` (kicked worlds
+    with ``kick``) settled ``substeps`` substeps on the card: (A, b,
+    valid, is_normal, μ a contact)."""
     from rl_ode_physics_tpu_torch.models import scenes
     from rl_ode_physics_tpu_torch.ops import (
         broadphase, integrator, lcp, narrowphase)
-    world = scenes.mini_stack_world(config, device="cuda")
-    batch = make_batched_step_fn(config, 40, device="cuda")(
-        _kicked(replicate(world, worlds, device="cuda"), 3))
+    world = getattr(scenes, scene)(config, device="cuda")
+    batch = replicate(world, worlds, device="cuda")
+    if kick:
+        batch = _kicked(batch, 3)
+    batch = make_batched_step_fn(config, substeps, device="cuda")(batch)
     contacts = narrowphase.narrowphase(
         batch, broadphase.broadphase(batch, config), config)
     state = integrator.apply_external_forces(batch, config)
@@ -698,8 +701,8 @@ def _dantzig_systems(config, worlds=4):
 def _synthetic_systems():
     """Random contact LCPs of 96 contacts (R = 288) between 128 bodies
     (``testing/lcp_systems``), μ = ∞: worlds 0 and 3 with every row valid
-    (the kernel's device-memory branch), world 1 with 10 contacts (staged),
-    world 2 with 20 (past the float64 stage)."""
+    (the kernel's large tier, its blocked elimination), world 1 with 10
+    contacts (staged), world 2 with 20 (the medium tier)."""
     from rl_ode_physics_tpu_torch.testing.lcp_systems import (
         random_contact_lcp)
     a_mat, b, valid, is_normal, _ = random_contact_lcp(
@@ -723,9 +726,19 @@ def _lcp_kernel_against_plain(system, friction, dtype, what=""):
     lam, rounds = lcp_kernel.lcp_pivot_solve(a_mat, b, valid, is_normal,
                                              friction, mu)
     assert lcp_kernel.lcp_pivot_solve.launches == before + 1
+    lam_again, _, counters = lcp_kernel.launch(a_mat, b, valid, is_normal,
+                                               friction, mu)
+    assert torch.equal(lam_again, lam)
+    tiers = lcp_kernel.tier_counts(valid.shape[0], counters)
     want, want_rounds = lcp._pivot_solve(a_mat, b, valid, is_normal,
                                          friction, mu)
     torch.cuda.synchronize()
+    # each world in the tier of its valid count
+    counts = valid.sum(1).tolist()
+    for tier in lcp_kernel.TIERS:
+        expected = sum(lcp_kernel.tier_of(f, valid.shape[1], v) == tier
+                       for v in counts)
+        assert tiers[tier] == expected, (what, tiers, counts)
     assert lam.dtype == f and rounds.dtype == torch.int32
     assert bool((lam[~valid] == 0).all())
     assert float(want.abs().max()) > 0
@@ -743,23 +756,38 @@ def _lcp_kernel_against_plain(system, friction, dtype, what=""):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", ["stack", "stack_mu_finite",
-                                  "more_rows_than_staged"])
+                                  "more_rows_than_staged", "tier_boundaries",
+                                  "tier_boundaries_mu_finite",
+                                  "capsule_pile"])
 def test_lcp_pivot_kernel_matches_plain_on_card(case, dtype):
     """The referee's DANTZIG configuration's systems on the settled mini
-    stack (μ = ∞; μ = 0.4, boxed rows), and worlds of more valid rows than
-    the kernel stages, up to all 288 (its device-memory branch)."""
+    stack (μ = ∞; μ = 0.4, boxed rows) and on the capsule pile settled 60
+    substeps (past the float64 stage), worlds of more valid rows than the
+    kernel stages, up to all 288, and one world at each tier boundary of
+    the dtype (``lcp_kernel.boundary_counts``; μ = ∞ and 0.4)."""
     _require_card()
     from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
     from rl_ode_physics_tpu_torch.ops import lcp_kernel
+    from rl_ode_physics_tpu_torch.testing.lcp_systems import (
+        tier_boundary_lcp)
+    config = EngineConfig(**REFEREE_DANTZIG, solver=SolverKind.DANTZIG)
+    staged = lcp_kernel.STAGED_ROWS
     if case == "more_rows_than_staged":
         system = _synthetic_systems()
         count = system[2].sum(1)
         assert int(count.max()) == 288
-        staged = lcp_kernel.STAGED_ROWS
-        assert int((count > staged[torch.float64]).sum()) == 3
-        assert int((count > staged[torch.float32]).sum()) == 2
+        assert int((count > staged).sum()) == 3
+    elif case.startswith("tier_boundaries"):
+        counts = lcp_kernel.boundary_counts(getattr(torch, dtype), 288)
+        mu = 0.4 if case.endswith("mu_finite") else None
+        system = tuple(None if x is None else torch.from_numpy(x).to("cuda")
+                       for x in tier_boundary_lcp(counts, mu=mu))
+        assert system[2].sum(1).tolist() == counts
+    elif case == "capsule_pile":
+        system = _dantzig_systems(config, worlds=2, scene="capsule_pile_world",
+                                  substeps=60, kick=False)
+        assert int(system[2].sum(1).max()) > staged
     else:
-        config = EngineConfig(**REFEREE_DANTZIG, solver=SolverKind.DANTZIG)
         system = _dantzig_systems(config)
         assert int(system[2].sum(1).min()) >= 12
         if case == "stack_mu_finite":

@@ -11,15 +11,20 @@
   random valid, active and clamped rows, and on ``_build_lcp``'s systems of
   ``tests/test_lcp.py``'s states.
 * The kernel's algorithm, transcribed per world in numpy (``_kernel_model``:
-  the valid rows gathered, each round's active block eliminated with
-  partial pivoting, the pivots and the fixed-point test on local rows),
-  against the plain ``_pivot_solve`` in float64: λ within 1e-10 of max |λ|
-  and each world's rounds equal, at μ = ∞, a finite μ and per-contact μ.
+  the tier chosen from the valid count, the valid rows gathered, each
+  round's active block eliminated with partial pivoting and a reciprocal a
+  pivot, blocked past the large tier's shared rows, back substitution in
+  blocks of 32, the pivots and the fixed-point test on local rows), against
+  the plain ``_pivot_solve`` in float64: λ within 1e-10 of max |λ| and each
+  world's rounds equal, at μ = ∞, a finite μ and per-contact μ, at every
+  tier boundary and on the capsule pile's own system; the blocked
+  elimination bitwise the unblocked one.
 * The plain ``_pivot_solve`` returns each world's rounds, those the world
   takes alone.
 * ``lcp_pivot_solve`` on CPU tensors is the plain version, bit for bit, and
   counts no launch; it raises on what the kernel does not take; its launch
-  is sized from the shapes alone.
+  is sized from the shapes alone; the tiers follow the valid count; the
+  bound's chain floor.
 
 Inputs are made from numpy seeds. The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 19b).
@@ -36,7 +41,8 @@ import torch
 from rl_ode_physics_tpu.core.config import EngineConfig as JaxConfig
 from rl_ode_physics_tpu.ops import lcp as jax_lcp
 from rl_ode_physics_tpu_torch.ops import lcp, lcp_kernel
-from rl_ode_physics_tpu_torch.testing.lcp_systems import random_contact_lcp
+from rl_ode_physics_tpu_torch.testing.lcp_systems import (
+    random_contact_lcp, tier_boundary_lcp)
 
 from _torch_port import single_cpu_thread  # noqa: F401  (autouse)
 
@@ -130,40 +136,105 @@ def test_active_block_reduction_on_build_lcp_systems():
           f"max|λ|")
 
 
-def _gauss(m, x):
+def _eliminate(m):
     """Gaussian elimination with partial pivoting (the first largest
-    |pivot|) on x as it goes, then back substitution: the kernel's
-    ``gauss``."""
-    m, x = m.copy(), x.copy()
-    n = len(x)
+    |pivot|) of the augmented n × (n + 1) matrix ``m``, in place: a
+    reciprocal of the pivot a step, the multipliers f = m[i, k]·(1/pivot),
+    the rows exchanged whole (the kernel keeps a permutation instead). The
+    kernel's ``eliminate``. Returns the pivots' reciprocals."""
+    n = m.shape[0]
+    dinv = np.empty(n)
     for k in range(n):
         at = k + int(np.argmax(np.abs(m[k:, k])))
         if at != k:
-            m[[k, at], k:] = m[[at, k], k:]
-            x[[k, at]] = x[[at, k]]
-        f = m[k + 1:, k] / m[k, k]
+            m[[k, at]] = m[[at, k]]
+        dinv[k] = inv = 1.0 / m[k, k]
+        f = m[k + 1:, k] * inv
         m[k + 1:, k + 1:] -= np.outer(f, m[k, k + 1:])
-        x[k + 1:] -= f * x[k]
-    for k in range(n - 1, -1, -1):
-        x[k] = x[k] / m[k, k]
-        x[:k] -= m[:k, k] * x[k]
-    return x
+    return dinv
 
 
-def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None):
+def _eliminate_blocked(m, nm, panel=lcp_kernel.PANEL):
+    """The large tier's blocked right-looking elimination of ``m`` in
+    place while more than ``nm`` rows are left (``csrc/lcp_pivot.cu:
+    panel_step``): a panel of ``panel`` columns factored with its
+    multipliers kept, U12 by forward substitution, the trailing matrix
+    updated in the panel's column order; then the rest unblocked. Each
+    element takes the same operations in the same order as in
+    ``_eliminate``. Returns (the pivots' reciprocals, the panels)."""
+    n = m.shape[0]
+    dinv = np.empty(n)
+    p0 = 0
+    while n - p0 > nm:
+        e = p0 + panel
+        for k in range(p0, e):
+            at = k + int(np.argmax(np.abs(m[k:, k])))
+            if at != k:
+                m[[k, at]] = m[[at, k]]
+            dinv[k] = inv = 1.0 / m[k, k]
+            m[k + 1:, k] *= inv
+            m[k + 1:, k + 1:e] -= np.outer(m[k + 1:, k], m[k, k + 1:e])
+        for j in range(p0, e):
+            for i in range(j + 1, e):
+                m[i, e:] -= m[i, j] * m[j, e:]
+        for j in range(p0, e):
+            m[e:, e:] -= np.outer(m[e:, j], m[j, e:])
+        p0 = e
+    dinv[p0:] = _eliminate(m[p0:, p0:])
+    return dinv, p0 // panel
+
+
+def _back_substitute(u, dinv):
+    """x of U x = y, U the eliminated rows, y their last column: in blocks
+    of 32 rows from the last, the solved part's product, then the block's
+    triangular solve, x_k = y_k·(1/pivot) (the kernel's
+    ``back_substitute``)."""
+    n = len(dinv)
+    y = u[:, n].copy()
+    for lo in range((n - 1) // 32 * 32, -1, -32):
+        hi = min(lo + 32, n)
+        if hi < n:
+            y[lo:hi] -= u[lo:hi, hi:n] @ y[hi:n]
+        for k in range(hi - 1, lo - 1, -1):
+            y[k] *= dinv[k]
+            y[lo:k] -= u[lo:k, k] * y[k]
+    return y
+
+
+def _gauss(m, x, nm=None):
+    """The solution of m z = x as the kernel finds it: the augmented matrix
+    eliminated (blocked while more than ``nm`` rows are left), then back
+    substitution. Returns (z, the panels of the blocked elimination)."""
+    aug = np.concatenate([m, x[:, None]], 1)
+    if nm is not None and len(x) > nm:
+        dinv, panels = _eliminate_blocked(aug, nm)
+    else:
+        dinv, panels = _eliminate(aug), 0
+    return _back_substitute(aug, dinv), panels
+
+
+def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None,
+                  dtype=torch.float64):
     """``csrc/lcp_pivot.cu``'s algorithm per world in numpy float64: the
-    valid rows gathered (local indices), each row's normal row found among
-    them, the rounds on the active block alone. Returns (λ (B, R), rounds
-    (B,))."""
+    tier chosen from the valid count (the large tier eliminates an active
+    block of more than its shared rows blocked, ``launch_shape(dtype)``),
+    the valid rows gathered (local indices), each row's normal row found
+    among them, the rounds on the active block alone. Returns (λ (B, R),
+    rounds (B,), each world's tier, the solves that took the blocked
+    elimination)."""
     bsz, r = b.shape
     c = r // 3
     tol = lcp._TOL
     fp_tol = 1e3 * tol
     lam_out = np.zeros((bsz, r))
     rounds_out = np.zeros(bsz, np.int32)
+    tiers, blocked = [], [0]
     for w in range(bsz):
         rows = np.nonzero(valid[w])[0]
         v = len(rows)
+        tiers.append(lcp_kernel.tier_of(dtype, r, v))
+        nm = (lcp_kernel.launch_shape(dtype, bsz, r).shared_rows
+              if tiers[-1] == "large" else None)
         a = a_mat[w][np.ix_(rows, rows)]
         bv = b[w][rows]
         local = {g: i for i, g in enumerate(rows)}
@@ -190,7 +261,8 @@ def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None):
             out = cv.copy()
             ai = np.nonzero(act)[0]
             rhs = -bv[ai] - a[np.ix_(ai, ~act)] @ cv[~act]
-            out[ai] = _gauss(a[np.ix_(ai, ai)], rhs)
+            out[ai], panels = _gauss(a[np.ix_(ai, ai)], rhs, nm)
+            blocked[0] += panels > 0
             return out
 
         done, rnd = False, 0
@@ -224,7 +296,7 @@ def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None):
         out = np.where(box, np.clip(out, -hi, hi), out)
         lam_out[w, rows] = out
         rounds_out[w] = rnd
-    return lam_out, rounds_out
+    return lam_out, rounds_out, tiers, blocked[0]
 
 
 def _torch(*arrays):
@@ -238,16 +310,16 @@ def _torch(*arrays):
 def test_kernel_model_matches_the_plain_pivot_solve(seed, mu):
     """The kernel's algorithm against the plain batched loop in float64:
     the same λ to roundoff and the same rounds a world, on random contact
-    LCPs and on one world of every row valid (V = R, the kernel's
-    device-memory branch at these shapes). A random world under a finite μ
+    LCPs and on one world of every row valid (V = R = 36: past the stage,
+    the kernel's medium tier). A random world under a finite μ
     may cycle to the cap of 128 rounds; both then run it to the cap."""
     a_mat, b, valid, is_normal, mu_row = random_contact_lcp(
         seed, worlds=5, bodies=24, mu=mu)
     valid[-1] = True
     want_lam, want_rounds = lcp._pivot_solve(
         *_torch(a_mat, b, valid, is_normal), True, *_torch(mu_row))
-    got_lam, got_rounds = _kernel_model(a_mat, b, valid, is_normal, True,
-                                        mu_row)
+    got_lam, got_rounds, _, _ = _kernel_model(a_mat, b, valid, is_normal,
+                                              True, mu_row)
     assert want_rounds.dtype == torch.int32 and want_rounds.shape == (5,)
     assert got_rounds.tolist() == want_rounds.tolist()
     assert int(want_rounds.min()) < lcp.MAX_PIVOT_ROUNDS
@@ -265,7 +337,8 @@ def test_kernel_model_without_friction():
                                                        bodies=24)
     want_lam, want_rounds = lcp._pivot_solve(
         *_torch(a_mat, b, valid, is_normal), False)
-    got_lam, got_rounds = _kernel_model(a_mat, b, valid, is_normal, False)
+    got_lam, got_rounds, _, _ = _kernel_model(a_mat, b, valid, is_normal,
+                                              False)
     assert got_rounds.tolist() == want_rounds.tolist()
     assert bool((want_lam[:, 12:] == 0).all())
     np.testing.assert_allclose(got_lam, want_lam.numpy(), rtol=0,
@@ -343,17 +416,205 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_launch_is_sized_from_the_shapes():
-    """The kernel stages up to ``STAGED_ROWS`` valid rows in under 48 KB
-    of shared memory a block (no opt-in); past them a world takes one of
-    ``POOL_WORLDS`` device-memory slots of R rows, none where every world
-    fits."""
+    """The staged tier holds up to ``STAGED_ROWS`` (32) valid rows, a warp
+    a world in ~9 KB of shared memory, so that a 1,024-world batch is
+    resident in one wave; the medium tier's ``MEDIUM_ROWS`` (64) two warps
+    a world, its persistent blocks at least 8 an SM; the large tier
+    one block an SM within the 227 KB opt-in, an active block of up to
+    ``shared_rows`` rows in shared memory and a slot of R × (R + 1) for the
+    blocked elimination past it; no worklist where every world fits the
+    stage, no slot where every active block fits shared memory."""
     for dtype in (torch.float32, torch.float64):
-        cap = lcp_kernel.STAGED_ROWS[dtype]
+        size = dtype.itemsize
         shape = lcp_kernel.launch_shape(dtype, 1024, 288)
-        assert shape.cap == cap and shape.shared_bytes <= 48 * 1024
-        assert shape.pool_worlds == lcp_kernel.POOL_WORLDS
-        assert shape.slot_bytes == lcp_kernel.world_bytes(dtype, 288, False)
-        assert shape.slot_bytes >= 288 * 289 * dtype.itemsize
+        assert shape.staged_rows == lcp_kernel.STAGED_ROWS == 32
+        assert 8 * (shape.staged_bytes + 1024) <= lcp_kernel.SM_SHARED
+        assert shape.medium_rows == lcp_kernel.MEDIUM_ROWS == 64
+        assert shape.medium_bytes <= 48 * 1024
+        assert shape.medium_blocks == min(1024, 8 * lcp_kernel.SMS)
+        assert shape.large_blocks == lcp_kernel.SMS
+        assert shape.large_bytes <= lcp_kernel.MAX_SHARED
+        assert shape.large_bytes == lcp_kernel.work_bytes(
+            dtype, 288, shape.large_region)
+        nm = shape.shared_rows
+        assert nm * ((nm + 1) | 1) <= shape.large_region
+        assert (nm + 1) * ((nm + 2) | 1) > shape.large_region
+        assert 288 * (lcp_kernel.PANEL + 1) \
+            + lcp_kernel.PANEL * lcp_kernel.TILE <= shape.large_region
+        assert lcp_kernel.PANEL <= nm < 288
+        assert shape.slot_bytes == 288 * 289 * size
+        assert shape.launches == 4
         small = lcp_kernel.launch_shape(dtype, 1024, 30)
-        assert small.cap == 30 and small.pool_worlds == 0
-        assert lcp_kernel.launch_shape(dtype, 3, 288).pool_worlds == 3
+        assert small.staged_rows == 30 and small.medium_rows == 0
+        assert small.large_blocks == 0 and small.launches == 1
+        few = lcp_kernel.launch_shape(dtype, 3, 288)
+        assert few.medium_blocks == 3 and few.large_blocks == 3
+        assert few._replace(medium_blocks=0, large_blocks=0) \
+            == shape._replace(medium_blocks=0, large_blocks=0)
+        mid = lcp_kernel.launch_shape(dtype, 1024, 3 * 40)
+        assert mid.slot_bytes == 0 and mid.shared_rows == 120
+    assert lcp_kernel.launch_shape(torch.float64, 8, 288).shared_rows == 158
+    assert lcp_kernel.launch_shape(torch.float32, 8, 288).shared_rows == 230
+    with pytest.raises(ValueError):
+        lcp_kernel.launch_shape(torch.float64, 8, 3 * 200)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tiers_follow_the_valid_count(dtype):
+    """``tier_of`` at ``boundary_counts``: the stage's cap and one more,
+    the medium tier's and one more, the large tier's shared rows ± 1, all
+    288; ``tier_counts`` reads the kernel's counters (the worklists'
+    lengths, the blocked solves), every world staged where a solve needs
+    no worklist."""
+    shape = lcp_kernel.launch_shape(dtype, 8, 288)
+    counts = lcp_kernel.boundary_counts(dtype, 288)
+    cap, cap_m, nm = (shape.staged_rows, shape.medium_rows,
+                      shape.shared_rows)
+    assert counts == [cap, cap + 1, cap_m, cap_m + 1, nm - 1, nm + 1, 288]
+    tiers = [lcp_kernel.tier_of(dtype, 288, v) for v in counts]
+    assert tiers == ["staged", "medium", "medium"] + ["large"] * 4
+    assert lcp_kernel.tier_of(dtype, 30, 30) == "staged"
+    counters = torch.tensor([2, 2, 4, 4, 9, 0, 0, 0], dtype=torch.int32)
+    assert lcp_kernel.tier_counts(7, counters) == dict(
+        staged=1, medium=2, large=4, blocked_solves=9)
+    assert lcp_kernel.tier_counts(5, None) == dict(
+        staged=5, medium=0, large=0, blocked_solves=0)
+
+
+@pytest.mark.parametrize("n, nm", [(40, 33), (100, 40), (288, 158)])
+def test_blocked_elimination_is_the_unblocked_one(n, nm):
+    """The large tier's blocked elimination (panels of 32 with their
+    multipliers kept, U12 by forward substitution, the trailing update in
+    the panel's column order) takes each element through the same
+    operations as the unblocked one: the same bits, in numpy as on the card
+    (there with the same fused multiply-adds). Back substitution in blocks
+    of 32 solves the system to roundoff."""
+    rng = np.random.default_rng(n)
+    m = rng.normal(size=(n, n)) + n * np.eye(n) * rng.choice([0.0, 1.0])
+    x = rng.normal(size=n)
+    aug = np.concatenate([m, x[:, None]], 1)
+    one, two = aug.copy(), aug.copy()
+    d1 = _eliminate(one)
+    d2, panels = _eliminate_blocked(two, nm)
+    assert panels == -(-(n - nm) // lcp_kernel.PANEL)
+    assert np.array_equal(d1, d2)
+    assert np.array_equal(np.triu(one[:, :n]), np.triu(two[:, :n]))
+    assert np.array_equal(one[:, n], two[:, n])
+    z = _back_substitute(two, d2)
+    want = np.linalg.solve(m, x)
+    assert np.abs(z - want).max() <= 1e-10 * np.abs(want).max()
+
+
+def _hold_model(system, friction=True, dtype=torch.float64):
+    """The model against the plain loop: λ within ``MODEL_RTOL`` of max
+    |λ|, the same rounds a world. Returns the model's tiers and blocked
+    solves."""
+    a_mat, b, valid, is_normal, mu_row = system
+    want_lam, want_rounds = lcp._pivot_solve(
+        *_torch(a_mat, b, valid, is_normal), friction, *_torch(mu_row))
+    got_lam, got_rounds, tiers, blocked = _kernel_model(
+        a_mat, b, valid, is_normal, friction, mu_row, dtype)
+    assert got_rounds.tolist() == want_rounds.tolist()
+    scale = float(want_lam.abs().max())
+    err = float(np.abs(got_lam - want_lam.numpy()).max())
+    assert err <= MODEL_RTOL * scale, (err, scale)
+    return tiers, blocked, want_rounds.tolist(), err / scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_model_at_the_tier_boundaries(dtype):
+    """One world at each tier boundary of the dtype (``boundary_counts``,
+    ``testing/lcp_systems.tier_boundary_lcp``), μ = ∞: each in the tier of
+    its count, the 288-row world through the blocked elimination, the
+    model within 1e-10 of the plain loop with its rounds."""
+    counts = lcp_kernel.boundary_counts(dtype, 288)
+    tiers, blocked, rounds, err = _hold_model(tier_boundary_lcp(counts),
+                                              dtype=dtype)
+    assert tiers == [lcp_kernel.tier_of(dtype, 288, v) for v in counts]
+    assert set(tiers) == set(lcp_kernel.TIERS) and blocked > 0
+    print(f"[lcp-kernel] tier boundaries {counts} ({dtype}): rounds "
+          f"{rounds}, blocked solves {blocked}, err {err:.3e} of max|λ|")
+
+
+@pytest.mark.parametrize("mu", [0.4, "mixed"], ids=["mu_finite", "mixed"])
+def test_kernel_model_past_the_stage_with_friction(mu):
+    """Boxed rows past the stage and past the medium tier (the stage's
+    cap + 1 and the large tier's shared rows + 1 in float64), at μ = 0.4
+    and per contact."""
+    shape = lcp_kernel.launch_shape(torch.float64, 2, 288)
+    counts = [shape.staged_rows + 1, shape.shared_rows + 1]
+    tiers, _, rounds, err = _hold_model(tier_boundary_lcp(counts, mu=mu))
+    assert tiers == ["medium", "large"]
+    assert min(rounds) < lcp.MAX_PIVOT_ROUNDS
+    print(f"[lcp-kernel] past the stage ({mu}): rounds {rounds}, err "
+          f"{err:.3e} of max|λ|")
+
+
+# the referee's DANTZIG configuration (tests/_traj_engine.py:make_cfg)
+REFEREE_DANTZIG = dict(max_bodies=16, max_pair_candidates=128,
+                       max_contacts=96, dtype="float64",
+                       exact_box_clip=True, max_contacts_per_pair=8,
+                       matmul_precision="highest")
+PILE_SETTLE = 40
+
+
+@pytest.fixture(scope="module")
+def capsule_pile_system():
+    """``_build_lcp``'s system of the capsule pile settled ``PILE_SETTLE``
+    substeps under the referee's DANTZIG configuration on the port's CPU
+    (float64): 14 contacts, 42 valid rows, past the float64 stage."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
+    from rl_ode_physics_tpu_torch.models import scenes
+    from rl_ode_physics_tpu_torch.ops import (
+        broadphase, integrator, narrowphase)
+    from rl_ode_physics_tpu_torch.parallel.batch import make_batched_step_fn
+    config = EngineConfig(**REFEREE_DANTZIG, solver=SolverKind.DANTZIG)
+    world = scenes.capsule_pile_world(config, device="cpu")
+    world = make_batched_step_fn(config, PILE_SETTLE, device="cpu")(world)
+    contacts = narrowphase.narrowphase(
+        world, broadphase.broadphase(world, config), config)
+    state = integrator.apply_external_forces(world, config)
+    _, a_mat, b, valid, is_normal, mu_row = lcp._build_lcp(
+        state, contacts, config)
+    return tuple(x.numpy() for x in (a_mat, b, valid, is_normal, mu_row))
+
+
+@pytest.mark.parametrize("mu", [None, 0.4, "mixed"],
+                         ids=["mu_inf", "mu_finite", "mu_per_contact"])
+def test_kernel_model_on_the_capsule_pile(capsule_pile_system, mu):
+    """The capsule pile's own system (``_build_lcp``), its μ (∞ in the
+    configuration), 0.4, or a μ a contact in [0.2, 1] with a third ∞: the
+    medium tier."""
+    a_mat, b, valid, is_normal, mu_row = capsule_pile_system
+    v = int(valid.sum())
+    assert v > lcp_kernel.STAGED_ROWS, v
+    if mu == 0.4:
+        mu_row = np.full_like(mu_row, 0.4)
+    elif mu == "mixed":
+        mu_row = np.random.default_rng(17).uniform(0.2, 1.0, mu_row.shape)
+        mu_row[:, ::3] = np.inf
+    tiers, _, rounds, err = _hold_model((a_mat, b, valid, is_normal, mu_row))
+    assert tiers == [lcp_kernel.tier_of(torch.float64, 288, v)] == ["medium"]
+    assert lcp_kernel.tier_of(torch.float32, 288, v) == "medium"
+    print(f"[lcp-kernel] capsule pile ({mu}): {v} valid rows, rounds "
+          f"{rounds}, err {err:.3e} of max|λ|")
+
+
+def test_chain_floor_of_the_pivot_kernel():
+    """``lcp_pivot_bound``'s ``chain_ms``: the longest world's solves ×
+    its valid rows × the dependent operations of a pivot and a
+    back-substitution step, at 4 cycles each at 1.98 GHz; not part of the
+    bound."""
+    from rl_ode_physics_tpu_torch.utils import bounds
+    valid = torch.zeros((3, 288), dtype=torch.bool)
+    valid[0, :27] = True
+    valid[1, :42] = True
+    valid[2, :30] = True
+    rounds = torch.tensor([4, 3, 9], dtype=torch.int32)
+    got = bounds.lcp_pivot_bound(valid, rounds, torch.float64)
+    steps = max(5 * 27, 4 * 42, 10 * 30)
+    per = bounds.LCP_CHAIN_PER_PIVOT_STEP + bounds.LCP_CHAIN_PER_BACK_STEP
+    assert got["chain_ms"] == pytest.approx(
+        steps * per * bounds.CYCLES_PER_DEPENDENT_OP
+        / bounds.BOOST_CLOCK_HZ * 1e3)
+    assert got["bound_ms"] == max(got["bytes_ms"], got["ops_ms"])
