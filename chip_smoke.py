@@ -184,15 +184,21 @@ Phases, in order; any failure raises and the script exits non-zero:
     (one world settled 60 substeps, graphed, in 1,024 worlds: ~42 valid
     rows, past the float64 stage), 16 synthetic worlds of 96 contacts
     (``testing/lcp_systems``), all 288 rows valid in half of them (the
-    large tier's blocked elimination), and a world at each tier boundary
-    (``lcp_kernel.boundary_counts``); float64: λ within 1e-10 of max |λ|
-    and every world's rounds equal; float32: A·λ within 1e-5 of its
-    largest; every world in the tier of its valid count. The kernel, the
-    plain version, the bound and the chain floor
-    (``utils/bounds.lcp_pivot_bound``) timed on each but the μ = 0.4
-    case, the 1,024-world cases' first 132 worlds alone too (one an SM);
-    the launch's shape, its launches a solve, the worlds each tier took,
-    each tier kernel's registers and spills.
+    large tier's blocked elimination), a world at each tier boundary
+    (``lcp_kernel.boundary_counts``; every row active in the first round:
+    the world of the large tier's shared rows + 1 takes the blocked
+    elimination, alone, and the one of its shared rows − 1 does not), and
+    one world of every row valid past the R whose panel fits shared memory
+    (600 rows in float64, 1,149 in float32); float64: λ within 1e-10 of
+    max |λ| and every world's rounds equal; float32: A·λ within 1e-5 of
+    its largest; every world in the tier of its valid count. The kernel,
+    the plain version, the bound and the chain floor
+    (``utils/bounds.lcp_pivot_bound`` at the last solve's active rows)
+    timed on each but the μ = 0.4 case, the 1,024-world cases' first 132
+    worlds alone too (one an SM); the launch's shape, its launches a
+    solve, the worlds each tier took, each tier kernel's registers, spills
+    and static shared memory (the staged tier's let 8 blocks share an
+    SM).
 20. the hinge chain (``hinge_chain_scene``: a motorized, limited hinge and
     a ball joint): card against CPU under the referee's PGS and DANTZIG in
     float64 (atol 1e-9) and under ``core.config.hinge_chain_config`` (the
@@ -561,8 +567,11 @@ def phase_build():
         compaction_kernel, kernel_build, lcp_kernel, mesh_kernels,
         pgs_kernel)
     from rl_ode_physics_tpu_torch.utils.timing import launch_floor_ms
+    import torch
     builds = [compaction_kernel.build, mesh_kernels.build, pgs_kernel.build,
-              lcp_kernel.build, lambda: kernel_build.build("launch_floor.cu")]
+              lambda: lcp_kernel.build(torch.float32),
+              lambda: lcp_kernel.build(torch.float64),
+              lambda: kernel_build.build("launch_floor.cu")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         libs = [f.result() for f in [pool.submit(b) for b in builds]]
@@ -2429,7 +2438,11 @@ def phase_lcp_kernel(card, dantzig_args):
     float64 stage), 16 synthetic worlds of 96 contacts
     (``testing/lcp_systems``) with all 288 rows valid in half of them and
     10 contacts in the others, and one synthetic world at each tier
-    boundary of the dtype (``lcp_kernel.boundary_counts``). Float64: λ
+    boundary of the dtype (``lcp_kernel.boundary_counts``; the worlds of
+    the large tier's shared rows ± 1 also launched alone, to show that the
+    + 1 world takes the blocked elimination and the − 1 world does not),
+    and one world of every row valid past the R whose panel fits shared
+    memory (``far``: 600 rows in float64, 1,149 in float32). Float64: λ
     within ``LCP_F64_RTOL`` of max |λ| and each world's rounds equal;
     float32: the velocity change in constraint space, A·λ, within
     ``LCP_F32_RTOL`` of its largest (ROADMAP's float32 trap); each world
@@ -2446,7 +2459,8 @@ def phase_lcp_kernel(card, dantzig_args):
     from rl_ode_physics_tpu_torch.ops import lcp, lcp_kernel
     from rl_ode_physics_tpu_torch.testing.lcp_systems import (
         random_contact_lcp, tier_boundary_lcp)
-    from rl_ode_physics_tpu_torch.utils.bounds import lcp_pivot_bound
+    from rl_ode_physics_tpu_torch.utils.bounds import (
+        lcp_active_rows, lcp_pivot_bound)
     from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
 
     a_mat, b, valid, is_normal, friction, mu = dantzig_args["dantzig-1024"]
@@ -2467,7 +2481,8 @@ def phase_lcp_kernel(card, dantzig_args):
              "capsule pile": pile[:4] + (pile[5],),
              "synthetic, 288 rows valid": on_card(synth)}
     timed = ("dantzig-1024", "ridge", "capsule pile",
-             "synthetic, 288 rows valid", "tier boundaries")
+             "synthetic, 288 rows valid", "tier boundaries",
+             "past the shared panel")
 
     def held(system, f, label):
         a, bb, v, n, m = system
@@ -2485,7 +2500,7 @@ def phase_lcp_kernel(card, dantzig_args):
                                  f"differ")
         counts = v.sum(1).tolist()
         tiers = lcp_kernel.tier_counts(len(counts), counters)
-        want_tiers = {t: sum(lcp_kernel.tier_of(f, v.shape[1], c) == t
+        want_tiers = {t: sum(lcp_kernel.tier_of(v.shape[1], c) == t
                              for c in counts) for t in lcp_kernel.TIERS}
         if {t: tiers[t] for t in lcp_kernel.TIERS} != want_tiers:
             raise AssertionError(f"lcp_pivot_solve {label} ({f}): tiers "
@@ -2516,22 +2531,53 @@ def phase_lcp_kernel(card, dantzig_args):
                     rel_err=rel, max_abs_lam=scale,
                     rounds=[int(rounds.min()), int(rounds.max())],
                     valid_rows=[min(counts), max(counts)], tiers=tiers,
-                    shape=list(v.shape)), (a, bb, v, n, m), rounds
+                    shape=list(v.shape)), (a, bb, v, n, m), lam, rounds
+
+    def blocked_alone(system, f, count, nm):
+        # the world of ``count`` valid rows launched alone: whether its
+        # solves took the blocked elimination (more than nm active rows)
+        w = system[2].sum(1).tolist().index(count)
+        one = [x[w:w + 1].contiguous() for x in system[:4]]
+        _, _, counters = lcp_kernel.launch(one[0].to(f), one[1].to(f),
+                                           *one[2:], friction)
+        tiers = lcp_kernel.tier_counts(1, counters)
+        if tiers["large"] != 1 or (tiers["blocked_solves"] > 0) != (
+                count > nm):
+            raise AssertionError(f"lcp_pivot_solve ({f}): the world of "
+                                 f"{count} valid rows (shared rows {nm}) "
+                                 f"took {tiers}")
+        return tiers["blocked_solves"]
 
     out = {}
     for f in (torch.float64, torch.float32):
         name = "float64" if f == torch.float64 else "float32"
         bounds = lcp_kernel.boundary_counts(f, 288)
         cases["tier boundaries"] = on_card(tier_boundary_lcp(bounds))
+        nm = lcp_kernel.launch_shape(f, 1, 288).shared_rows
+        blocked = {c: blocked_alone(cases["tier boundaries"], f, c, nm)
+                   for c in (nm - 1, nm + 1)}
+        far_rows = 600 if f == torch.float64 else 1149
+        if not lcp_kernel.launch_shape(f, 1, far_rows).far or \
+                lcp_kernel.launch_shape(f, 1, far_rows - 3).far:
+            raise AssertionError(f"lcp_pivot_solve ({f}): R = {far_rows} is "
+                                 f"not the first R past the shared panel")
+        cases["past the shared panel"] = on_card(
+            tier_boundary_lcp([far_rows], contacts=far_rows // 3))
         records = {}
         for label, system in cases.items():
-            rec, (a, bb, v, n, m), rounds = held(system, f, label)
+            rec, (a, bb, v, n, m), lam, rounds = held(system, f, label)
+            if label == "past the shared panel" and \
+                    not rec["tiers"]["blocked_solves"]:
+                raise AssertionError(f"lcp_pivot_solve ({f}): R = "
+                                     f"{far_rows} took no blocked solve")
             if label in timed:
                 rec["ms"] = cuda_ms(lambda: lcp_kernel.lcp_pivot_solve(
                     a, bb, v, n, friction, m), iters=5)
                 rec["plain_ms"] = cuda_ms(lambda: lcp._pivot_solve(
                     a, bb, v, n, friction, m), iters=2)
-                bound = lcp_pivot_bound(v, rounds, f, m is not None)
+                bound = lcp_pivot_bound(
+                    v, rounds, f, m is not None,
+                    active=lcp_active_rows(lam, v, n, friction, m))
                 rec.update({k: bound[k] for k in (
                     "bound_ms", "bound_by", "bytes_ms", "ops_ms",
                     "chain_ms")})
@@ -2543,9 +2589,15 @@ def phase_lcp_kernel(card, dantzig_args):
                         lambda: lcp_kernel.lcp_pivot_solve(
                             *sub[:4], friction, sub[4]), iters=5)
             records[label] = rec
-            del a, bb, v, n, m
+            del a, bb, v, n, m, lam
+        del cases["past the shared panel"]
         shape = lcp_kernel.launch_shape(f, valid.shape[0], valid.shape[1])
         res = lcp_kernel.resources(f)
+        if 8 * (res["staged"]["static_shared"] + 1024) > \
+                lcp_kernel.SM_SHARED:
+            raise AssertionError(f"lcp_pivot_solve ({f}): the staged tier's "
+                                 f"{res['staged']['static_shared']} bytes "
+                                 f"do not let 8 blocks share an SM")
         path = records["dantzig-1024"]
         # device memory a solve takes above its inputs, kernel and plain
         a, bb = a_mat.to(f), b.to(f)
@@ -2568,7 +2620,8 @@ def phase_lcp_kernel(card, dantzig_args):
             launch_shape=shape._asdict(), launches_a_solve=shape.launches,
             registers=res["staged"]["registers"],
             local_bytes=res["staged"]["local_bytes"], resources=res,
-            peak_mb=path["peak_mb"], plain_peak_mb=path["plain_peak_mb"])
+            blocked_solves_alone=blocked, peak_mb=path["peak_mb"],
+            plain_peak_mb=path["plain_peak_mb"])
         for label, r in records.items():
             times = ("" if "ms" not in r else
                      f" kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.3f}"
@@ -2587,19 +2640,21 @@ def phase_lcp_kernel(card, dantzig_args):
                 f"{r['tiers']}): {r['rel_err']:.3e} of the plain version's "
                 f"scale ({held_on}), max abs err {r['max_abs_err']:.3e};"
                 f"{times} on {card}")
-        tiers = ", ".join(f"{t} {v['registers']} registers and "
-                          f"{v['local_bytes']} local bytes"
+        tiers = ", ".join(f"{t} {v['registers']} registers, "
+                          f"{v['local_bytes']} local bytes and "
+                          f"{v['static_shared']} static shared bytes"
                           for t, v in res.items())
         log(f"lcp_pivot_solve {name}: {shape.launches} launches a solve at "
             f"R={valid.shape[1]} (the counters' memset and the staged, "
             f"medium and large tiers' kernels); staged up to "
-            f"{shape.staged_rows} valid rows in {shape.staged_bytes} shared "
-            f"bytes a block, medium up to {shape.medium_rows} in "
-            f"{shape.medium_bytes} ({shape.medium_blocks} blocks), large "
+            f"{shape.staged_rows} valid rows, medium up to "
+            f"{shape.medium_rows} ({shape.medium_blocks} blocks), large "
             f"{shape.large_blocks} blocks of {shape.large_bytes} bytes, "
             f"active blocks of up to {shape.shared_rows} rows in shared "
             f"memory, slots of {shape.slot_bytes} bytes for the blocked "
-            f"elimination; tier boundaries {bounds}; {tiers}; a "
+            f"elimination (past R = {far_rows - 3} the panel and vectors "
+            f"in the slot); tier boundaries {bounds}, blocked solves of "
+            f"the shared rows ± 1 worlds alone {blocked}; {tiers}; a "
             f"dantzig-1024 solve takes {path['peak_mb']:.1f} MB of device "
             f"memory above its inputs, the plain version "
             f"{path['plain_peak_mb']:.1f} MB; library_ms=null (no one "

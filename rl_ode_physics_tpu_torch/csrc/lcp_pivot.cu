@@ -70,8 +70,13 @@
 //     right-looking elimination: panels of 32 columns factored in shared
 //     memory, U12 by forward substitution, the trailing matrix in the
 //     block's own slot of device memory (R × (R + 1), L2-resident) updated a
-//     64-column tile at a time with the tile's U12 in shared memory, until
-//     the rest fits in shared memory. A step there: every warp finds the
+//     64-column tile at a time with the tile's U12 beside the panel, until
+//     the rest fits in shared memory. The panel (R × 33) and the world's
+//     vectors (~95 bytes a row in float64) sit in shared memory beside the
+//     region while they fit (R ≤ 597 in float64, 1,146 in float32); past
+//     that ("far") they sit in the slot after the trailing matrix, and the
+//     whole 227 KB holds the region (nm 169 / 240), so that every R is
+//     solved. A step there: every warp finds the
 //     argmax alike (no cross-warp pass: that would cost a second barrier),
 //     the row exchange is a permutation kept in two buffers, one reciprocal,
 //     warps over rows with the next group of rows loaded before the current
@@ -117,6 +122,7 @@ constexpr int kStagedRows = 32, kMediumRows = 64;
 constexpr int kLargeThreads = 256, kLargeCols = 8;
 constexpr int kPanel = 32;                // the blocked elimination's panel
 constexpr int kPanelLd = kPanel + 1;
+constexpr int kTile = 64;                 // the trailing update's columns
 constexpr int kScratch = 64;              // a block's small slots
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -157,24 +163,41 @@ __device__ __forceinline__ unsigned long long abs_key(float v) {
                    : 0ull;
 }
 
-// The bytes of a large-tier block's work space: `region` elements of T for
-// the elimination, 8 vectors of `cap` rows and kScratch of T, 7 of ints and
-// kScratch, 3 of bytes, each part rounded up to 16 bytes.
-// ops/lcp_kernel.work_bytes is the same sum.
-__host__ __device__ inline size_t t_elems(int cap, size_t region) {
-  return region + 8 * static_cast<size_t>(cap) + kScratch;
+// A large-tier block's memory; ops/lcp_kernel.py has the same sums. Its
+// vectors: 8 of `cap` rows and kScratch of T, 7 of ints and kScratch, 3 of
+// bytes, each part rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ size_t vector_bytes(int cap) {
+  const size_t c = static_cast<size_t>(cap);
+  return align16((8 * c + kScratch) * sizeof(T))
+         + align16((7 * c + kScratch) * sizeof(int)) + align16(3 * c);
 }
 
+// the panel's elements: R rows at stride kPanelLd, then a tile's U12
+__host__ __device__ inline size_t panel_elems(int R) {
+  return static_cast<size_t>(R) * kPanelLd + kPanel * kTile;
+}
+
+// shared memory: the region of `region` elements, then (unless far) the
+// vectors; the panel lies in the region, unless far
 template <typename T>
-__host__ __device__ size_t work_bytes(int cap, size_t region) {
-  return align16(t_elems(cap, region) * sizeof(T))
-         + align16((7 * static_cast<size_t>(cap) + kScratch) * sizeof(int))
-         + align16(3 * static_cast<size_t>(cap));
+__host__ __device__ size_t shared_bytes(int R, size_t region, bool far) {
+  return align16(region * sizeof(T)) + (far ? 0 : vector_bytes<T>(R));
+}
+
+// a block's slot of device memory: the trailing matrix R × (R + 1), then
+// (far) the panel and the vectors
+template <typename T>
+__host__ __device__ size_t slot_bytes(int R, bool far) {
+  return align16(static_cast<size_t>(R) * (R + 1) * sizeof(T))
+         + (far ? align16(panel_elems(R) * sizeof(T)) + vector_bytes<T>(R)
+                : 0);
 }
 
 template <typename T>
 struct Work {
-  T* mat;      // the elimination's region
+  T* mat;      // the elimination's region (shared memory)
+  T* panel;    // the blocked elimination's panel and U12 tile
   T* bv;       // b of the valid rows
   T* mu3;      // μ of their contacts (∞: none)
   T* lam;      // λ of the last round
@@ -198,11 +221,11 @@ struct Work {
 };
 
 template <typename T>
-__device__ Work<T> carve(unsigned char* base, int cap, size_t region) {
+__device__ Work<T> carve(T* mat, T* panel, unsigned char* base, int cap) {
   Work<T> s;
+  s.mat = mat;
+  s.panel = panel;
   T* p = reinterpret_cast<T*>(base);
-  s.mat = p;
-  p += region;
   s.bv = p;
   s.mu3 = p + cap;
   s.lam = p + 2 * cap;
@@ -212,7 +235,8 @@ __device__ Work<T> carve(unsigned char* base, int cap, size_t region) {
   s.y = p + 6 * cap;
   s.dinv = p + 7 * cap;
   s.red = p + 8 * cap;
-  const size_t tb = align16(t_elems(cap, region) * sizeof(T));
+  const size_t tb = align16((8 * static_cast<size_t>(cap) + kScratch)
+                            * sizeof(T));
   int* q = reinterpret_cast<int*>(base + tb);
   s.rows = q;
   s.nrm = q + cap;
@@ -253,7 +277,7 @@ struct Args {
   int* rounds;                // (B,) out
   int* counters;              // kCounters, zeroed before the launches
   int* lists;                 // the medium and the large worklist, B each
-  void* slots;                // a large block's R × (R + 1) slot each
+  void* slots;                // a large block's slot each (slot_bytes)
   int B, R, friction, cap_s, cap_m;
 };
 
@@ -509,9 +533,7 @@ __device__ void back_substitute(UF U, int n, const T* dinv, T* y) {
 // forward substitution; the trailing matrix updated in the panel's column
 // order, a tile of kTile columns at a time with the tile's U12 staged
 // after P. An even number of steps: pa holds the permutation again after
-// it.
-constexpr int kTile = 64;
-
+// it. P lies in shared memory, or (far) in the block's slot.
 template <int NT, typename T>
 __device__ void panel_step(T* slot, int lds, int n, int p0, int* pa, int* pb,
                            T* P, T* dinv) {
@@ -645,7 +667,7 @@ __device__ void masked_solve_blocked(const Args& g, const Work<T>& s,
   __syncthreads();
   int p0 = 0;
   while (n - p0 > nm) {
-    panel_step<NT>(slot, lds, n, p0, s.pa, s.pb, s.mat, s.dinv);
+    panel_step<NT>(slot, lds, n, p0, s.pa, s.pb, s.panel, s.dinv);
     p0 += kPanel;
   }
   // the rest, positions [p0, n), in shared memory
@@ -1047,6 +1069,9 @@ __device__ __forceinline__ T reg_masked_solve(
     row[j] = mine && j < n ? sh.As[t * ld + sh.ai[j]] : T(0);
   }
   const T rhs = -bv - contrib;
+  // the shortest step loop that holds n: on an H100 each is 31-36% faster
+  // than the next longer one on the worlds that take it
+  // (utils/kernel_ab.py --pivot)
   T x;
   if constexpr (NW == 1)
     x = n <= 16 ? reg_eliminate<1, 16>(row, rhs, n, active, pos, sh)
@@ -1214,15 +1239,25 @@ __global__ void __launch_bounds__(64) lcp_pivot_pair(Args g) {
 
 // The large tier: persistent blocks that take worlds from the large
 // worklist until it is empty, each with its own slot; A read where it lies.
+// Far: the panel and the vectors in the slot, after the trailing matrix.
 template <typename T>
 __global__ void __launch_bounds__(kLargeThreads, 1)
-    lcp_pivot_large(Args g, long long region, int nm) {
+    lcp_pivot_large(Args g, long long region, int nm, int far) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = g.R;
-  const Work<T> s = carve<T>(smem, R, static_cast<size_t>(region));
-  T* slot = g.slots ? static_cast<T*>(g.slots)
-                          + static_cast<size_t>(blockIdx.x) * R * (R + 1)
-                    : nullptr;
+  unsigned char* own =
+      g.slots ? static_cast<unsigned char*>(g.slots)
+                    + static_cast<size_t>(blockIdx.x) * slot_bytes<T>(R, far)
+              : nullptr;
+  T* mat = reinterpret_cast<T*>(smem);
+  const size_t trail = slot_bytes<T>(R, false);
+  const Work<T> s =
+      far ? carve<T>(mat, reinterpret_cast<T*>(own + trail),
+                     own + trail + align16(panel_elems(R) * sizeof(T)), R)
+          : carve<T>(mat, mat,
+                     smem + align16(static_cast<size_t>(region) * sizeof(T)),
+                     R);
+  T* slot = reinterpret_cast<T*>(own);
   for (;;) {
     if (threadIdx.x == 0) {
       const int t = atomicAdd(&g.counters[kLargeTaken], 1);
@@ -1268,22 +1303,23 @@ int launch(const void* a, const void* b, const void* valid,
            const void* is_normal, const void* mu, void* lam, void* rounds,
            void* counters, void* lists, void* slots, int B, int R, int cap_s,
            int cap_m, int blocks_m, int blocks_l, long long region_l,
-           int nm_l, int friction, void* stream) {
+           int nm_l, int far_l, int friction, void* stream) {
   static bool done_s[64], done_m[64], done_l[64];
   if (B <= 0 || R <= 0 || R % 3 != 0 || cap_s < 1 || cap_s > R
       || cap_s > kStagedRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool medium = R > cap_s, large = R > cap_m;
-  const size_t bytes_l = large ? work_bytes<T>(R, region_l) : 0;
+  const bool medium = R > cap_s, large = R > cap_m, far = far_l != 0;
+  const size_t bytes_l =
+      large && region_l > 0 ? shared_bytes<T>(R, region_l, far) : 0;
   if ((medium && (cap_m <= cap_s || cap_m > R || cap_m > kMediumRows
                   || blocks_m < 1 || !counters || !lists))
-      || (large && (blocks_l < 1 || bytes_l > kMaxShared || nm_l < 1
-                    || nm_l > R || nm_l >= 32 * kLargeCols
+      || (large && (blocks_l < 1 || bytes_l < 1 || bytes_l > kMaxShared
+                    || nm_l < 1 || nm_l > R || nm_l >= 32 * kLargeCols
                     || static_cast<long long>(nm_l) * odd(nm_l + 1) > region_l))
       || (large && nm_l < R
           && (!slots || nm_l < kPanel
-              || static_cast<long long>(R) * kPanelLd + kPanel * kTile
-                     > region_l)))
+              || (!far && panel_elems(R) > static_cast<size_t>(region_l))))
+      || (large && far && nm_l >= R))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = opt_in(lcp_pivot_warp<T>, false, done_s);
   if (err == cudaSuccess && medium)
@@ -1304,8 +1340,8 @@ int launch(const void* a, const void* b, const void* valid,
   lcp_pivot_warp<T><<<B, 32, 0, st>>>(g);
   if (medium) lcp_pivot_pair<T><<<blocks_m, 64, 0, st>>>(g);
   if (large)
-    lcp_pivot_large<T><<<blocks_l, kLargeThreads, bytes_l, st>>>(g, region_l,
-                                                                 nm_l);
+    lcp_pivot_large<T><<<blocks_l, kLargeThreads, bytes_l, st>>>(
+        g, region_l, nm_l, far_l);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1334,36 +1370,35 @@ int resources(int which, int* out) {
 
 }  // namespace
 
+// One library a dtype, LCP_PIVOT_F64 = 0 (float32) or 1 (float64), so that
+// the two halves compile in parallel (ops/lcp_kernel.build): each is over
+// a minute of nvcc, most of it the register tiers' unrolled step loops.
+#if !defined(LCP_PIVOT_F64)
+#error "build with -DLCP_PIVOT_F64=0 (float32) or -DLCP_PIVOT_F64=1 (float64)"
+#elif LCP_PIVOT_F64
+using Real = double;
+#else
+using Real = float;
+#endif
+
 extern "C" {
 
 int lcp_pivot_launch(const void* a, const void* b, const void* valid,
                      const void* is_normal, const void* mu, void* lam,
                      void* rounds, void* counters, void* lists, void* slots,
                      int B, int R, int cap_s, int cap_m, int blocks_m,
-                     int blocks_l, long long region_l, int nm_l, int friction,
-                     void* stream) {
-  return launch<float>(a, b, valid, is_normal, mu, lam, rounds, counters,
-                       lists, slots, B, R, cap_s, cap_m, blocks_m, blocks_l,
-                       region_l, nm_l, friction, stream);
-}
-
-int lcp_pivot_launch_f64(const void* a, const void* b, const void* valid,
-                         const void* is_normal, const void* mu, void* lam,
-                         void* rounds, void* counters, void* lists,
-                         void* slots, int B, int R, int cap_s, int cap_m,
-                         int blocks_m, int blocks_l, long long region_l,
-                         int nm_l, int friction, void* stream) {
-  return launch<double>(a, b, valid, is_normal, mu, lam, rounds, counters,
-                        lists, slots, B, R, cap_s, cap_m, blocks_m, blocks_l,
-                        region_l, nm_l, friction, stream);
+                     int blocks_l, long long region_l, int nm_l, int far_l,
+                     int friction, void* stream) {
+  return launch<Real>(a, b, valid, is_normal, mu, lam, rounds, counters,
+                      lists, slots, B, R, cap_s, cap_m, blocks_m, blocks_l,
+                      region_l, nm_l, far_l, friction, stream);
 }
 
 // registers a thread, local (spilled) bytes a thread, the most threads a
 // block, the dynamic shared memory it may take, its static shared memory:
-// of the staged (which 0),
-// medium (1) or large (2) tier's kernel, float32 or with f64 != 0 float64
-int lcp_pivot_resources(int f64, int which, int* out) {
-  return f64 ? resources<double>(which, out) : resources<float>(which, out);
+// of the staged (which 0), medium (1) or large (2) tier's kernel
+int lcp_pivot_resources(int which, int* out) {
+  return resources<Real>(which, out);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ point or to ``MAX_PIVOT_ROUNDS``, the final solve and the projection. It
 replaces no Pallas kernel: it is the port's form of the JAX package's
 ``lax.while_loop`` over pivot rounds (``rl_ode_physics_tpu/ops/lcp.py:206``),
 which runs under ``jit`` and ``vmap`` on the device. It is built with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use and loaded with ``ctypes`` (``ops/kernel_build.py``).
+``nvcc`` for ``sm_90a`` into a shared library a dtype with a plain C
+interface at first use and loaded with ``ctypes``
+(``ops/kernel_build.py``).
 
 ``lcp_pivot_solve`` launches the kernels for CUDA tensors, float32 or
 float64. For CPU tensors, and only for those, it runs the kernel's plain
@@ -27,10 +28,12 @@ the active block in registers; up to ``MEDIUM_ROWS`` (64) the same on two
 warps, persistent blocks that take the worlds past the stage from a
 worklist; past that persistent blocks of 256 threads with the 227 KB
 opt-in, the active block in shared memory up to ``shared_rows`` rows and
-in a slot of device memory past them (a blocked elimination).
-``launch_shape`` sizes all of it from the shapes alone. What bounds it: each world's chain of pivot steps; its bytes and
-operations are a few microseconds of the card's rates at dantzig-1024's
-shapes (``utils/bounds.lcp_pivot_bound``).
+in a slot of device memory past them (a blocked elimination), the panel
+and the world's vectors in the slot too where R is too large for them to
+sit in shared memory (``far``): every R is solved. ``launch_shape`` sizes
+all of it from the shapes alone. What bounds it: each world's chain of
+pivot steps; its bytes and operations are a few microseconds of the
+card's rates at dantzig-1024's shapes (``utils/bounds.lcp_pivot_bound``).
 """
 
 from __future__ import annotations
@@ -43,8 +46,9 @@ import torch
 
 from rl_ode_physics_tpu_torch.ops import kernel_build
 
-_LAUNCHERS = {torch.float32: "lcp_pivot_launch",
-              torch.float64: "lcp_pivot_launch_f64"}
+# the library of each dtype is built from the one source with this flag
+BUILD_FLAGS = {torch.float32: ("-DLCP_PIVOT_F64=0",),
+          torch.float64: ("-DLCP_PIVOT_F64=1",)}
 # the register tiers' most valid rows: a thread a row, its entries of the
 # active block in registers; a warp a world (staged), two warps (medium)
 STAGED_ROWS = 32
@@ -61,71 +65,82 @@ SM_SHARED = 233472
 PANEL = 32
 TILE = 64
 _SCRATCH = 64
+# the most active rows the large tier eliminates in shared memory (its
+# threads × the columns a thread updates in a step, exclusive)
+_MAX_SHARED_ROWS = 255
 _COUNTERS = 8
 TIERS = ("staged", "medium", "large")
 
-# the library's C interface: function → argtypes
+# a library's C interface: function → argtypes
 FUNCTIONS = {
-    name: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    for name in _LAUNCHERS.values()}
-FUNCTIONS["lcp_pivot_resources"] = [ctypes.c_int, ctypes.c_int,
-                                    ctypes.POINTER(ctypes.c_int)]
+    "lcp_pivot_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "lcp_pivot_resources": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]}
 
 
-def build():
-    """Compile the kernel library (once per source version) and return its
-    path."""
-    return kernel_build.build("lcp_pivot.cu")
+def build(dtype: torch.dtype):
+    """Compile the kernel library of ``dtype`` (once per source version)
+    and return its path."""
+    return kernel_build.build("lcp_pivot.cu", BUILD_FLAGS[dtype])
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    return kernel_build.load(build(), FUNCTIONS)
+@functools.lru_cache(maxsize=None)
+def _library(dtype: torch.dtype) -> ctypes.CDLL:
+    return kernel_build.load(build(dtype), FUNCTIONS)
 
 
 def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def work_bytes(dtype: torch.dtype, cap: int, region: int) -> int:
-    """A large-tier block's work space (``csrc/lcp_pivot.cu:work_bytes``):
-    ``region`` elements of ``dtype`` for the elimination, 8 vectors of
-    ``cap`` rows and 64 scratch elements, 7 vectors of ints and 64 scratch
-    ints, 3 of bytes, each part rounded up to 16 bytes."""
-    size = torch.empty((), dtype=dtype).element_size()
-    elems = region + 8 * cap + _SCRATCH
-    return (_align16(elems * size) + _align16((7 * cap + _SCRATCH) * 4)
-            + _align16(3 * cap))
+def vector_bytes(size: int, cap: int) -> int:
+    """A large-tier block's vectors (``csrc/lcp_pivot.cu:vector_bytes``) in
+    elements of ``size`` bytes: 8 of ``cap`` rows and 64 scratch elements,
+    7 of ints and 64 scratch ints, 3 of bytes, each part rounded up to 16
+    bytes."""
+    return (_align16((8 * cap + _SCRATCH) * size)
+            + _align16((7 * cap + _SCRATCH) * 4) + _align16(3 * cap))
 
 
-def register_bytes(dtype: torch.dtype, warps: int) -> int:
-    """A register tier's block's static shared memory
-    (``csrc/lcp_pivot.cu:RegShared``), near enough: A's valid block at row
-    stride rows + 1, 3 vectors and the pivot row, each warp's maxima, keys
-    and flags, the valid rows, the active rows, the pivot threads."""
-    size = torch.empty((), dtype=dtype).element_size()
-    rows = 32 * warps
-    return (size * (rows * (rows + 1) + 3 * rows + 1 + 2 * warps)
-            + 20 * warps + 12 * rows + 8)
+def panel_elems(rows: int) -> int:
+    """The blocked elimination's panel: ``rows`` rows of ``PANEL`` + 1
+    elements, then a tile's U12 (``csrc/lcp_pivot.cu:panel_elems``)."""
+    return rows * (PANEL + 1) + PANEL * TILE
 
 
-def _square(m: int) -> int:
-    """The elements of an m × (m + 1) augmented matrix at an odd row
-    stride."""
-    return m * ((m + 1) | 1)
+def shared_bytes(size: int, rows: int, region: int, far: bool) -> int:
+    """A large-tier block's shared memory: the region, then the vectors
+    unless ``far`` (``csrc/lcp_pivot.cu:shared_bytes``)."""
+    return _align16(region * size) + (0 if far else vector_bytes(size, rows))
+
+
+def slot_bytes(size: int, rows: int, far: bool) -> int:
+    """A large-tier block's slot of device memory: the trailing matrix R ×
+    (R + 1), then the panel and the vectors where ``far``
+    (``csrc/lcp_pivot.cu:slot_bytes``)."""
+    return _align16(rows * (rows + 1) * size) + (
+        _align16(panel_elems(rows) * size) + vector_bytes(size, rows)
+        if far else 0)
+
+
+def _rows_in(region: int, rows: int) -> int:
+    """The most active rows (at most R) whose m × (m + 1) augmented matrix,
+    at an odd row stride, fits ``region`` elements."""
+    m = min(rows, _MAX_SHARED_ROWS)
+    while m > 0 and m * ((m + 1) | 1) > region:
+        m -= 1
+    return m
 
 
 class LaunchShape(NamedTuple):
     staged_rows: int       # the staged tier's most valid rows (cap_s)
-    staged_bytes: int      # its block's (static) shared memory
     medium_rows: int       # the medium tier's most valid rows (0: none)
     medium_blocks: int     # its persistent blocks
-    medium_bytes: int      # its block's (static) shared memory
     large_blocks: int      # the large tier's persistent blocks (0: none)
-    large_bytes: int
+    large_bytes: int       # a large block's dynamic shared memory
     large_region: int      # elements of its elimination's region
     shared_rows: int       # the most active rows it eliminates in shared
+    far: bool              # the panel and the vectors in the slot
     slot_bytes: int        # a large block's device-memory slot (0: none)
     launches: int          # kernel launches a solve, the memset included
 
@@ -133,38 +148,30 @@ class LaunchShape(NamedTuple):
 def launch_shape(dtype: torch.dtype, num_worlds: int, rows: int
                  ) -> LaunchShape:
     """The launches for ``num_worlds`` worlds of R = ``rows`` rows, from
-    the shapes alone: nothing is read on the host. Raises where R is more
-    than the large tier's blocked elimination holds (its panel of R rows
-    in shared memory: R > 597 in float64, 1,146 in float32)."""
+    the shapes alone: nothing is read on the host. The large tier keeps
+    its panel and vectors in shared memory beside the region while they
+    fit, else (``far``) in its slot, with all of shared memory for the
+    region."""
     size = torch.empty((), dtype=dtype).element_size()
     cap_s = min(rows, STAGED_ROWS)
-    staged = register_bytes(dtype, 1)
     if rows <= cap_s:
-        return LaunchShape(cap_s, staged, 0, 0, 0, 0, 0, 0, 0, 0, 1)
+        return LaunchShape(cap_s, 0, 0, 0, 0, 0, 0, False, 0, 1)
     cap_m = min(rows, MEDIUM_ROWS)
-    medium = (cap_m, min(num_worlds, MEDIUM_BLOCKS_PER_SM * SMS),
-              register_bytes(dtype, 2))
+    medium = (cap_m, min(num_worlds, MEDIUM_BLOCKS_PER_SM * SMS))
     if rows <= cap_m:
-        return LaunchShape(cap_s, staged, *medium, 0, 0, 0, 0, 0, 3)
-    region = (MAX_SHARED - work_bytes(dtype, rows, 0)) // size
-    while region > 0 and work_bytes(dtype, rows, region) > MAX_SHARED:
-        region -= 1
-    nm = min(rows, int((region + 0.25) ** 0.5))
-    while nm > 0 and _square(nm) > region:
-        nm -= 1
-    while nm < rows and _square(nm + 1) <= region:
-        nm += 1
-    if nm < 1 or (nm < rows and (
-            nm < PANEL or rows * (PANEL + 1) + PANEL * TILE > region)):
-        raise ValueError(f"R = {rows} rows in {dtype}: more than the pivot "
-                         f"kernel's blocked elimination holds")
-    slot = rows * (rows + 1) * size if nm < rows else 0
-    return LaunchShape(cap_s, staged, *medium, min(num_worlds, SMS),
-                       work_bytes(dtype, rows, region), region, nm, slot,
-                       4)
+        return LaunchShape(cap_s, *medium, 0, 0, 0, 0, False, 0, 3)
+    near = max(MAX_SHARED - vector_bytes(size, rows), 0) // size
+    far = _rows_in(near, rows) < rows and (
+        _rows_in(near, rows) < PANEL or panel_elems(rows) > near)
+    region = MAX_SHARED // size if far else near
+    nm = _rows_in(region, rows)
+    slot = slot_bytes(size, rows, far) if nm < rows else 0
+    return LaunchShape(cap_s, *medium, min(num_worlds, SMS),
+                       shared_bytes(size, rows, region, far), region, nm,
+                       far, slot, 4)
 
 
-def tier_of(dtype: torch.dtype, rows: int, valid_count: int) -> str:
+def tier_of(rows: int, valid_count: int) -> str:
     """The tier that takes a world of ``valid_count`` valid rows of R =
     ``rows``: "staged", "medium" or "large"."""
     if valid_count <= min(rows, STAGED_ROWS):
@@ -192,8 +199,7 @@ def resources(dtype: torch.dtype) -> dict:
     out = {}
     for which, tier in enumerate(TIERS):
         res = (ctypes.c_int * 5)()
-        err = _library().lcp_pivot_resources(int(dtype == torch.float64),
-                                             which, res)
+        err = _library(dtype).lcp_pivot_resources(which, res)
         if err != 0:
             raise RuntimeError(f"lcp_pivot resources: CUDA error {err}")
         out[tier] = dict(registers=res[0], local_bytes=res[1],
@@ -204,7 +210,7 @@ def resources(dtype: torch.dtype) -> dict:
 
 def _check(a_mat, b, valid, is_normal, mu_row):
     """Raise on what the kernel does not take."""
-    if a_mat.dtype not in _LAUNCHERS:
+    if a_mat.dtype not in BUILD_FLAGS:
         raise TypeError(f"A of dtype {a_mat.dtype}: float32 or float64")
     if a_mat.dim() != 3 or a_mat.shape[1] != a_mat.shape[2]:
         raise ValueError(f"A of shape {tuple(a_mat.shape)}: expected "
@@ -262,14 +268,15 @@ def launch(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    fn = getattr(_library(), _LAUNCHERS[f])
+    fn = _library(f).lcp_pivot_launch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(a_mat), ptr(b), ptr(valid), ptr(is_normal), ptr(mu),
                  ptr(lam), ptr(rounds), ptr(counters), ptr(lists),
                  ptr(slots), bsz, r, shape.staged_rows, shape.medium_rows,
                  shape.medium_blocks, shape.large_blocks, shape.large_region,
-                 shape.shared_rows, int(bool(friction)), stream)
+                 shape.shared_rows, int(shape.far), int(bool(friction)),
+                 stream)
     if err != 0:
         raise RuntimeError(f"lcp_pivot kernel launch failed: CUDA error "
                            f"{err}")

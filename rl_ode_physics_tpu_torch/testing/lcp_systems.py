@@ -73,11 +73,16 @@ def valid_of_count(count: int, contacts: int):
 
 def tier_boundary_lcp(counts, seed: int = 13, mu=None, contacts: int = 96):
     """``random_contact_lcp`` of ``contacts`` contacts (R = 288 by default)
-    between 128 bodies, world i with ``counts[i]`` valid rows
-    (``valid_of_count``): e.g. ``ops/lcp_kernel.boundary_counts``."""
+    between max(128, ``contacts``) bodies, world i with ``counts[i]`` valid
+    rows (``valid_of_count``): e.g. ``ops/lcp_kernel.boundary_counts``.
+    Every normal row is pressed (b < 0), so that under μ = ∞ every valid
+    row is active in the first round: a world's first active block is its
+    valid count, and the kernel's switches on the active count are met at
+    the counts given."""
     a_mat, b, valid, is_normal, mu_row = random_contact_lcp(
-        seed, worlds=len(counts), contacts=contacts, bodies=128, mu=mu,
-        live=1.0)
+        seed, worlds=len(counts), contacts=contacts,
+        bodies=max(128, contacts), mu=mu, live=1.0)
+    b[:, :contacts] = -np.abs(b[:, :contacts]) - 0.01
     for w, count in enumerate(counts):
         valid[w] = valid_of_count(count, contacts)
     return a_mat, b, valid, is_normal, mu_row

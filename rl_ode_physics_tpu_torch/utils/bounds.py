@@ -158,13 +158,37 @@ def pgs_bound(valid, jlive, num_slots: int, iterations: int, dtype=None,
 # permutation's and the column's loads, |·| and compare, 5 levels of the
 # warp's argmax tree at a shuffle and a select each, the pivot's load, its
 # reciprocal, the multiplier, the update's FMA and store, the barrier) and
-# of one back-substitution step (a shuffle, a multiply, an FMA)
+# of one back-substitution step (a shuffle, a multiply, an FMA): a count
+# from the source, not a measurement of the kernel's cycles
 LCP_CHAIN_PER_PIVOT_STEP = 20
 LCP_CHAIN_PER_BACK_STEP = 3
 
 
-def lcp_pivot_bound(valid, rounds, dtype=None, mu_given: bool = True
-                    ) -> dict:
+def lcp_active_rows(lam, valid, is_normal, friction: bool, mu_row=None):
+    """(B,) each world's active rows in the last solve of a pivot solve
+    that reached its fixed point, read from its λ (B, R): a valid normal
+    row with λ > 0, a valid friction row (with ``friction``) whose μ is ∞,
+    or whose λ lies inside its box by more than the fixed point's
+    tolerance lets the box move, |λ| < μ·(max(λ_n, 0) − tol·(1 + max|λ|))
+    (a clamped row sits on the box of the round before). ``mu_row`` (B,
+    C), or None (all ∞)."""
+    c = lam.shape[1] // 3
+    normal = valid & is_normal
+    fric = valid & ~is_normal & bool(friction)
+    if mu_row is None:
+        boxed_in = valid.new_ones(valid.shape)
+    else:
+        # ops/lcp._pivot_solve's fixed-point tolerance
+        tol = 1e-7 if lam.dtype.itemsize == 8 else 30 * 2.0 ** -23
+        slack = tol * (1 + lam.abs().amax(1, keepdim=True))
+        mu3 = mu_row.to(lam.dtype).repeat(1, 3)
+        ln = lam[:, :c].clamp_min(0).repeat(1, 3)
+        boxed_in = mu3.isinf() | (lam.abs() < mu3 * (ln - slack))
+    return ((normal & (lam > 0)) | (fric & boxed_in)).sum(1)
+
+
+def lcp_pivot_bound(valid, rounds, dtype=None, mu_given: bool = True,
+                    active=None) -> dict:
     """The least time of one ``lcp_pivot_solve`` launch on these worlds:
     ``valid`` (B, R) the valid rows, ``rounds`` (B,) the pivot rounds each
     world took. Bytes: every row's valid flag (a bool), each world's V × V
@@ -174,18 +198,21 @@ def lcp_pivot_bound(valid, rounds, dtype=None, mu_given: bool = True
     of its active block (2/3·n³) and two products of its V valid rows
     (4·V²), with every valid row taken as active (the bilateral friction
     rows always are, and a resting stack's normal rows are). ``chain_ms``,
-    not part of the bound: the longest world's chain, its solves × its
-    valid rows' pivot and back-substitution steps at
-    ``CYCLES_PER_DEPENDENT_OP`` cycles a dependent operation."""
+    not part of the bound, an estimate: the longest world's chain, its
+    solves × n pivot and n back-substitution steps at
+    ``CYCLES_PER_DEPENDENT_OP`` cycles a dependent operation, each solve
+    taken at n = ``active`` (B,), the active rows of the world's last solve
+    (``lcp_active_rows``), or, where None, at n = V (an upper estimate)."""
     size, rate = _rates(dtype)
     b, r = valid.shape
     v = valid.sum(1).double()
+    n = v if active is None else active.double()
     solves = rounds.double() + 1
     n_bytes = (b * r + float((v * v * size + v * (size + 1)).sum())
                + (float((v / 3).ceil().sum()) * size if mu_given else 0)
                + b * r * size + 4 * b)
     ops = float((solves * (2.0 / 3.0 * v ** 3 + 4 * v * v)).sum())
-    chain = float((solves * v).max()) * (LCP_CHAIN_PER_PIVOT_STEP
+    chain = float((solves * n).max()) * (LCP_CHAIN_PER_PIVOT_STEP
                                          + LCP_CHAIN_PER_BACK_STEP)
     ops_ms = ops / rate * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3

@@ -7,6 +7,7 @@ Run on a machine with a CUDA card, from the root of the checkout::
         --mesh old=build/parent/sphere_mesh_d2.cu,-fmad=false --mesh new= \\
         --compact old=build/parent/compact_rows.cu --compact new= \\
         --probe old=build/parent/device_probe.cu --probe new= \\
+        --pivot fewer=build/ab/lcp_pivot.cu --pivot new= \\
         [--resources] [--sass DIR] [--rounds 2]
 
 A variant is ``label=source[,nvcc flag...]``: a source file with the C
@@ -40,7 +41,15 @@ at (8, 384) and 1,024 trips), each variant first held to the plain
 versions: ``probe_matmuls`` by ``matmuls_agree`` at 1, 2 and 3 trips on
 random and on the TPU probe's inputs (a product 1% off refused),
 ``probe_mxu`` bit for bit at A = 1, B = 1/16 after 1, 2, 3, 7 and 64
-products and at rtol 1e-5 on random inputs, ``probe_vpu`` bit for bit.
+products and at rtol 1e-5 on random inputs, ``probe_vpu`` bit for bit;
+DANTZIG's pivot kernel (a source with ``csrc/lcp_pivot.cu``'s interface)
+in float64 on 1,024 worlds of R = 288 rows (``testing/lcp_systems``, 64
+random worlds repeated), each of ``PIVOT_WORKLOADS``: a valid count and
+whether the friction rows take part, which sets the tier and the active
+rows of its solves (the register tiers' step loop is unrolled for 16, 32,
+48 or 64 steps, by the active rows), each variant first held to
+``ops/lcp._pivot_solve`` (λ within 1e-10 of max |λ|, every world's rounds
+equal).
 With ``--sass``, a ``--probe`` variant also reports the FFMA instructions
 of each kernel in its listing (``ffma``).
 """
@@ -58,6 +67,11 @@ ROOT = Path(__file__).resolve().parents[2]
 # sphere_mesh_d2 queries that are timed, in centres: one, a world's spheres,
 # and every sphere of the trimesh main path (1,024 worlds x 15)
 QUERY_CENTRES = (1, 15, 64, 15360)
+# the pivot kernel's workloads: name → (valid rows a world, friction)
+PIVOT_WORKLOADS = {"staged, 12 rows": (12, True),
+                   "staged, 27 rows": (27, True),
+                   "medium, 42 rows, no friction": (42, False),
+                   "medium, 42 rows": (42, True)}
 # a --mesh variant marked with this word has the interface that
 # csrc/sphere_mesh_d2.cu had before its centres got a batch axis
 ONE_CENTRE = "one-centre"
@@ -358,6 +372,59 @@ def probe_variants(specs, args) -> dict:
             "variants": result}
 
 
+def pivot_variants(specs, args) -> dict:
+    import numpy as np
+    import torch
+    from rl_ode_physics_tpu_torch.ops import kernel_build, lcp, lcp_kernel
+    from rl_ode_physics_tpu_torch.testing.lcp_systems import (
+        random_contact_lcp, valid_of_count)
+
+    a_mat, b, _, is_normal, _ = random_contact_lcp(
+        5, worlds=64, contacts=96, bodies=128, live=1.0)
+    a_mat, b, is_normal = (torch.from_numpy(np.tile(x, (16,) + (1,) * (
+        x.ndim - 1))).to("cuda") for x in (a_mat, b, is_normal))
+    libs, result = {}, {}
+    for label, src, flags in (_variant(s, "lcp_pivot.cu") for s in specs):
+        result[label] = {"source": str(src), "flags": list(flags), "ms": {}}
+        libs[label] = kernel_build.load(
+            _build(src, flags + lcp_kernel.BUILD_FLAGS[torch.float64], label,
+                   "lcp_pivot", args, result[label]),
+            lcp_kernel.FUNCTIONS)
+
+    def launch(lib, valid, friction):
+        saved = lcp_kernel._library
+        lcp_kernel._library = lambda dtype: lib
+        try:
+            return lcp_kernel.launch(a_mat, b, valid, is_normal, friction)
+        finally:
+            lcp_kernel._library = saved
+
+    for name, (count, friction) in PIVOT_WORKLOADS.items():
+        valid = torch.from_numpy(valid_of_count(count, 96)).to("cuda")
+        valid = valid.expand(a_mat.shape[0], -1).contiguous()
+        want, want_rounds = lcp._pivot_solve(a_mat, b, valid, is_normal,
+                                             friction)
+        scale = float(want.abs().max())
+        calls = {}
+        for label, lib in libs.items():
+            lam, rounds, _ = launch(lib, valid, friction)
+            err = float((lam - want).abs().max())
+            if not (err <= 1e-10 * scale and torch.equal(rounds,
+                                                         want_rounds)):
+                raise AssertionError(f"{label}, {name}: {err / scale:.3e} "
+                                     f"of max |λ|, or other rounds than the "
+                                     f"plain version")
+            result[label].setdefault("rel_err", {})[name] = err / scale
+            calls[label] = lambda lib=lib: launch(lib, valid, friction)
+        for label, ms in _time_in_turns(calls, args.rounds, 20).items():
+            result[label]["ms"][name] = ms
+    return {"shape": {"B": int(a_mat.shape[0]), "R": 288,
+                      "dtype": "float64",
+                      "workloads": {k: list(v) for k, v in
+                                    PIVOT_WORKLOADS.items()}},
+            "variants": result}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mesh", action="append", default=[],
@@ -369,6 +436,9 @@ def main() -> None:
     ap.add_argument("--probe", action="append", default=[],
                     metavar="LABEL=SOURCE[,FLAG...]",
                     help="a source with csrc/device_probe.cu's launchers")
+    ap.add_argument("--pivot", action="append", default=[],
+                    metavar="LABEL=SOURCE[,FLAG...]",
+                    help="a source with csrc/lcp_pivot.cu's interface")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--resources", action="store_true")
     ap.add_argument("--sass", default=None, metavar="DIR")
@@ -382,6 +452,8 @@ def main() -> None:
         report["compact_rows_t"] = compact_variants(args.compact, args)
     if args.probe:
         report["device_probe"] = probe_variants(args.probe, args)
+    if args.pivot:
+        report["lcp_pivot"] = pivot_variants(args.pivot, args)
     print(json.dumps(report, indent=1))
 
 

@@ -736,7 +736,7 @@ def _lcp_kernel_against_plain(system, friction, dtype, what=""):
     # each world in the tier of its valid count
     counts = valid.sum(1).tolist()
     for tier in lcp_kernel.TIERS:
-        expected = sum(lcp_kernel.tier_of(f, valid.shape[1], v) == tier
+        expected = sum(lcp_kernel.tier_of(valid.shape[1], v) == tier
                        for v in counts)
         assert tiers[tier] == expected, (what, tiers, counts)
     assert lam.dtype == f and rounds.dtype == torch.int32
@@ -753,18 +753,31 @@ def _lcp_kernel_against_plain(system, friction, dtype, what=""):
     return rounds, err
 
 
+def _far_rows(dtype):
+    """The least R = 3C whose large tier keeps its panel and vectors in
+    device memory (``launch_shape(...).far``): 600 in float64, 1,149 in
+    float32."""
+    from rl_ode_physics_tpu_torch.ops import lcp_kernel
+    return next(r for r in range(291, 3000, 3)
+                if lcp_kernel.launch_shape(dtype, 1, r).far)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", ["stack", "stack_mu_finite",
                                   "more_rows_than_staged", "tier_boundaries",
                                   "tier_boundaries_mu_finite",
-                                  "capsule_pile"])
+                                  "capsule_pile", "past_the_shared_panel"])
 def test_lcp_pivot_kernel_matches_plain_on_card(case, dtype):
     """The referee's DANTZIG configuration's systems on the settled mini
     stack (μ = ∞; μ = 0.4, boxed rows) and on the capsule pile settled 60
     substeps (past the float64 stage), worlds of more valid rows than the
-    kernel stages, up to all 288, and one world at each tier boundary of
-    the dtype (``lcp_kernel.boundary_counts``; μ = ∞ and 0.4)."""
+    kernel stages, up to all 288, one world at each tier boundary of the
+    dtype (``lcp_kernel.boundary_counts``; μ = ∞ and 0.4; at μ = ∞ every
+    row active in the first round, so that the world of the large tier's
+    shared rows + 1 takes the blocked elimination and the one of its shared
+    rows − 1 does not), and one world of every row valid past the R whose
+    panel fits shared memory (600 rows in float64, 1,149 in float32)."""
     _require_card()
     from rl_ode_physics_tpu_torch.core.config import EngineConfig, SolverKind
     from rl_ode_physics_tpu_torch.ops import lcp_kernel
@@ -772,27 +785,67 @@ def test_lcp_pivot_kernel_matches_plain_on_card(case, dtype):
         tier_boundary_lcp)
     config = EngineConfig(**REFEREE_DANTZIG, solver=SolverKind.DANTZIG)
     staged = lcp_kernel.STAGED_ROWS
+    f = getattr(torch, dtype)
+
+    def on_card(system):
+        return tuple(None if x is None else torch.from_numpy(x).to("cuda")
+                     for x in system)
+
     if case == "more_rows_than_staged":
         system = _synthetic_systems()
         count = system[2].sum(1)
         assert int(count.max()) == 288
         assert int((count > staged).sum()) == 3
     elif case.startswith("tier_boundaries"):
-        counts = lcp_kernel.boundary_counts(getattr(torch, dtype), 288)
+        counts = lcp_kernel.boundary_counts(f, 288)
         mu = 0.4 if case.endswith("mu_finite") else None
-        system = tuple(None if x is None else torch.from_numpy(x).to("cuda")
-                       for x in tier_boundary_lcp(counts, mu=mu))
+        system = on_card(tier_boundary_lcp(counts, mu=mu))
         assert system[2].sum(1).tolist() == counts
+        if mu is None:
+            nm = lcp_kernel.launch_shape(f, 1, 288).shared_rows
+            for count, blocked in ((nm - 1, False), (nm + 1, True)):
+                w = counts.index(count)
+                one = [x[w:w + 1].contiguous() for x in system[:4]]
+                _, _, counters = lcp_kernel.launch(
+                    one[0].to(f), one[1].to(f), *one[2:], True)
+                tiers = lcp_kernel.tier_counts(1, counters)
+                assert tiers["large"] == 1, (count, tiers)
+                assert (tiers["blocked_solves"] > 0) == blocked, (count,
+                                                                  tiers)
     elif case == "capsule_pile":
         system = _dantzig_systems(config, worlds=2, scene="capsule_pile_world",
                                   substeps=60, kick=False)
         assert int(system[2].sum(1).max()) > staged
+    elif case == "past_the_shared_panel":
+        rows = _far_rows(f)
+        assert rows == (600 if f == torch.float64 else 1149)
+        assert not lcp_kernel.launch_shape(f, 1, rows - 3).far
+        system = on_card(tier_boundary_lcp([rows], contacts=rows // 3))
+        _, _, counters = lcp_kernel.launch(system[0].to(f), system[1].to(f),
+                                           *system[2:4], True)
+        assert lcp_kernel.tier_counts(1, counters)["blocked_solves"] > 0
     else:
         system = _dantzig_systems(config)
         assert int(system[2].sum(1).min()) >= 12
         if case == "stack_mu_finite":
             system = system[:4] + (torch.full_like(system[4], 0.4),)
     _lcp_kernel_against_plain(system, True, dtype, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_lcp_pivot_register_tiers_fit_the_sm_on_card(dtype):
+    """What the card reports of the register tiers' built kernels: the
+    staged tier's static shared memory lets 8 of its blocks share an SM (a
+    1,024-world batch in one wave), the medium tier's is under the 48 KB
+    that needs no opt-in, the large tier's is all dynamic."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.ops import lcp_kernel
+    res = lcp_kernel.resources(getattr(torch, dtype))
+    assert 8 * (res["staged"]["static_shared"] + 1024) \
+        <= lcp_kernel.SM_SHARED, res
+    assert res["medium"]["static_shared"] <= 48 * 1024, res
+    assert res["large"]["static_shared"] == 0, res
 
 
 @pytest.mark.cuda

@@ -17,14 +17,15 @@
   blocks of 32, the pivots and the fixed-point test on local rows), against
   the plain ``_pivot_solve`` in float64: λ within 1e-10 of max |λ| and each
   world's rounds equal, at μ = ∞, a finite μ and per-contact μ, at every
-  tier boundary and on the capsule pile's own system; the blocked
-  elimination bitwise the unblocked one.
+  tier boundary (the large tier's shared rows − 1 eliminated whole, + 1
+  blocked) and on the capsule pile's own system; the blocked elimination
+  bitwise the unblocked one; the last solve's active rows read from λ.
 * The plain ``_pivot_solve`` returns each world's rounds, those the world
   takes alone.
 * ``lcp_pivot_solve`` on CPU tensors is the plain version, bit for bit, and
   counts no launch; it raises on what the kernel does not take; its launch
-  is sized from the shapes alone; the tiers follow the valid count; the
-  bound's chain floor.
+  is sized from the shapes alone, at any R; the tiers follow the valid
+  count; the bound's chain floor.
 
 Inputs are made from numpy seeds. The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 19b).
@@ -220,19 +221,19 @@ def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None,
     block of more than its shared rows blocked, ``launch_shape(dtype)``),
     the valid rows gathered (local indices), each row's normal row found
     among them, the rounds on the active block alone. Returns (λ (B, R),
-    rounds (B,), each world's tier, the solves that took the blocked
-    elimination)."""
+    rounds (B,), each world's tier, each world's solves that took the
+    blocked elimination, each world's active rows in its last solve)."""
     bsz, r = b.shape
     c = r // 3
     tol = lcp._TOL
     fp_tol = 1e3 * tol
     lam_out = np.zeros((bsz, r))
     rounds_out = np.zeros(bsz, np.int32)
-    tiers, blocked = [], [0]
+    tiers, blocked, last_active = [], np.zeros(bsz, int), np.zeros(bsz, int)
     for w in range(bsz):
         rows = np.nonzero(valid[w])[0]
         v = len(rows)
-        tiers.append(lcp_kernel.tier_of(dtype, r, v))
+        tiers.append(lcp_kernel.tier_of(r, v))
         nm = (lcp_kernel.launch_shape(dtype, bsz, r).shared_rows
               if tiers[-1] == "large" else None)
         a = a_mat[w][np.ix_(rows, rows)]
@@ -262,7 +263,7 @@ def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None,
             ai = np.nonzero(act)[0]
             rhs = -bv[ai] - a[np.ix_(ai, ~act)] @ cv[~act]
             out[ai], panels = _gauss(a[np.ix_(ai, ai)], rhs, nm)
-            blocked[0] += panels > 0
+            blocked[w] += panels > 0
             return out
 
         done, rnd = False, 0
@@ -292,11 +293,12 @@ def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None,
             rnd += 1
         hi = bounds(lam)
         out = solve(act, hi)
+        last_active[w] = act.sum()
         out = np.where(tog, np.maximum(out, 0.0), out)
         out = np.where(box, np.clip(out, -hi, hi), out)
         lam_out[w, rows] = out
         rounds_out[w] = rnd
-    return lam_out, rounds_out, tiers, blocked[0]
+    return lam_out, rounds_out, tiers, blocked, last_active
 
 
 def _torch(*arrays):
@@ -318,8 +320,8 @@ def test_kernel_model_matches_the_plain_pivot_solve(seed, mu):
     valid[-1] = True
     want_lam, want_rounds = lcp._pivot_solve(
         *_torch(a_mat, b, valid, is_normal), True, *_torch(mu_row))
-    got_lam, got_rounds, _, _ = _kernel_model(a_mat, b, valid, is_normal,
-                                              True, mu_row)
+    got_lam, got_rounds, _, _, _ = _kernel_model(a_mat, b, valid,
+                                                 is_normal, True, mu_row)
     assert want_rounds.dtype == torch.int32 and want_rounds.shape == (5,)
     assert got_rounds.tolist() == want_rounds.tolist()
     assert int(want_rounds.min()) < lcp.MAX_PIVOT_ROUNDS
@@ -337,8 +339,8 @@ def test_kernel_model_without_friction():
                                                        bodies=24)
     want_lam, want_rounds = lcp._pivot_solve(
         *_torch(a_mat, b, valid, is_normal), False)
-    got_lam, got_rounds, _, _ = _kernel_model(a_mat, b, valid, is_normal,
-                                              False)
+    got_lam, got_rounds, _, _, _ = _kernel_model(a_mat, b, valid,
+                                                 is_normal, False)
     assert got_rounds.tolist() == want_rounds.tolist()
     assert bool((want_lam[:, 12:] == 0).all())
     np.testing.assert_allclose(got_lam, want_lam.numpy(), rtol=0,
@@ -416,32 +418,34 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_launch_is_sized_from_the_shapes():
-    """The staged tier holds up to ``STAGED_ROWS`` (32) valid rows, a warp
-    a world in ~9 KB of shared memory, so that a 1,024-world batch is
-    resident in one wave; the medium tier's ``MEDIUM_ROWS`` (64) two warps
-    a world, its persistent blocks at least 8 an SM; the large tier
-    one block an SM within the 227 KB opt-in, an active block of up to
-    ``shared_rows`` rows in shared memory and a slot of R × (R + 1) for the
-    blocked elimination past it; no worklist where every world fits the
-    stage, no slot where every active block fits shared memory."""
+    """The staged tier holds up to ``STAGED_ROWS`` (32) valid rows, the
+    medium tier ``MEDIUM_ROWS`` (64) in persistent blocks at least 8 an SM
+    (their shared memory is what the card reports, held in
+    ``tests/test_torch_cuda.py``); the large tier one block an SM within
+    the 227 KB opt-in, an active block of up to ``shared_rows`` rows in
+    shared memory and a slot of R × (R + 1) for the blocked elimination
+    past it; its panel and vectors beside the region while they fit, else
+    (``far``) in the slot, at any R: past 597 rows in float64 and 1,146 in
+    float32, and at the default ``max_contacts`` (R = 6,144); no worklist
+    where every world fits the stage, no slot where every active block fits
+    shared memory."""
+    from rl_ode_physics_tpu_torch.core.config import EngineConfig
+    default_rows = 3 * EngineConfig().max_contacts
     for dtype in (torch.float32, torch.float64):
         size = dtype.itemsize
         shape = lcp_kernel.launch_shape(dtype, 1024, 288)
         assert shape.staged_rows == lcp_kernel.STAGED_ROWS == 32
-        assert 8 * (shape.staged_bytes + 1024) <= lcp_kernel.SM_SHARED
         assert shape.medium_rows == lcp_kernel.MEDIUM_ROWS == 64
-        assert shape.medium_bytes <= 48 * 1024
         assert shape.medium_blocks == min(1024, 8 * lcp_kernel.SMS)
         assert shape.large_blocks == lcp_kernel.SMS
-        assert shape.large_bytes <= lcp_kernel.MAX_SHARED
-        assert shape.large_bytes == lcp_kernel.work_bytes(
-            dtype, 288, shape.large_region)
+        assert shape.large_bytes == lcp_kernel.MAX_SHARED
+        assert shape.large_bytes == lcp_kernel.shared_bytes(
+            size, 288, shape.large_region, False)
         nm = shape.shared_rows
         assert nm * ((nm + 1) | 1) <= shape.large_region
         assert (nm + 1) * ((nm + 2) | 1) > shape.large_region
-        assert 288 * (lcp_kernel.PANEL + 1) \
-            + lcp_kernel.PANEL * lcp_kernel.TILE <= shape.large_region
-        assert lcp_kernel.PANEL <= nm < 288
+        assert lcp_kernel.panel_elems(288) <= shape.large_region
+        assert lcp_kernel.PANEL <= nm < 288 and not shape.far
         assert shape.slot_bytes == 288 * 289 * size
         assert shape.launches == 4
         small = lcp_kernel.launch_shape(dtype, 1024, 30)
@@ -453,10 +457,25 @@ def test_launch_is_sized_from_the_shapes():
             == shape._replace(medium_blocks=0, large_blocks=0)
         mid = lcp_kernel.launch_shape(dtype, 1024, 3 * 40)
         assert mid.slot_bytes == 0 and mid.shared_rows == 120
+        # far: the panel and the vectors in the slot, all of shared memory
+        # for the region; the last R that holds them beside it, and past it
+        last = 597 if dtype == torch.float64 else 1146
+        near = lcp_kernel.launch_shape(dtype, 8, last)
+        assert not near.far and near.shared_rows < last
+        assert lcp_kernel.panel_elems(last) <= near.large_region
+        for rows in (last + 3, default_rows):
+            far = lcp_kernel.launch_shape(dtype, 8, rows)
+            assert far.far and far.launches == 4
+            assert far.large_region == lcp_kernel.MAX_SHARED // size
+            assert far.large_bytes == lcp_kernel.MAX_SHARED
+            assert far.shared_rows == (169 if size == 8 else 240)
+            assert far.slot_bytes == lcp_kernel.slot_bytes(size, rows, True)
+            assert far.slot_bytes >= (
+                rows * (rows + 1) + lcp_kernel.panel_elems(rows)) * size \
+                + lcp_kernel.vector_bytes(size, rows)
+            assert far.slot_bytes % 16 == 0
     assert lcp_kernel.launch_shape(torch.float64, 8, 288).shared_rows == 158
     assert lcp_kernel.launch_shape(torch.float32, 8, 288).shared_rows == 230
-    with pytest.raises(ValueError):
-        lcp_kernel.launch_shape(torch.float64, 8, 3 * 200)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -471,9 +490,9 @@ def test_tiers_follow_the_valid_count(dtype):
     cap, cap_m, nm = (shape.staged_rows, shape.medium_rows,
                       shape.shared_rows)
     assert counts == [cap, cap + 1, cap_m, cap_m + 1, nm - 1, nm + 1, 288]
-    tiers = [lcp_kernel.tier_of(dtype, 288, v) for v in counts]
+    tiers = [lcp_kernel.tier_of(288, v) for v in counts]
     assert tiers == ["staged", "medium", "medium"] + ["large"] * 4
-    assert lcp_kernel.tier_of(dtype, 30, 30) == "staged"
+    assert lcp_kernel.tier_of(30, 30) == "staged"
     counters = torch.tensor([2, 2, 4, 4, 9, 0, 0, 0], dtype=torch.int32)
     assert lcp_kernel.tier_counts(7, counters) == dict(
         staged=1, medium=2, large=4, blocked_solves=9)
@@ -507,12 +526,12 @@ def test_blocked_elimination_is_the_unblocked_one(n, nm):
 
 def _hold_model(system, friction=True, dtype=torch.float64):
     """The model against the plain loop: λ within ``MODEL_RTOL`` of max
-    |λ|, the same rounds a world. Returns the model's tiers and blocked
-    solves."""
+    |λ|, the same rounds a world. Returns the model's tiers and each
+    world's blocked solves."""
     a_mat, b, valid, is_normal, mu_row = system
     want_lam, want_rounds = lcp._pivot_solve(
         *_torch(a_mat, b, valid, is_normal), friction, *_torch(mu_row))
-    got_lam, got_rounds, tiers, blocked = _kernel_model(
+    got_lam, got_rounds, tiers, blocked, _ = _kernel_model(
         a_mat, b, valid, is_normal, friction, mu_row, dtype)
     assert got_rounds.tolist() == want_rounds.tolist()
     scale = float(want_lam.abs().max())
@@ -524,14 +543,20 @@ def _hold_model(system, friction=True, dtype=torch.float64):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_model_at_the_tier_boundaries(dtype):
     """One world at each tier boundary of the dtype (``boundary_counts``,
-    ``testing/lcp_systems.tier_boundary_lcp``), μ = ∞: each in the tier of
-    its count, the 288-row world through the blocked elimination, the
-    model within 1e-10 of the plain loop with its rounds."""
+    ``testing/lcp_systems.tier_boundary_lcp``), μ = ∞ and every row active
+    in the first round: each in the tier of its count, the world of the
+    large tier's shared rows − 1 eliminated whole in every solve, those of
+    its shared rows + 1 and of 288 rows blocked in at least one, the model
+    within 1e-10 of the plain loop with its rounds."""
     counts = lcp_kernel.boundary_counts(dtype, 288)
+    nm = lcp_kernel.launch_shape(dtype, 1, 288).shared_rows
     tiers, blocked, rounds, err = _hold_model(tier_boundary_lcp(counts),
                                               dtype=dtype)
-    assert tiers == [lcp_kernel.tier_of(dtype, 288, v) for v in counts]
-    assert set(tiers) == set(lcp_kernel.TIERS) and blocked > 0
+    assert tiers == [lcp_kernel.tier_of(288, v) for v in counts]
+    assert set(tiers) == set(lcp_kernel.TIERS)
+    by_count = dict(zip(counts, blocked.tolist()))
+    assert by_count[nm - 1] == 0
+    assert by_count[nm + 1] > 0 and by_count[288] > 0
     print(f"[lcp-kernel] tier boundaries {counts} ({dtype}): rounds "
           f"{rounds}, blocked solves {blocked}, err {err:.3e} of max|λ|")
 
@@ -594,27 +619,46 @@ def test_kernel_model_on_the_capsule_pile(capsule_pile_system, mu):
         mu_row = np.random.default_rng(17).uniform(0.2, 1.0, mu_row.shape)
         mu_row[:, ::3] = np.inf
     tiers, _, rounds, err = _hold_model((a_mat, b, valid, is_normal, mu_row))
-    assert tiers == [lcp_kernel.tier_of(torch.float64, 288, v)] == ["medium"]
-    assert lcp_kernel.tier_of(torch.float32, 288, v) == "medium"
+    assert tiers == [lcp_kernel.tier_of(288, v)] == ["medium"]
     print(f"[lcp-kernel] capsule pile ({mu}): {v} valid rows, rounds "
           f"{rounds}, err {err:.3e} of max|λ|")
 
 
 def test_chain_floor_of_the_pivot_kernel():
     """``lcp_pivot_bound``'s ``chain_ms``: the longest world's solves ×
-    its valid rows × the dependent operations of a pivot and a
-    back-substitution step, at 4 cycles each at 1.98 GHz; not part of the
-    bound."""
+    its active rows (else its valid rows) × the dependent operations of a
+    pivot and a back-substitution step, at 4 cycles each at 1.98 GHz; not
+    part of the bound."""
     from rl_ode_physics_tpu_torch.utils import bounds
     valid = torch.zeros((3, 288), dtype=torch.bool)
     valid[0, :27] = True
     valid[1, :42] = True
     valid[2, :30] = True
     rounds = torch.tensor([4, 3, 9], dtype=torch.int32)
-    got = bounds.lcp_pivot_bound(valid, rounds, torch.float64)
-    steps = max(5 * 27, 4 * 42, 10 * 30)
     per = bounds.LCP_CHAIN_PER_PIVOT_STEP + bounds.LCP_CHAIN_PER_BACK_STEP
-    assert got["chain_ms"] == pytest.approx(
-        steps * per * bounds.CYCLES_PER_DEPENDENT_OP
-        / bounds.BOOST_CLOCK_HZ * 1e3)
-    assert got["bound_ms"] == max(got["bytes_ms"], got["ops_ms"])
+    for active, steps in ((None, max(5 * 27, 4 * 42, 10 * 30)),
+                          (torch.tensor([27, 40, 11]),
+                           max(5 * 27, 4 * 40, 10 * 11))):
+        got = bounds.lcp_pivot_bound(valid, rounds, torch.float64,
+                                     active=active)
+        assert got["chain_ms"] == pytest.approx(
+            steps * per * bounds.CYCLES_PER_DEPENDENT_OP
+            / bounds.BOOST_CLOCK_HZ * 1e3)
+        assert got["bound_ms"] == max(got["bytes_ms"], got["ops_ms"])
+
+
+@pytest.mark.parametrize("mu", [None, 0.4, "mixed"],
+                         ids=["mu_inf", "mu_finite", "mu_per_contact"])
+def test_active_rows_of_the_last_solve(mu):
+    """``bounds.lcp_active_rows`` reads each world's active rows in its
+    last solve from λ alone: the model's own count of them, on random
+    contact LCPs."""
+    from rl_ode_physics_tpu_torch.utils import bounds
+    a_mat, b, valid, is_normal, mu_row = random_contact_lcp(
+        21, worlds=6, bodies=24, mu=mu)
+    lam, _, _, _, active = _kernel_model(a_mat, b, valid, is_normal, True,
+                                         mu_row)
+    got = bounds.lcp_active_rows(*_torch(lam, valid, is_normal), True,
+                                 *_torch(mu_row))
+    assert got.tolist() == active.tolist()
+    assert int(active.min()) < int(valid.sum(1).max())
