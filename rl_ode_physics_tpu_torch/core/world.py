@@ -37,6 +37,7 @@ from rl_ode_physics_tpu_torch.ops import solver as solver_ops
 from rl_ode_physics_tpu_torch.ops.trimesh import TriMesh, mesh_narrowphase
 from rl_ode_physics_tpu_torch.utils import graphs
 from rl_ode_physics_tpu_torch.utils import quat as quat_m
+from rl_ode_physics_tpu_torch.utils import tracing
 
 
 # ---------------------------------------------------------------------------
@@ -226,47 +227,62 @@ def step_with_diagnostics(state: WorldState, config: EngineConfig,
 def _step_impl(state: WorldState, config: EngineConfig,
                trimesh: TriMesh | None, with_metrics: bool = False,
                joints=None):
+    # the stage stamps (utils/tracing) launch nothing while tracing is off
+    tracing.stamp("start")
     if config.dense_pipeline and trimesh is None:
         # the dense pipeline has its own positional solve and no joints
         manifold = dense.dense_narrowphase(state, config)
+        _, _, depths, valid = manifold
+        metrics = _pair_row_counters(
+            state, with_metrics, num_pairs=valid, num_contacts=valid,
+            group=config.max_contacts_per_pair)   # drops nothing
+        tracing.stamp("collide")
         state = integrator.apply_external_forces(state, config)
+        tracing.stamp("forces")
         state = dense.dense_solve(state, manifold, config)
+        tracing.stamp("solve.iterate")
         state = integrator.integrate_positions(state, config)
+        tracing.stamp("integrate")
         if not with_metrics:
             return state
-        _, _, depths, valid = manifold
-        zero = torch.zeros_like(state.overflow)
         return state, _base_metrics(
-            state,
-            num_pairs=valid.any(-1).flatten(1).sum(1, dtype=torch.int32),
-            num_contacts=valid.flatten(1).sum(1, dtype=torch.int32),
-            pair_overflow=zero,        # the dense pipeline drops nothing
-            contact_overflow=zero,
+            state, **metrics,
             max_penetration=torch.where(valid, depths, 0.0).flatten(1)
             .amax(1))
 
     exclude = None
     if joints is not None:
         exclude = joint_ops.connected_mask(joints, state.num_slots)
+        tracing.stamp("joints")
     extra = None
     if trimesh is not None:
         extra = mesh_narrowphase(state, trimesh, config)
+        tracing.stamp("mesh")
     if config.typed_buckets:
-        # bucket drops are folded into contacts.overflow
+        # bucket drops are folded into contacts.overflow; the pair phase
+        # and the narrowphase stamp their own stages, bucket by bucket
         contacts, num_pairs = narrowphase.narrowphase_typed(
             state, config, extra, exclude=exclude)
         pair_overflow = torch.zeros_like(state.overflow)
     else:
         cand = broadphase.broadphase(state, config, exclude=exclude)
+        tracing.stamp("pairs")
         contacts = narrowphase.narrowphase(state, cand, config, extra)
         num_pairs, pair_overflow = cand.count, cand.overflow
+    metrics = _pair_row_counters(
+        state, with_metrics, num_pairs=num_pairs,
+        num_contacts=contacts.count, pair_overflow=pair_overflow,
+        contact_overflow=contacts.overflow)
+    tracing.stamp("compact")
     joints_rows = None
     if joints is not None:
         joints_rows = joint_ops.joint_rows(state, joints, config)
+        tracing.stamp("joints")
     # dropped pairs and rows accumulate on the state itself
     state = state.replace(
         overflow=state.overflow + contacts.overflow + pair_overflow)
     state = integrator.apply_external_forces(state, config)
+    tracing.stamp("forces")
     joint_fb = None
     if (joints_rows is not None and with_metrics
             and config.solver is SolverKind.JACOBI):
@@ -277,22 +293,65 @@ def _step_impl(state: WorldState, config: EngineConfig,
         joint_fb = joint_ops.feedback(joints_rows, jlam, config.dt)
     else:
         state = solver_ops.solve(state, contacts, config, joints_rows)
+    tracing.stamp("solve.iterate")
     state = integrator.integrate_positions(state, config)
+    tracing.stamp("integrate")
     if not with_metrics:
         return state
-    if not torch.is_tensor(num_pairs):        # no bucket enabled
-        num_pairs = torch.full_like(state.overflow, num_pairs)
     metrics = _base_metrics(
-        state,
-        num_pairs=num_pairs.to(torch.int32),
-        num_contacts=contacts.count,
-        pair_overflow=pair_overflow.to(torch.int32),
-        contact_overflow=contacts.overflow,
+        state, **metrics,
         max_penetration=torch.where(contacts.valid, contacts.depth,
                                     0.0).amax(1))
     if joint_fb is not None:
         metrics.update({f"joint_{k}": v for k, v in joint_fb.items()})
     return state, metrics
+
+
+def _pair_row_counters(state: WorldState, with_metrics: bool, num_pairs,
+                       num_contacts, pair_overflow=None,
+                       contact_overflow=None, group: int = 1) -> dict:
+    """A substep's pair and row counters, from the tensors its pipeline
+    made: the pairs tested, the contact rows kept, and the pairs and rows
+    dropped at a capacity (None: the pipeline drops none). While tracing
+    is on they are summed over the worlds into its device counters
+    (``pairs_tested``, ``contact_rows``, ``rows_dropped`` and
+    ``world_substeps``, ``utils/tracing``); with ``with_metrics`` they are
+    returned per world, (B,) int32, as ``step_with_diagnostics``'
+    ``num_pairs``, ``num_contacts``, ``pair_overflow`` and
+    ``contact_overflow``. One function for both, so the server's
+    diagnostics and the trace cannot disagree. A count given as a bool
+    mask (B, …, ``group``) counts the groups of its last axis that hold a
+    set entry (the dense pipeline's manifolds); ``num_pairs`` may be an int
+    (no bucket enabled), the same in every world."""
+    b = state.num_worlds
+    tracing.count("pairs_tested", num_pairs if torch.is_tensor(num_pairs)
+                  else num_pairs * b, group)
+    tracing.count("contact_rows", num_contacts,
+                  also=("world_substeps", b))
+    for dropped in (pair_overflow, contact_overflow):
+        if dropped is not None:
+            tracing.count("rows_dropped", dropped)
+    if not with_metrics:
+        return {}
+
+    def per_world(x, g=1):
+        if not torch.is_tensor(x):
+            return torch.full_like(state.overflow, x)
+        if x.dtype == torch.bool:
+            return (x.any(-1) if g > 1 else x).flatten(1).sum(
+                1, dtype=torch.int32)
+        return x.to(torch.int32)
+
+    zero = None
+    if pair_overflow is None or contact_overflow is None:
+        zero = torch.zeros_like(state.overflow)
+    return dict(
+        num_pairs=per_world(num_pairs, group),
+        num_contacts=per_world(num_contacts),
+        pair_overflow=zero if pair_overflow is None
+        else per_world(pair_overflow),
+        contact_overflow=zero if contact_overflow is None
+        else per_world(contact_overflow))
 
 
 def _base_metrics(state: WorldState, **counters):
@@ -328,7 +387,7 @@ def make_step_fn(config: EngineConfig, substeps: int = 1,
         raise ValueError(f"substeps={substeps} must be at least 1")
     return graphs.StepFunction(
         lambda state: _step_impl(state, config, trimesh, joints=joints),
-        substeps, None, donate, config, joints)
+        substeps, None, donate, config, joints, closing_stamp="integrate")
 
 
 def make_diagnostics_step_fn(config: EngineConfig):
@@ -341,4 +400,4 @@ def make_diagnostics_step_fn(config: EngineConfig):
     config.validate()
     return graphs.Graphed(
         lambda state, _: _step_impl(state, config, None, with_metrics=True),
-        None, False, config)
+        None, False, config, closing_stamp="integrate")

@@ -39,6 +39,7 @@ from rl_ode_physics_tpu_torch.core.state import WorldState, world_inv_inertia
 from rl_ode_physics_tpu_torch.ops import lcp_kernel
 from rl_ode_physics_tpu_torch.ops import solver as sol
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
+from rl_ode_physics_tpu_torch.utils import tracing
 
 # Murty converges in at most #normal-rows flips for PD systems in exact
 # arithmetic; finite-μ boxed rows add a geometric fixed-point tail
@@ -219,6 +220,7 @@ def solve_dantzig(state: WorldState, contacts: Contacts,
     if not config.friction:
         # only the first C rows take part
         valid = valid & is_normal
+    tracing.stamp("solve.rows")
     lam, _ = lcp_kernel.lcp_pivot_solve(a_mat, b, valid, is_normal,
                                         config.friction, mu_row)
     bsz, n = state.num_worlds, state.num_slots

@@ -40,6 +40,7 @@ from rl_ode_physics_tpu_torch.ops.broadphase import PairCandidates, pair_mask
 from rl_ode_physics_tpu_torch.ops.compaction import top_k_indices
 from rl_ode_physics_tpu_torch.utils import graphs
 from rl_ode_physics_tpu_torch.utils import quat as quat_m
+from rl_ode_physics_tpu_torch.utils import tracing
 
 _EPS = 1e-9
 
@@ -746,6 +747,8 @@ def _compact_typed(packed_t, flat_valid, extra, config: EngineConfig, n: int,
         # the kernel rounds to bf16 and float32 itself; another dtype
         # rounds here
         packed_t, sel = compaction.round_to(packed_t, sel), None
+    tracing.count("candidate_rows", flat_valid,
+                  also=("candidate_slots", flat_valid.numel()))
     rows_t, cvalid, count, row_overflow = compaction_kernel.compact_rows_t(
         flat_valid, packed_t, config.max_contacts, sel_dtype=sel)
     a_out = rows_t[:, 7].to(torch.int32)
@@ -818,6 +821,7 @@ def narrowphase_typed(state: WorldState, config: EngineConfig, extra=None,
             hit & (tmin == t1) & (tmax == t2), cp_b)
         total_pairs = total_pairs + count
         pair_overflow = pair_overflow + over
+        tracing.stamp("pairs")
         points, normals, depths, valid = _collide_rows(
             _gather_rows(feats, ia), _gather_rows(feats, ib), k_b,
             {(t1, t2): kernel})
@@ -837,6 +841,7 @@ def narrowphase_typed(state: WorldState, config: EngineConfig, extra=None,
             slot_k.expand(b, 1, mk),
         ], dim=1))
         valid_parts.append(valid.reshape(b, mk))
+        tracing.stamp("collide")
 
     contacts = _compact_typed(torch.cat(packed_parts, 2).contiguous(),
                               torch.cat(valid_parts, 1), extra, config, n,
@@ -862,6 +867,7 @@ def narrowphase(state: WorldState, cand: PairCandidates, config: EngineConfig,
         _gather_rows(feats, ia), _gather_rows(feats, ib), k,
         _enabled_kernels(config))
     valid = valid & cand.valid[..., None]
+    tracing.stamp("collide")
 
     slot_k = torch.arange(k, dtype=torch.int32, device=state.device).repeat(cp)
     keys = ((ia * n + ib).repeat_interleave(k, 1) * k + slot_k).to(f)
@@ -880,6 +886,8 @@ def narrowphase(state: WorldState, cand: PairCandidates, config: EngineConfig,
         ], dim=-1)], dim=1)
         flat_valid = torch.cat([flat_valid, e_val], dim=1)
 
+    tracing.count("candidate_rows", flat_valid,
+                  also=("candidate_slots", flat_valid.numel()))
     rows, cvalid, count, overflow = compaction.compact_rows(
         flat_valid, packed, config.max_contacts)
     return Contacts(

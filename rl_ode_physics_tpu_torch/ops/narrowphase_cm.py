@@ -29,7 +29,7 @@ from rl_ode_physics_tpu_torch.ops.compaction import top_k_indices
 from rl_ode_physics_tpu_torch.ops.narrowphase import (
     _KERNEL_K, _bucket_pairs, _check_key_space, _compact_typed,
     _enabled_kernels, _pair_eligibility, _selector_dtype)
-from rl_ode_physics_tpu_torch.utils import graphs
+from rl_ode_physics_tpu_torch.utils import graphs, tracing
 
 _EPS = 1e-9
 
@@ -792,6 +792,7 @@ def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
             hit & (tmin == t1) & (tmax == t2), cp_b)
         total_pairs = total_pairs + count
         pair_overflow = pair_overflow + over
+        tracing.stamp("pairs")
         if w_sap:
             # window column w of sorted row i is sorted row i + 1 + w;
             # broad column l is appended feature N + l
@@ -849,6 +850,7 @@ def narrowphase_typed_cm(state: WorldState, config: EngineConfig,
             row_parts[8].append(ib_f)
             row_parts[9].append(torch.full_like(depth, float(s)))
             valid_parts.append(valid & bvalid)
+        tracing.stamp("collide")
 
     packed_t = torch.stack([torch.cat(parts, dim=1) for parts in row_parts],
                            dim=1)                             # (B, 10, M)

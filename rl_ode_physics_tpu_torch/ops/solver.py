@@ -48,6 +48,7 @@ from rl_ode_physics_tpu_torch.core.state import WorldState, world_inv_inertia
 from rl_ode_physics_tpu_torch.ops import joints as joint_ops
 from rl_ode_physics_tpu_torch.ops import pgs_kernel
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
+from rl_ode_physics_tpu_torch.utils import tracing
 
 _EPS = 1e-9
 
@@ -394,6 +395,7 @@ def solve_jacobi(state: WorldState, contacts: Contacts,
     beta = float(config.jacobi_beta)
     momentum = beta != 0.0
     with_joints = joints_rows is not None
+    tracing.stamp("solve.rows")
 
     def friction_bound(lam_n, mu):
         if config.per_body_surface:
@@ -718,6 +720,7 @@ def solve_pgs(state: WorldState, contacts: Contacts, config: EngineConfig,
     (``pgs_sweeps_plain``) on the CPU."""
     _check_solver(state)
     vel, lam, table = pgs_inputs(state, contacts, config, lam0)
+    tracing.stamp("solve.rows")
     vel, lam = pgs_kernel.pgs_solve(vel, lam, table, joints_rows,
                                     **pgs_params(config))
     out = state.replace(linvel=vel[..., 0:3].contiguous(),

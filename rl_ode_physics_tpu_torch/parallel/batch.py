@@ -123,7 +123,8 @@ def make_batched_step_fn(config: EngineConfig, substeps: int = 1,
     want = torch.device(device)
     step_fn = graphs.StepFunction(
         lambda state: _step_impl(state, config, trimesh, joints=joints),
-        substeps, unroll, donate, config, joints, want)
+        substeps, unroll, donate, config, joints, want,
+        closing_stamp="integrate")
 
     def fn(batch: WorldState) -> WorldState:
         if batch.device.type != want.type:

@@ -57,6 +57,15 @@ captured (``read_counts`` / ``counts_added``), takes it back (the capture
 launched nothing), and every replay adds it again (``credit``); the
 warm-up's launches are the graph's building, as a JAX compile is, and are
 taken back too. So a count reads the kernels that ran on the call's data.
+
+Tracing (``utils/tracing``): whether it is on is part of the capture key,
+so a step captured with stamps is never replayed as the untraced one, nor
+the other way round. A graph captured with tracing on ends with the
+stamp its ``Graphed`` names (``closing_stamp``: the step layer's
+``integrate``, so the carry's copy is the integration's write-back), where
+it names one, and is noted with its nodes; a graphed call's host work is
+three spans, ``prepare`` (``_detach_handed`` and the copies in),
+``launch`` (the replays) and ``hand_out``.
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ import weakref
 import torch
 
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
+from rl_ode_physics_tpu_torch.utils import tracing
 
 # bounded: a configuration sweep would otherwise hold every graph's pool
 MAX_GRAPHS = 64
@@ -355,6 +365,7 @@ class _Capture:
         self._owner = weakref.ref(owner)
         self._key = key
         self._body = owner.body
+        self._closing_stamp = owner.closing_stamp
         carry_leaves, self._carry_def = flatten(carry)
         const_leaves, self._const_def = flatten(consts)
         self.device = carry_leaves[0].device
@@ -388,12 +399,15 @@ class _Capture:
         for buf, t in zip(self.carry, out):
             if not _same_buffer(t, buf):
                 buf.copy_(t)
+        if self._closing_stamp:
+            tracing.stamp(self._closing_stamp)
         self.aux[n], self.aux_def = flatten(aux)
 
     def graph(self, n: int):
         if n not in self.graphs:
             counters = kernel_counters()
             before = read_counts(counters)
+            stamped = tracing.launched()
             t0 = time.perf_counter()
             self.graphs[n] = GRAPH(lambda: self._calls(n), self.device,
                                    self._pool)
@@ -402,6 +416,9 @@ class _Capture:
                 self._pool = self.graphs[n].pool()
             self.added[n] = counts_added(before, read_counts(counters))
             set_counts(counters, before)
+            if tracing.enabled():
+                tracing.note_graph(getattr(self.graphs[n], "nodes", None),
+                                   stamped)
         return self.graphs[n]
 
     def nodes(self) -> dict:
@@ -427,9 +444,10 @@ class _Capture:
     def run(self, carry, consts, steps: int, unroll: int, donate: bool):
         carry_leaves, _ = flatten(carry)
         const_leaves, _ = flatten(consts)
-        self._detach_handed(carry_leaves if donate else ())
-        _copy_in(self.carry, carry_leaves)
-        _copy_in(self.consts, const_leaves)
+        with tracing.span("prepare"):
+            self._detach_handed(carry_leaves if donate else ())
+            _copy_in(self.carry, carry_leaves)
+            _copy_in(self.consts, const_leaves)
         counters = kernel_counters()
         u = max(1, min(unroll, steps))
         full, rest = divmod(steps, u)
@@ -437,15 +455,17 @@ class _Capture:
         for n, times in ((u, full), (rest, 1 if rest else 0)):
             if times:
                 graph = self.graph(n)
-                for _ in range(times):
-                    graph.replay()
+                with tracing.span("launch"):
+                    for _ in range(times):
+                        graph.replay()
                 credit(counters, self.added[n], times)
                 last = n
         aux_leaves = self.aux[last] if last is not None else []
-        if donate:
-            out = self._hand_out(self.carry + aux_leaves)
-        else:
-            out = [t.clone() for t in self.carry + aux_leaves]
+        with tracing.span("hand_out"):
+            if donate:
+                out = self._hand_out(self.carry + aux_leaves)
+            else:
+                out = [t.clone() for t in self.carry + aux_leaves]
         n = len(self.carry)
         aux = unflatten(self.aux_def, out[n:]) if last is not None else None
         return unflatten(self._carry_def, out[:n]), aux
@@ -472,12 +492,14 @@ class Graphed:
     on a card outside ``disable_graphs()``, a call replays CUDA graphs of
     ``unroll`` body calls (``unroll=None``: all of a call's steps in one
     graph); otherwise it is the eager loop, and ``eager_reason`` says why
-    where it always is."""
+    where it always is. ``closing_stamp``: the ``utils/tracing`` stage
+    that a graph captured with tracing on ends, after the carry's copy."""
 
     def __init__(self, body, unroll=None, donate: bool = True,
                  config: EngineConfig | None = None, joints=None,
-                 device=None):
+                 device=None, closing_stamp: str | None = None):
         self.body = body
+        self.closing_stamp = closing_stamp
         self.unroll = unroll
         self.donate = donate
         self.captures = {}
@@ -492,7 +514,7 @@ class Graphed:
         carry_leaves, carry_def = flatten(carry)
         const_leaves, const_def = flatten(consts)
         key = (carry_def, const_def, _signature(carry_leaves),
-               _signature(const_leaves))
+               _signature(const_leaves), tracing.enabled())
         capture = self.captures.get(key)
         if capture is None:
             capture = _Capture(self, key, carry, consts)
@@ -524,13 +546,15 @@ class Graphed:
 class StepFunction:
     """state → state: ``substeps`` calls of ``substep(state)`` through a
     ``Graphed`` (``graphs``), whose ``graphed`` and ``eager_reason`` it
-    carries."""
+    carries; ``closing_stamp`` as there."""
 
     def __init__(self, substep, substeps: int, unroll, donate: bool,
-                 config: EngineConfig, joints=None, device=None):
+                 config: EngineConfig, joints=None, device=None,
+                 closing_stamp: str | None = None):
         self.substeps = substeps
         self.graphs = Graphed(lambda state, _: (substep(state), None),
-                              unroll, donate, config, joints, device)
+                              unroll, donate, config, joints, device,
+                              closing_stamp)
         self.graphed = self.graphs.graphed
         self.eager_reason = self.graphs.eager_reason
 

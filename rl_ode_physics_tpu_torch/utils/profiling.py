@@ -65,47 +65,38 @@ from typing import Dict, Optional
 import numpy as np
 
 
-def _sync(state) -> None:
-    """Wait for the card that holds ``state``; nothing on the CPU."""
-    import torch
-    if state.pos.is_cuda:
-        torch.cuda.synchronize(state.pos.device)
+# the JAX package's phase keys (rl_ode_physics_tpu/utils/profiling.py:33)
+# and the stages of utils/tracing each one sums
+PHASES = {"broadphase_ms": ("pairs",),
+          "narrowphase_ms": ("collide", "compact"),
+          "forces_ms": ("forces",),
+          "solve_ms": ("solve.rows", "solve.iterate"),
+          "integrate_ms": ("integrate",)}
 
 
 def phase_timings(state, config, reps: int = 5) -> Dict[str, float]:
-    """Milliseconds a call of each phase of the classic substep, the port
-    of ``rl_ode_physics_tpu/utils/profiling.py:33``: broadphase,
-    narrowphase, external forces, solve and integration, each run once to
-    warm up and then ``reps`` times between two synchronizations of the
-    state's device, each phase on the previous one's output. ``state`` is a
-    batch of any number of worlds (one world is a batch of 1). Keys:
-    ``broadphase_ms``, ``narrowphase_ms``, ``forces_ms``, ``solve_ms``,
-    ``integrate_ms`` and their sum ``total_ms``."""
-    from rl_ode_physics_tpu_torch.ops import broadphase as bp
-    from rl_ode_physics_tpu_torch.ops import integrator as integ
-    from rl_ode_physics_tpu_torch.ops import narrowphase as nph
-    from rl_ode_physics_tpu_torch.ops import solver as sol
+    """Milliseconds a substep of each phase, the port of
+    ``rl_ode_physics_tpu/utils/profiling.py:33``, read from the stage
+    stamps of ``utils/tracing``: one step (``core/world.make_step_fn``, a
+    CUDA graph on a card, captured with the stamps) to warm up, then
+    ``reps`` steps of ``state``, each phase the sum of its stages
+    (``PHASES``). ``state`` is a batch of any number of worlds (one world
+    is a batch of 1). Keys: ``broadphase_ms``, ``narrowphase_ms``,
+    ``forces_ms``, ``solve_ms``, ``integrate_ms`` and their sum
+    ``total_ms``."""
+    from rl_ode_physics_tpu_torch.core.world import make_step_fn
+    from rl_ode_physics_tpu_torch.utils import tracing
 
-    out: Dict[str, float] = {}
-
-    def timeit(name, fn, *args):
-        fn(*args)
-        _sync(state)
-        t0 = time.perf_counter()
+    step = make_step_fn(config, donate=False)
+    with tracing.recording(state.device):
+        step(state)
+        tracing.reset()
         for _ in range(reps):
-            r = fn(*args)
-        _sync(state)
-        out[name] = (time.perf_counter() - t0) / reps * 1000.0
-        return r
-
-    cand = timeit("broadphase_ms", lambda s: bp.broadphase(s, config), state)
-    cont = timeit("narrowphase_ms",
-                  lambda s, c: nph.narrowphase(s, c, config), state, cand)
-    s2 = timeit("forces_ms",
-                lambda s: integ.apply_external_forces(s, config), state)
-    s3 = timeit("solve_ms", lambda s, c: sol.solve(s, c, config), s2, cont)
-    timeit("integrate_ms",
-           lambda s: integ.integrate_positions(s, config), s3)
+            step(state)
+        rec = tracing.read()
+    substeps = rec["stamps"]["start"]
+    out = {key: sum(rec["stages_ns"][s] for s in stages) / 1e6 / substeps
+           for key, stages in PHASES.items()}
     out["total_ms"] = sum(out.values())
     return out
 
