@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    limit of the card.
 1. build: compiles every hand-written kernel of the main paths from the
    checkout's sources with ``nvcc`` (one ``nvcc`` per source, all started
-   together: the compaction, the mesh kernels, ``pgs_solve``,
-   ``lcp_pivot``) and prints the build time; then ``launch_floor_ms``,
+   together: the compaction, ``collide_pairs``, the mesh kernels,
+   ``pgs_solve``, ``lcp_pivot``) and prints the build time; then ``launch_floor_ms``,
    what an
    empty kernel reads under the timer of every kernel time below.
 2. ``compact_rows_t`` against its plain version on the card, at the bench
@@ -98,9 +98,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     one world settled 480 substeps on the card (the bodies fall 20-50 m),
     replicated into 8192 worlds, one warm-up launch of 24 substeps and 2
     timed launches of 48; zero overflow, finite state, no body under the
-    floor; prints body-steps/s, ms/substep and peak memory. The JAX
-    classic pipeline reaches no Pallas kernel, so this path launches none
-    of the hand kernels (counted, and required to be 0).
+    floor; prints body-steps/s, ms/substep and peak memory. Of the hand
+    kernels the path launches ``collide_pairs`` alone, once a timed
+    substep (counted, and required). On the settled batch's broadphase
+    candidates ``collide_pairs`` is held to its plain version bit for bit
+    on every valid slot, in float32 and, the features cast, in float64
+    with the exact clip; its time, the plain version's and its byte bound
+    (``utils/bounds.collide_bound``) are printed.
 13. the mini-stack path at full width: ``benchmarks/
     tpu_default_conformance.py``'s engine and scene
     (``EngineConfig.throughput(max_bodies=16, max_pair_candidates=128,
@@ -382,8 +386,8 @@ from rl_ode_physics_tpu_torch.models.workloads import (  # noqa: E402
     ROLLOUT_RAYS, ROLLOUT_SUBSTEPS, capsule_config, mesh_config, mesh_world,
     mini_config, rollout_env, seeded_actions, standin_mesh)
 from rl_ode_physics_tpu_torch.utils.bounds import (  # noqa: E402
-    FP32_OPS_PER_S, FP64_OPS_PER_S, HBM_BYTES_PER_S, compaction_floors,
-    d2_bound, tiles_bound)
+    FP32_OPS_PER_S, FP64_OPS_PER_S, HBM_BYTES_PER_S, collide_bound,
+    compaction_floors, d2_bound, tiles_bound)
 
 WORLDS = 8192
 BODIES = 60
@@ -564,11 +568,12 @@ def phase_device():
 
 def phase_build():
     from rl_ode_physics_tpu_torch.ops import (
-        compaction_kernel, kernel_build, lcp_kernel, mesh_kernels,
-        pgs_kernel)
+        collide_kernel, compaction_kernel, kernel_build, lcp_kernel,
+        mesh_kernels, pgs_kernel)
     from rl_ode_physics_tpu_torch.utils.timing import launch_floor_ms
     import torch
-    builds = [compaction_kernel.build, mesh_kernels.build, pgs_kernel.build,
+    builds = [compaction_kernel.build, collide_kernel.build,
+              mesh_kernels.build, pgs_kernel.build,
               lambda: lcp_kernel.build(torch.float32),
               lambda: lcp_kernel.build(torch.float64),
               lambda: kernel_build.build("launch_floor.cu")]
@@ -1431,8 +1436,9 @@ def phase_pipelines_card_vs_cpu():
 
 def _hand_kernels():
     from rl_ode_physics_tpu_torch.ops import (
-        compaction_kernel, lcp_kernel, mesh_kernels, pgs_kernel)
-    return (compaction_kernel.compact_rows_t,
+        collide_kernel, compaction_kernel, lcp_kernel, mesh_kernels,
+        pgs_kernel)
+    return (compaction_kernel.compact_rows_t, collide_kernel.collide_pairs,
             mesh_kernels.sphere_mesh_d2_tiles, mesh_kernels.sphere_mesh_d2,
             pgs_kernel.pgs_solve, lcp_kernel.lcp_pivot_solve)
 
@@ -1471,12 +1477,12 @@ def phase_capsule_main_path(config, card):
                                 device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in _hand_kernels():
-        fn.launches = 0
     t0 = time.perf_counter()
     batch = warm(batch)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    for fn in _hand_kernels():
+        fn.launches = 0
     t0 = time.perf_counter()
     for _ in range(CAPSULE_TIMED_LAUNCHES):
         batch = step(batch)
@@ -1493,9 +1499,11 @@ def phase_capsule_main_path(config, card):
     if not (float(ys.min()) > -2.0 and float(ys.max()) < 20.0):
         raise AssertionError(f"capsule-stack path: bodies between y="
                              f"{float(ys.min())} and {float(ys.max())}")
-    if any(launches.values()):
-        raise AssertionError(f"capsule-stack path launched hand kernels: "
-                             f"{launches}")
+    want = dict.fromkeys(launches, 0)
+    want["collide_pairs"] = timed_substeps
+    if launches != want:
+        raise AssertionError(f"capsule-stack path launches {launches}, "
+                             f"expected {want}")
     dynamic = int(moving.sum())
     rate = CAPSULE_WORLDS * dynamic * timed_substeps / secs
     fastest = float(batch.linvel[:, moving].norm(dim=-1).max())
@@ -1510,10 +1518,81 @@ def phase_capsule_main_path(config, card):
         f"{rate:.1f} body-steps/s on {card}; overflow 0, tick {total}, "
         f"bodies between y={float(ys.min()):.3f} and {float(ys.max()):.3f}, "
         f"fastest {fastest:.3f} m/s, peak memory {peak_gb:.3f} GB; hand "
-        f"kernel launches {launches} (the classic pipeline has none)")
+        f"kernel launches {launches} (collide_pairs once a substep)")
     if peak_gb > 40.0:
         raise AssertionError(f"capsule-stack path: peak {peak_gb:.1f} GB, "
                              f"step it in world chunks")
+    return {"collide_pairs": launches["collide_pairs"]}, (
+        collide_on_path_data(batch, config))
+
+
+def collide_on_path_data(batch, config):
+    """``collide_pairs`` against its plain version on ``batch``'s
+    broadphase candidates: in the batch's float32 under ``config``, and
+    with the features cast to float64 under ``config`` with the exact
+    clip. Each is bitwise on every valid candidate slot, and zero and not
+    valid on the others. Returns the kernel's entry: times, the byte bound
+    and the float64 record under ``f64``."""
+    import dataclasses
+    import torch
+    from rl_ode_physics_tpu_torch.ops import (
+        broadphase, collide_kernel, narrowphase)
+    from rl_ode_physics_tpu_torch.utils.timing import cuda_ms
+
+    cand = broadphase.broadphase(batch, config)
+    feats = narrowphase._features(batch)
+    b, n, _ = feats.shape
+    cp = cand.ia.shape[1]
+    k = config.max_contacts_per_pair
+    live = int(cand.valid.sum())
+    records = {}
+    for dtype, cfg in ((torch.float32, config),
+                       (torch.float64, dataclasses.replace(
+                           config, exact_box_clip=True))):
+        args = (feats.to(dtype), cand.ia, cand.ib, cand.valid, k, cfg)
+        label = f"collide_pairs {str(dtype)[6:]}"
+        before = collide_kernel.collide_pairs.launches
+        got = collide_kernel.collide_pairs(*args)
+        if collide_kernel.collide_pairs.launches != before + 1:
+            raise AssertionError(f"{label}: the kernel did not launch")
+        want = collide_kernel.collide_pairs_plain(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("points", "normals", "depths", "valid"),
+                              got, want):
+            if not torch.equal(g[cand.valid], w[cand.valid]):
+                bad = int((g[cand.valid] != w[cand.valid]).sum())
+                raise AssertionError(f"{label}: {name} differs from the "
+                                     f"plain version on {bad} values")
+            if g[~cand.valid].any():
+                raise AssertionError(f"{label}: {name} not zero on an "
+                                     f"invalid candidate slot")
+        contacts = int(want[3].sum())
+        del got, want
+        kernel_ms = cuda_ms(lambda: collide_kernel.collide_pairs(*args))
+        plain_ms = cuda_ms(lambda: collide_kernel.collide_pairs_plain(*args),
+                           iters=2)
+        bound = collide_bound(b, n, cp, k, dtype, live=live)
+        records[dtype] = dict(
+            name="collide_pairs", ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+            hbm_bytes=bound["bytes"], l2_bytes=bound["l2_bytes"],
+            library_ms=None, max_abs_err=0.0, shape=[b, n, cp, k],
+            exact_clip=cfg.exact_box_clip, live_slots=live,
+            contacts=contacts)
+        log(f"{label} on the capsule-stack path's settled batch (B={b} "
+            f"worlds, N={n}, CP={cp} candidate slots, k={k}, exact clip "
+            f"{cfg.exact_box_clip}; {live} live slots, {contacts} contacts): "
+            f"bitwise the plain version on every valid slot, zero on the "
+            f"others; kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={bound['bound_ms']:.5f} (bytes: {bound['bytes']} "
+            f"through device memory; the live slots' feature rows, "
+            f"{bound['l2_bytes']} bytes, from L2) library_ms=null (no one "
+            f"PyTorch call)")
+        del args
+        torch.cuda.empty_cache()
+    entry = records[torch.float32]
+    entry["f64"] = records[torch.float64]
+    return entry
 
 
 def phase_mini_main_path(config, card):
@@ -1558,8 +1637,9 @@ def phase_mini_main_path(config, card):
         f"warm-up launch {warm_s:.3f} s): {rate:.1f} body-steps/s on {card}; "
         f"overflow 0, tick {total}, peak memory {peak_gb:.3f} GB, hand "
         f"kernel launches {launches}")
-    want = {"compact_rows_t": total, "sphere_mesh_d2_tiles": 0,
-            "sphere_mesh_d2": 0, "pgs_solve": 0, "lcp_pivot_solve": 0}
+    want = {"compact_rows_t": total, "collide_pairs": 0,
+            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0, "pgs_solve": 0,
+            "lcp_pivot_solve": 0}
     if launches != want:
         raise AssertionError(f"mini-stack path launches {launches}, "
                              f"expected {want}")
@@ -1855,9 +1935,9 @@ def phase_conformance_path(card, stack, ridge):
     timed = CONF_SUBSTEPS_PER_LAUNCH * CONF_TIMED_LAUNCHES
     _check_batch(batch, "conformance path",
                  int(stack.tick[0]) + CONF_WARMUP + timed)
-    want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": 0,
-            "sphere_mesh_d2": 0, "pgs_solve": CONF_WARMUP + timed,
-            "lcp_pivot_solve": 0}
+    want = {"compact_rows_t": 0, "collide_pairs": CONF_WARMUP + timed,
+            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0,
+            "pgs_solve": CONF_WARMUP + timed, "lcp_pivot_solve": 0}
     if launches != want:
         raise AssertionError(f"conformance path launches {launches}, "
                              f"expected {want}")
@@ -1916,9 +1996,9 @@ def phase_conformance_path(card, stack, ridge):
     rlaunches = {fn.__name__: fn.launches for fn in _hand_kernels()}
     _check_batch(rbatch, "ridge-mesh conformance path",
                  int(state.tick[0]) + RIDGE_SUBSTEPS)
-    want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": RIDGE_SUBSTEPS,
-            "sphere_mesh_d2": 1, "pgs_solve": RIDGE_SUBSTEPS,
-            "lcp_pivot_solve": 0}
+    want = {"compact_rows_t": 0, "collide_pairs": RIDGE_SUBSTEPS,
+            "sphere_mesh_d2_tiles": RIDGE_SUBSTEPS, "sphere_mesh_d2": 1,
+            "pgs_solve": RIDGE_SUBSTEPS, "lcp_pivot_solve": 0}
     if rlaunches != want:
         raise AssertionError(f"ridge-mesh conformance path launches "
                              f"{rlaunches}, expected {want}")
@@ -2300,8 +2380,9 @@ def phase_dantzig(card, stack, ridge):
         tick + DANTZIG_WARMUP + DANTZIG_SUBSTEPS))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
-    want = {"compact_rows_t": 0, "sphere_mesh_d2_tiles": 0,
-            "sphere_mesh_d2": 0, "pgs_solve": 0,
+    want = {"compact_rows_t": 0,
+            "collide_pairs": DANTZIG_WARMUP + DANTZIG_SUBSTEPS,
+            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0, "pgs_solve": 0,
             "lcp_pivot_solve": DANTZIG_WARMUP + DANTZIG_SUBSTEPS}
     if launches != want:
         raise AssertionError(f"DANTZIG path launches {launches}, expected "
@@ -2371,7 +2452,7 @@ def phase_dantzig(card, stack, ridge):
         rstep, rbatch, "DANTZIG ridge mesh",
         int(state.tick[0]) + DANTZIG_RIDGE_SUBSTEPS))
     rlaunches = {fn.__name__: fn.launches for fn in _hand_kernels()}
-    want = {"compact_rows_t": 0,
+    want = {"compact_rows_t": 0, "collide_pairs": DANTZIG_RIDGE_SUBSTEPS,
             "sphere_mesh_d2_tiles": DANTZIG_RIDGE_SUBSTEPS,
             "sphere_mesh_d2": 0, "pgs_solve": 0,
             "lcp_pivot_solve": DANTZIG_RIDGE_SUBSTEPS}
@@ -2728,6 +2809,8 @@ def phase_hinge_chain(card):
         is_pgs = config.solver is SolverKind.PGS
         want = {"compact_rows_t": (warm + timed
                                    if config.typed_buckets else 0),
+                "collide_pairs": (0 if config.typed_buckets
+                                  else warm + timed),
                 "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0,
                 "pgs_solve": warm + timed if is_pgs else 0,
                 "lcp_pivot_solve": 0}
@@ -3199,9 +3282,11 @@ def phase_game_server(card):
         (SERVER_TIMED_FROM, card_against_cpu)))
     live_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
-    if any(launches.values()):
+    cli_launches = {"collide_pairs": SERVER_TICKS}
+    if launches != dict(dict.fromkeys(launches, 0), **cli_launches):
         raise AssertionError(f"server, CLI policy: hand kernel launches "
-                             f"{launches}, expected none")
+                             f"{launches}, expected {cli_launches} and no "
+                             f"other")
     if sim.check_overflow():
         raise AssertionError(f"server, CLI policy: overflow "
                              f"{int(sim.world.overflow[0])}")
@@ -3256,8 +3341,8 @@ def phase_game_server(card):
     replay_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in _hand_kernels()}
     want = {"compact_rows_t": SERVER_TICKS + SERVER_THROUGHPUT_REPLAYED,
-            "sphere_mesh_d2_tiles": 0, "sphere_mesh_d2": 0, "pgs_solve": 0,
-            "lcp_pivot_solve": 0}
+            "collide_pairs": 0, "sphere_mesh_d2_tiles": 0,
+            "sphere_mesh_d2": 0, "pgs_solve": 0, "lcp_pivot_solve": 0}
     if launches != want:
         raise AssertionError(f"server, throughput policy: launches "
                              f"{launches}, expected {want}")
@@ -3358,7 +3443,8 @@ def phase_game_server(card):
 
     # 5. the CLI's server and client in subprocesses
     log(f"CLI: {_cli_session()}")
-    return {"server_cli": {}, "server_throughput": want}, on_path, dict(
+    launches = {"server_cli": cli_launches, "server_throughput": want}
+    return launches, on_path, dict(
         cli=stats, throughput=stats_t, session_ticks_per_s=ticks / wall_s,
         broadcast_ms=bcast_ms, digests=digests)
 
@@ -4370,7 +4456,8 @@ def main() -> int:
 
     phase_pipelines_card_vs_cpu()
     lap("11")
-    phase_capsule_main_path(capsule_config(), card)
+    by_path["capsule_stack"], collide = phase_capsule_main_path(
+        capsule_config(), card)
     torch.cuda.empty_cache()
     lap("12")
     ncfg = mini_config()
@@ -4399,6 +4486,11 @@ def main() -> int:
                   if got.get(entry["name"])}
         f64["launches"] = sum(counts.values())
         f64["launches_by_path"] = counts
+    counts = {path: got["collide_pairs"] for path, got in f64_paths.items()
+              if got.get("collide_pairs")}
+    collide["f64"]["launches"] = sum(counts.values())
+    collide["f64"]["launches_by_path"] = counts
+    kernels.append(collide)
     tiles["f64"]["on_ridge_mesh_path_data"] = on_ridge["tiles"]
     per_triangle["f64"]["on_ridge_mesh_path_data"] = on_ridge["d2"]
     by_path.update(f64_paths)

@@ -22,7 +22,7 @@ import torch
 from rl_ode_physics_tpu_torch.core.config import EngineConfig
 from rl_ode_physics_tpu_torch.core.state import WorldState, world_inv_inertia
 from rl_ode_physics_tpu_torch.ops.broadphase import pair_filter
-from rl_ode_physics_tpu_torch.ops.narrowphase import (
+from rl_ode_physics_tpu_torch.ops.pair_kernels import (
     _enabled_kernels, collide_pair)
 from rl_ode_physics_tpu_torch.ops.solver import _tangent_basis
 

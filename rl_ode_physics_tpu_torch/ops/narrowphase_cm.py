@@ -27,8 +27,10 @@ from rl_ode_physics_tpu_torch.ops import compaction
 from rl_ode_physics_tpu_torch.ops.broadphase import compute_aabbs
 from rl_ode_physics_tpu_torch.ops.compaction import top_k_indices
 from rl_ode_physics_tpu_torch.ops.narrowphase import (
-    _KERNEL_K, _bucket_pairs, _check_key_space, _compact_typed,
-    _enabled_kernels, _pair_eligibility, _selector_dtype)
+    _bucket_pairs, _check_key_space, _compact_typed, _pair_eligibility,
+    _selector_dtype)
+from rl_ode_physics_tpu_torch.ops.pair_kernels import (
+    _KERNEL_K, _enabled_kernels)
 from rl_ode_physics_tpu_torch.utils import graphs, tracing
 
 _EPS = 1e-9
@@ -196,8 +198,9 @@ def cm_sphere_plane(pa, qa, sa, pb, qb, sb):
     return [(point, vneg(n_p), depth, depth > 0.0)]
 
 
+# slot order of pair_kernels._BOX_CORNERS
 _BOX_SIGNS = [(sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
-              for sz in (-1.0, 1.0)]   # slot order of narrowphase._BOX_CORNERS
+              for sz in (-1.0, 1.0)]
 
 
 def cm_box_plane(pa, qa, sa, pb, qb, sb):

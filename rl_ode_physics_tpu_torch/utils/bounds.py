@@ -104,6 +104,26 @@ def d2_bound(c: int, t: int, dtype=None) -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+
+def collide_bound(b: int, n: int, cp: int, k: int, dtype=None,
+                  live: int | None = None) -> dict:
+    """The least time of ``collide_pairs`` on B worlds of N bodies and CP
+    candidate slots at k manifold slots: the bytes device memory must
+    carry, each slot's indices and validity read (9 bytes), its k points,
+    normals, depths and valid flags written, and the (B, N, 11) feature
+    table read once. Its operations (a few thousand FP64 for the heaviest
+    pair) lie well under that time. A live slot's two feature rows come
+    from the table in L2 and are not device-memory bytes; with ``live``
+    (the live slots) ``l2_bytes`` counts them."""
+    size, _ = _rates(dtype)
+    per_slot = 9 + k * (6 * size + size + 1)
+    hbm = b * cp * per_slot + b * n * 11 * size
+    out = dict(bytes=hbm, bound_ms=hbm / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    if live is not None:
+        out["l2_bytes"] = live * 2 * 11 * size
+    return out
+
 # csrc/pgs_solve.cu's operations, counted from its arithmetic (an FMA as
 # 2): a contact axis (relative velocity 32, the update 9, the impulse on
 # both bodies 69), a joint row (59); and the dependent operations of one

@@ -152,8 +152,10 @@ def kernel_counters() -> dict:
     """name → the hand kernel's wrapper whose ``launches`` counts it,
     looked up on its module at every call (a caller may have wrapped it)."""
     from rl_ode_physics_tpu_torch.ops import (
-        compaction_kernel, lcp_kernel, mesh_kernels, pgs_kernel)
+        collide_kernel, compaction_kernel, lcp_kernel, mesh_kernels,
+        pgs_kernel)
     return {"compact_rows_t": compaction_kernel.compact_rows_t,
+            "collide_pairs": collide_kernel.collide_pairs,
             "sphere_mesh_d2_tiles": mesh_kernels.sphere_mesh_d2_tiles,
             "sphere_mesh_d2": mesh_kernels.sphere_mesh_d2,
             "pgs_solve": pgs_kernel.pgs_solve,

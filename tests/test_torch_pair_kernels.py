@@ -31,7 +31,7 @@ from rl_ode_physics_tpu.core.config import EngineConfig as JaxConfig
 from rl_ode_physics_tpu.ops import narrowphase as jax_np
 from rl_ode_physics_tpu.ops import narrowphase_cm as jax_cm
 from rl_ode_physics_tpu_torch.core.config import EngineConfig as TorchConfig
-from rl_ode_physics_tpu_torch.ops import narrowphase as t_np
+from rl_ode_physics_tpu_torch.ops import pair_kernels as t_pk
 from rl_ode_physics_tpu_torch.ops import narrowphase_cm as t_cm
 
 PAIRS = 256
@@ -210,11 +210,11 @@ def _jax_collide(kind, k, exact):
 
 
 def _torch_collide(kind, k, exact, inputs):
-    table = t_np._enabled_kernels(TorchConfig(exact_box_clip=exact))
+    table = t_pk._enabled_kernels(TorchConfig(exact_box_clip=exact))
     kernels = (table if kind is None else
                {key: v for key, v in table.items()
                 if key == tuple(TYPES[t] for t in kind.split("_"))})
-    return t_np.collide_pair(*[torch.from_numpy(x) for x in inputs], k,
+    return t_pk.collide_pair(*[torch.from_numpy(x) for x in inputs], k,
                              kernels)
 
 
@@ -265,11 +265,11 @@ def test_enabled_kernels_match_jax():
                dict(enable_capsules=False, enable_planes=False),
                dict(exact_box_clip=True)):
         ref = jax_np._enabled_kernels(JaxConfig(**kw))
-        got = t_np._enabled_kernels(TorchConfig(**kw))
+        got = t_pk._enabled_kernels(TorchConfig(**kw))
         assert list(got) == list(ref), kw
         clip = isinstance(got[(2, 2)], functools.partial)
         assert clip == isinstance(ref[(2, 2)], functools.partial), kw
-    assert t_np._KERNEL_K == jax_np._KERNEL_K
+    assert t_pk._KERNEL_K == jax_np._KERNEL_K
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +303,7 @@ def test_clip_quad_to_rect_matches(seed):
     quads, hx, hy = _random_quads(seed)
     ref_v, ref_ok = jax.jit(jax.vmap(jax_np._clip_quad_to_rect))(
         jnp.asarray(quads), jnp.asarray(hx), jnp.asarray(hy))
-    got_v, got_ok = t_np._clip_quad_to_rect(
+    got_v, got_ok = t_pk._clip_quad_to_rect(
         torch.from_numpy(quads), torch.from_numpy(hx), torch.from_numpy(hy))
     ref_ok = np.asarray(ref_ok)
     assert np.array_equal(got_ok.numpy(), ref_ok)
@@ -318,7 +318,7 @@ def test_face_candidates_match():
     quads, hx, hy = _random_quads(5)
     ref = jax.jit(jax.vmap(jax_np._face_candidates))(
         jnp.asarray(quads), jnp.asarray(hx), jnp.asarray(hy))
-    got = t_np._face_candidates(torch.from_numpy(quads),
+    got = t_pk._face_candidates(torch.from_numpy(quads),
                                 torch.from_numpy(hx), torch.from_numpy(hy))
     assert np.array_equal(got[1].numpy(), np.asarray(ref[1]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=0,
