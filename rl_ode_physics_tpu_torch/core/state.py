@@ -68,7 +68,9 @@ class WorldState:
     tick: torch.Tensor         # (B,) int32
     rng_state: torch.Tensor    # (B,) int64, values of a uint32
     # cumulative count of pair candidates / contact rows dropped at a full
-    # capacity (bucket_caps, max_contacts); 0 = nothing was ever dropped
+    # capacity (bucket_caps, max_contacts), and of DANTZIG solves stopped at
+    # MAX_PIVOT_ROUNDS (an inexact λ, ops/lcp.solve_dantzig); 0 = nothing
+    # was ever dropped or left unconverged
     overflow: torch.Tensor     # (B,) int32
 
     def replace(self, **changes) -> "WorldState":

@@ -22,9 +22,14 @@
 //       the clamp values of the inactive rows (±hi at their side, else 0),
 //       λ = the masked solve: the active rows' A_CC λ_C = −b_C − A_CB λ_B,
 //       the inactive rows at their clamp values; w = A λ + b;
-//       the normal-row pivots, the boxed rows' clamps and releases, and
+//       the normal-row pivots, the boxed rows' clamps and releases, all
+//       of them flipped at once; in a world with no boxed row (its bounds
+//       fixed) only while the count of moving rows keeps falling below its
+//       least, else (after kStallRounds rounds that did not lower it) the
+//       first moving row alone, Murty's least-index rule (Júdice and
+//       Pires' safeguard: block flips cycle on large piles);
 //       done = no row moved and max|λ − λ_prev| ≤ tol·(1 + max|λ|), tol
-//       1e-7 in float64 and 30 ε in float32 (ops/lcp.py:193-202);
+//       1e-7 in float64 and 30 ε in float32 (ops/lcp._pivot_solve);
 //   * the final masked solve on the last set and bounds, then the
 //     projection: 0 on invalid rows, max(λ, 0) on normal rows, the box on
 //     boxed rows. It writes λ (B, R) and each world's rounds (B,).
@@ -113,6 +118,7 @@
 namespace {
 
 constexpr int kMaxRounds = 128;           // ops/lcp.MAX_PIVOT_ROUNDS
+constexpr int kStallRounds = 3;           // ops/lcp.STALL_ROUNDS
 constexpr double kTol = 1e-10;            // ops/lcp._TOL
 constexpr int kMaxShared = 232448;        // 227 KB: the opt-in's limit
 // the register tiers' most rows: a warp (staged), two warps (medium)
@@ -134,7 +140,8 @@ enum { kMediumLen = 0, kMediumTaken = 1, kLargeLen = 2, kLargeTaken = 3,
        kBlockedSolves = 4, kCounters = 8 };
 // the block's int slots: the valid count, the active count, the world taken,
 // then each warp's "a row moved"
-enum { kSlotValid = 0, kSlotActive = 1, kSlotWorld = 2, kSlotMoved = 8 };
+enum { kSlotValid = 0, kSlotActive = 1, kSlotWorld = 2, kSlotMoved = 8,
+       kSlotCount = 16, kSlotFirst = 24 };
 
 __host__ __device__ inline int odd(int n) { return n | 1; }
 __host__ __device__ inline size_t align16(size_t b) {
@@ -747,6 +754,7 @@ __device__ void solve_world(const Args& g, const Work<T>& s,
   const T* mu = g.mu ? static_cast<const T*>(g.mu) + static_cast<size_t>(w) * C
                      : nullptr;
   const T inf = T(INFINITY), tol = T(kTol);
+  bool boxed = false;
   for (int i = tid; i < V; i += NT) {
     const int r = s.rows[i], c = r % C;
     int lo = 0, hi = V;                  // the contact's normal row c
@@ -766,14 +774,19 @@ __device__ void solve_world(const Args& g, const Work<T>& s,
     s.act[i] = (k & kBilateral) || ((k & kToggled) && bi < T(0));
     s.side[i] = 0;
     s.lam[i] = T(0);
+    boxed |= (k & kBoxed) != 0;
   }
-  __syncthreads();
+  // the safeguard holds only where the bounds are fixed: no boxed row
+  const bool fixed = !__syncthreads_or(boxed);
   const T fp_tol = sizeof(T) == 8 ? T(1e3 * kTol) : T(30) * T(FLT_EPSILON);
   int round = 0;
   bool done = false;
+  // the safeguard: the least count of moving rows, the rounds since it fell
+  int best = V + 1, stall = 0;
   while (!done && round < kMaxRounds) {
     masked_solve<NT, kQ, T>(g, s, A, V, slot, nm);
     bool moved = false;
+    int count = 0, first = V;
     T chg = T(0), big = T(0);
     group_dots<NT, T>(
         V, V, [&](int i, int j) { return A(i, j) * s.lnew[j]; },
@@ -802,33 +815,59 @@ __device__ void solve_world(const Args& g, const Work<T>& s,
           if (rel_lo || rel_hi || rel_mid) nside = 0;
           if (tiny) nside = 1;                  // sit at hi = 0
           if (!box) nside = 0;
-          moved |= nact != act || nside != side;
+          const bool mv = nact != act || nside != side;
+          moved |= mv;
+          if (mv) {
+            ++count;
+            first = min(first, i);
+          }
           chg = max_nan(chg, fabs(ln - s.lam[i]));
           big = max_nan(big, fabs(ln));
-          s.act[i] = nact;
-          s.side[i] = nside;
+          // the row's move, applied once the round's count is known (the
+          // permutation buffer is free until the next solve)
+          s.pb[i] = mv ? 1 | (nact << 1) | ((nside + 1) << 2) : 0;
         });
     moved = __any_sync(kAll, moved);
+    count = __reduce_add_sync(kAll, count);
+    first = __reduce_min_sync(kAll, first);
     chg = warp_max(chg);
     big = warp_max(big);
     if (lane == 0) {
       s.red[warp] = chg;
       s.red[NW + warp] = big;
       s.slots[kSlotMoved + warp] = moved;
+      s.slots[kSlotCount + warp] = count;
+      s.slots[kSlotFirst + warp] = first;
     }
     __syncthreads();
     chg = T(0);
     big = T(0);
     moved = false;
+    count = 0;
+    first = V;
     for (int q = 0; q < NW; ++q) {
       chg = max_nan(chg, s.red[q]);
       big = max_nan(big, s.red[NW + q]);
       moved |= s.slots[kSlotMoved + q] != 0;
+      count += s.slots[kSlotCount + q];
+      first = min(first, s.slots[kSlotFirst + q]);
     }
+    // block flips while the count falls below its least, else the first
+    // moving row alone (Murty's least-index rule)
+    stall = count < best ? 0 : stall + 1;
+    best = min(best, count);
+    const bool single = fixed && stall >= kStallRounds;
     // the bounds move with λ_n even at a stable set: the iterate itself
     // must be a fixed point
     done = !moved && chg <= fp_tol * (T(1) + big);
-    for (int i = tid; i < V; i += NT) s.lam[i] = s.lnew[i];
+    for (int i = tid; i < V; i += NT) {
+      const int mv = s.pb[i];
+      if (mv && (!single || i == first)) {
+        s.act[i] = (mv >> 1) & 1;
+        s.side[i] = static_cast<signed char>(((mv >> 2) & 3) - 1);
+      }
+      s.lam[i] = s.lnew[i];
+    }
     __syncthreads();
     ++round;
   }
@@ -1129,9 +1168,13 @@ __device__ void reg_world(const Args& g, RegShared<NW, T>& sh, int w,
   signed char side = 0;
   T lam = T(0), hi = T(0), lnew;
   block_sync<NW>();
+  // the safeguard holds only where the bounds are fixed: no boxed row
+  const bool fixed = rows_ballot<NW>((kind & kBoxed) != 0, sh) == 0;
   const T fp_tol = sizeof(T) == 8 ? T(1e3 * kTol) : T(30) * T(FLT_EPSILON);
   int round = 0;
   bool last = false;
+  // the safeguard: the least count of moving rows, the rounds since it fell
+  int best = V + 1, stall = 0;
   for (;;) {
     lnew = reg_masked_solve<NW>(sh, V, mine, kind, act, side, lam, nrm, mu3,
                                 bv, hi);
@@ -1164,10 +1207,19 @@ __device__ void reg_world(const Args& g, RegShared<NW, T>& sh, int w,
     if (tiny) nside = 1;                        // sit at hi = 0
     if (!box) nside = 0;
     bool moved = mine && (nact != act || nside != side);
+    // block flips while the count of moving rows falls below its least,
+    // else the first moving row alone (Murty's least-index rule)
+    const unsigned long long movers = rows_ballot<NW>(moved, sh);
+    const int count = __popcll(movers);
+    stall = count < best ? 0 : stall + 1;
+    best = min(best, count);
+    const bool flip =
+        moved && (!fixed || stall < kStallRounds
+                  || t == __ffsll(static_cast<long long>(movers)) - 1);
     T chg = mine ? fabs(ln - lam) : T(0);
     T big = mine ? fabs(ln) : T(0);
     rows_reduce<NW>(chg, big, moved, sh);
-    if (mine) {
+    if (flip) {
       act = nact;
       side = nside;
     }

@@ -41,6 +41,7 @@ from rl_ode_physics_tpu_torch.models import scenes
 from rl_ode_physics_tpu_torch.net import protocol
 from rl_ode_physics_tpu_torch.net.native_transport import make_host
 from rl_ode_physics_tpu_torch.net.transport import Event, EventType
+from rl_ode_physics_tpu_torch.ops import lcp
 from rl_ode_physics_tpu_torch.utils import transforms as tf
 from rl_ode_physics_tpu_torch.utils.profiling import MetricsLog
 
@@ -237,20 +238,24 @@ class SimCore:
                 self.world = self._step1(self.world)
                 self.tick += 1
         # loud capacity overflow (default path, no diagnostics needed):
-        # a ~1 Hz device scalar read; warn whenever the cumulative dropped
-        # pair/contact count has grown since the last check
+        # a ~1 Hz device scalar read; warn whenever the cumulative count of
+        # dropped pairs/contacts and capped DANTZIG solves has grown since
+        # the last check
         if self.tick - self._overflow_checked_tick >= 120:
             self._overflow_checked_tick = self.tick
             self.check_overflow()
 
     def check_overflow(self) -> int:
-        """Cumulative dropped pair/contact count; warns when it grows."""
+        """Cumulative ``WorldState.overflow``: dropped pair/contact rows
+        and DANTZIG solves stopped at the round cap; warns when it grows."""
         count = int(self.world.overflow[0])
         if count > self._overflow_reported:
             warnings.warn(
                 f"physics capacity overflow: {count} pair/contact rows "
-                f"dropped so far (tick {self.tick}) — raise max_contacts / "
-                f"max_pair_candidates / bucket_caps", RuntimeWarning,
+                f"dropped or DANTZIG solves stopped at "
+                f"{lcp.MAX_PIVOT_ROUNDS} pivot rounds so far (tick "
+                f"{self.tick}) — raise max_contacts / max_pair_candidates / "
+                f"bucket_caps for dropped rows", RuntimeWarning,
                 stacklevel=2)
             self._overflow_reported = count
         return count

@@ -14,7 +14,16 @@ solved by Murty principal block pivoting extended to boxed rows: each
 round is a masked dense solve of the active rows, clamped rows at their
 bounds, then the active set and the bound sides flip where λ or w violate
 them, until the set, the sides and the iterate are stable, for at most
-``MAX_PIVOT_ROUNDS`` rounds.
+``MAX_PIVOT_ROUNDS`` rounds. Block flips can cycle on a large pile; with
+Júdice and Pires' safeguard a world whose count of moving rows has not
+fallen below its least for ``STALL_ROUNDS`` rounds flips only its first
+moving row (Murty's least-index rule, finite for the P-matrix that CFM
+makes of the normal rows' Schur complement) until the count falls below
+that least again. The safeguard holds only in a world whose bounds are
+fixed, with no boxed row (every friction row bilateral, μ = ∞): a boxed
+row's bounds ±μ·λ_n move with the iterate, the rule has no finiteness
+there, and it cured some capped worlds and capped others that block
+flips end, so such a world flips every moving row each round.
 
 The JAX package runs the rounds in a ``lax.while_loop`` under ``vmap``: a
 world that is done keeps its carry while the others go on. On the card the
@@ -39,12 +48,16 @@ from rl_ode_physics_tpu_torch.core.state import WorldState, world_inv_inertia
 from rl_ode_physics_tpu_torch.ops import lcp_kernel
 from rl_ode_physics_tpu_torch.ops import solver as sol
 from rl_ode_physics_tpu_torch.ops.narrowphase import Contacts
-from rl_ode_physics_tpu_torch.utils import tracing
+from rl_ode_physics_tpu_torch.utils import bounds, tracing
 
 # Murty converges in at most #normal-rows flips for PD systems in exact
 # arithmetic; finite-μ boxed rows add a geometric fixed-point tail
 MAX_PIVOT_ROUNDS = 128
 _TOL = 1e-10
+# block rounds in a row that may leave a world's least count of moving rows
+# where it was before the world takes single pivots (Júdice and Pires'
+# safeguard of block principal pivoting; only in a world with no boxed row)
+STALL_ROUNDS = 3
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -156,6 +169,12 @@ def _pivot_solve(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
     lam = torch.zeros((bsz, r), dtype=f, device=b.device)
     done = torch.zeros((bsz,), dtype=torch.bool, device=b.device)
     rounds = torch.zeros((bsz,), dtype=torch.int32, device=b.device)
+    # the safeguard: each world's least count of moving rows, and the
+    # rounds since it last fell
+    best = torch.full((bsz,), r + 1, dtype=torch.int32, device=b.device)
+    stall = torch.zeros((bsz,), dtype=torch.int32, device=b.device)
+    fixed = ~boxed.any(1)                        # the bounds never move
+    cols = torch.arange(r, device=b.device)
     ran = 0
     while ran < MAX_PIVOT_ROUNDS and not bool(done.all()):
         running = ~done
@@ -183,7 +202,18 @@ def _pivot_solve(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
         new_side = torch.where(tiny, 1, new_side)    # sit at hi = 0
         new_side = torch.where(boxed, new_side, 0).to(torch.int32)
 
-        moved = ((new_act != act) | (new_side != side)).any(1)
+        moving = (new_act != act) | (new_side != side)
+        count = moving.sum(1, dtype=torch.int32)
+        moved = count > 0
+        # block flips while the count keeps falling below its least, else
+        # the first moving row alone (where the bounds are fixed)
+        fell = count < best
+        new_stall = torch.where(fell, 0, stall + 1)
+        single = fixed & (new_stall >= STALL_ROUNDS)
+        first = torch.argmax(moving.to(torch.int32), 1)
+        flip = moving & (~single[:, None] | (cols == first[:, None]))
+        new_act = torch.where(flip, new_act, act)
+        new_side = torch.where(flip, new_side, side)
         # the bounds move with λ_n even at a stable set: the iterate itself
         # must be a fixed point (tolerance by dtype)
         lam_chg = torch.abs(lam_new - lam).amax(1)
@@ -194,6 +224,8 @@ def _pivot_solve(a_mat, b, valid, is_normal, friction: bool, mu_row=None):
         act = torch.where(keep, new_act, act)
         side = torch.where(keep, new_side, side)
         lam = torch.where(keep, lam_new, lam)
+        best = torch.where(running, torch.minimum(best, count), best)
+        stall = torch.where(running, new_stall, stall)
         done = torch.where(running, new_done, done)
         rounds += running.to(torch.int32)
         ran += 1
@@ -213,7 +245,10 @@ def solve_dantzig(state: WorldState, contacts: Contacts,
     (boxed rows with ODE's findex coupling). The pivot loop is
     ``lcp_kernel.lcp_pivot_solve``: one launch of the hand kernel on the
     card, which reads nothing back to the host; the plain loop on the
-    CPU."""
+    CPU. A world whose solve reaches ``MAX_PIVOT_ROUNDS`` holds an inexact
+    λ: it adds 1 to that world's ``overflow``, as a dropped row does.
+    While tracing is on the solve counts its rows and rounds
+    (``_pivot_counters``)."""
     sol._check_solver(state)
     jw, a_mat, b, valid, is_normal, mu_row = _build_lcp(
         state, contacts, config)
@@ -221,13 +256,42 @@ def solve_dantzig(state: WorldState, contacts: Contacts,
         # only the first C rows take part
         valid = valid & is_normal
     tracing.stamp("solve.rows")
-    lam, _ = lcp_kernel.lcp_pivot_solve(a_mat, b, valid, is_normal,
-                                        config.friction, mu_row)
+    lam, rounds = lcp_kernel.lcp_pivot_solve(a_mat, b, valid, is_normal,
+                                             config.friction, mu_row)
+    capped = rounds >= MAX_PIVOT_ROUNDS
+    _pivot_counters(lam, rounds, capped, valid, is_normal,
+                    config.friction, mu_row)
     bsz, n = state.num_worlds, state.num_slots
     dv6 = torch.bmm(lam[:, None, :],
                     jw.reshape(bsz, lam.shape[1], n * 6)).reshape(bsz, n, 6)
     return state.replace(linvel=state.linvel + dv6[..., 0:3],
-                         angvel=state.angvel + dv6[..., 3:6])
+                         angvel=state.angvel + dv6[..., 3:6],
+                         overflow=state.overflow + capped.to(torch.int32))
+
+
+def _pivot_counters(lam, rounds, capped, valid, is_normal, friction: bool,
+                    mu_row) -> None:
+    """A solve's device counters (``utils/tracing``), summed over its
+    worlds: the valid rows V, V² and V³ (a roofline's bytes and
+    operations), the active rows of the last solve read from λ
+    (``utils/bounds.lcp_active_rows``), the pivot rounds and the solves
+    stopped at the cap. Made only while tracing is on."""
+    def nvalid():
+        return valid.sum(1, dtype=torch.int32)
+
+    def cube():
+        if lam.shape[1] ** 3 >= 2 ** 31:
+            raise ValueError(f"R = {lam.shape[1]} rows: V³ of a world "
+                             f"overflows its int32 count")
+        return nvalid() ** 3
+
+    tracing.count("lcp_valid_rows", nvalid)
+    tracing.count("lcp_valid_rows_sq", lambda: nvalid() ** 2)
+    tracing.count("lcp_valid_rows_cube", cube)
+    tracing.count("lcp_active_rows", lambda: bounds.lcp_active_rows(
+        lam, valid, is_normal, friction, mu_row).to(torch.int32))
+    tracing.count("pivot_rounds", rounds)
+    tracing.count("pivot_capped", capped)
 
 
 def lcp_residuals(state: WorldState, contacts: Contacts,

@@ -1,9 +1,11 @@
 """DANTZIG's pivot loop on the card: the hand-written Hopper kernel.
 
 ``csrc/lcp_pivot.cu`` runs the whole Murty principal block pivoting of
-every world's contact LCP, boxed friction rows included, in a fixed number
-of launches a solve: the warm guess, each world's rounds to its own fixed
-point or to ``MAX_PIVOT_ROUNDS``, the final solve and the projection. It
+every world's contact LCP, boxed friction rows included, with the
+single-pivot safeguard (``ops/lcp.STALL_ROUNDS``) in worlds with no boxed
+row, in a fixed number of launches a solve: the warm guess, each world's
+rounds to its own fixed point or to ``MAX_PIVOT_ROUNDS``, the final solve
+and the projection. It
 replaces no Pallas kernel: it is the port's form of the JAX package's
 ``lax.while_loop`` over pivot rounds (``rl_ode_physics_tpu/ops/lcp.py:206``),
 which runs under ``jit`` and ``vmap`` on the device. It is built with

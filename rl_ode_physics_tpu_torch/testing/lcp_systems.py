@@ -8,7 +8,8 @@ contact, R = 3C rows ordered [normal | t1 | t2], A = J M⁻¹ Jᵀ + (cfm/dt)·I
 contacts J has full rank, so every row may be valid and the system stays
 well conditioned: a world of all its rows valid is the kernel's large
 tier and its blocked elimination. ``tier_boundary_lcp`` gives one world at
-each of the kernel's tier boundaries.
+each of the kernel's tier boundaries, ``block_cycle_lcp`` one world in each
+tier on which block pivoting cycles.
 """
 
 from __future__ import annotations
@@ -86,3 +87,32 @@ def tier_boundary_lcp(counts, seed: int = 13, mu=None, contacts: int = 96):
     for w, count in enumerate(counts):
         valid[w] = valid_of_count(count, contacts)
     return a_mat, b, valid, is_normal, mu_row
+
+
+# (seed, contacts, bodies, world) of ``random_contact_lcp`` systems, every
+# row valid and μ = ∞, on which flipping every violating row at once
+# cycles to the round cap: 30, 63 and 144 valid rows, one in each of the
+# kernel's tiers (staged, medium, large)
+BLOCK_CYCLES = ((36, 10, 6, 5), (35, 21, 12, 11), (9, 48, 24, 7))
+
+
+def block_cycle_lcp(contacts: int = 48):
+    """The ``BLOCK_CYCLES`` worlds as one batch of R = 3 · ``contacts``
+    rows, float64 and bool numpy arrays (A, b, valid, is_normal): each
+    system's contact k in contact slot k, the slots past its contacts
+    invalid (identity rows of A, b = 0)."""
+    r = 3 * contacts
+    out_a = np.tile(np.eye(r), (len(BLOCK_CYCLES), 1, 1))
+    out_b = np.zeros((len(BLOCK_CYCLES), r))
+    valid = np.zeros((len(BLOCK_CYCLES), r), bool)
+    for w, (seed, c, bodies, world) in enumerate(BLOCK_CYCLES):
+        a_mat, b, _, _, _ = random_contact_lcp(
+            seed, worlds=world + 1, contacts=c, bodies=bodies, live=1.0)
+        rows = np.concatenate([blk * contacts + np.arange(c)
+                               for blk in range(3)])
+        out_a[w][np.ix_(rows, rows)] = a_mat[world]
+        out_b[w][rows] = b[world]
+        valid[w][rows] = True
+    is_normal = np.zeros((len(BLOCK_CYCLES), r), bool)
+    is_normal[:, :contacts] = True
+    return out_a, out_b, valid, is_normal

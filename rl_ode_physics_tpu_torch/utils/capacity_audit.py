@@ -11,7 +11,9 @@ hb-8 headline and the plain-20 parity line) at their exact capacities,
 over seeds × substeps, and prints each seed's live-contact peak, its
 candidate-pair peak in each typed bucket (sphere-sphere, sphere-box,
 box-box, counted from ``narrowphase._pair_eligibility`` as the JAX
-script does), and its cumulative overflow::
+script does), and its cumulative overflow (dropped rows alone: its
+policies are Jacobi, and only a DANTZIG solve stopped at the round cap
+counts on ``WorldState.overflow`` besides)::
 
     python3 -m rl_ode_physics_tpu_torch.utils.capacity_audit \\
         [--bodies 64] [--steps 500] [--seeds 42,7,...] [--sign] [--compare]

@@ -19,9 +19,11 @@ Both run one world at capacities far above any peak (nothing can be
 dropped), and print the JAX tool's JSON line every ``--every`` substeps
 and at the end: the peak of live contacts, of broadphase candidates
 (classic) or pairs tested (typed), the peak candidates of each type pair,
-the overflow counter, and where the dynamic bodies are (lowest and
-highest y, fastest speed), with the card's name and power limit. The
-running peaks stay on the device between those lines.
+the overflow counter (dropped rows alone: neither scene's solver is
+DANTZIG, whose solves stopped at the round cap it counts besides), and
+where the dynamic bodies are (lowest and highest y, fastest speed), with
+the card's name and power limit. The running peaks stay on the device
+between those lines.
 """
 
 from __future__ import annotations

@@ -25,8 +25,13 @@ capture key).
   counter by one ``stage_count`` launch (a sum on the host on the CPU),
   summed over worlds and substeps: ``pairs_tested``, ``contact_rows``,
   ``rows_dropped``, ``world_substeps`` (``core/world._pair_row_counters``,
-  the helper the diagnostics share) and ``candidate_rows`` with the mask's
-  entries ``candidate_slots`` (the mask handed to the row compaction).
+  the helper the diagnostics share), ``candidate_rows`` with the mask's
+  entries ``candidate_slots`` (the mask handed to the row compaction),
+  and DANTZIG's solve (``ops/lcp.solve_dantzig``, a world-solve each):
+  ``lcp_valid_rows`` V and its powers ``lcp_valid_rows_sq`` and
+  ``lcp_valid_rows_cube``, ``lcp_active_rows``, ``pivot_rounds`` and
+  ``pivot_capped``. A count whose source is a function is made only while
+  tracing is on.
 * **Host spans.** ``span(name)`` times a block of the program's host
   code on ``perf_counter_ns`` into a bounded ring (``utils/graphs``:
   ``prepare``, ``launch``, ``hand_out`` of a graphed call), and opens a
@@ -62,7 +67,9 @@ STAGES = ("outside", "mesh", "joints", "pairs", "collide", "compact",
 # the stamps: each ends its stage; "start" ends "outside"
 STAMPS = ("start",) + STAGES[1:]
 COUNTERS = ("pairs_tested", "candidate_rows", "candidate_slots",
-            "contact_rows", "rows_dropped", "world_substeps")
+            "contact_rows", "rows_dropped", "world_substeps",
+            "lcp_valid_rows", "lcp_valid_rows_sq", "lcp_valid_rows_cube",
+            "lcp_active_rows", "pivot_rounds", "pivot_capped")
 # outside gaps kept on the device, host spans kept on the host
 GAP_RING = 1024
 SPAN_RING = 4096
@@ -251,10 +258,18 @@ def count(name: str, x, group: int = 1, also=None) -> None:
     """Add to counter ``name``: the sum of ``x``, a (B,) int32 tensor,
     or the groups of ``group`` consecutive entries of ``x``, a contiguous
     bool mask, that hold a set entry; or ``x`` itself where it is an int.
+    ``x`` may be a function of no arguments that gives one of those: it is
+    called only while tracing is on, and its ops are tracing's own.
     ``also``: (counter, int) added in the same launch."""
     global own
     if not _on:
         return
+    if callable(x):
+        own = True
+        try:
+            x = x()
+        finally:
+            own = False
     slot = _COUNTER_INDEX[name]
     slot2, add2 = (-1, 0) if also is None else (_COUNTER_INDEX[also[0]],
                                                 int(also[1]))

@@ -12,7 +12,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from rl_ode_physics_tpu.core.config import EngineConfig as JaxConfig
 from rl_ode_physics_tpu.core.config import SolverKind as JaxSolverKind
@@ -21,6 +20,8 @@ from rl_ode_physics_tpu.core.world import make_step_fn as jax_make_step_fn
 from rl_ode_physics_tpu.models import scenes as jax_scenes
 from rl_ode_physics_tpu_torch.core.config import EngineConfig as TorchConfig
 from rl_ode_physics_tpu_torch.core.config import SolverKind as TorchSolverKind
+
+from _threads import single_cpu_thread  # noqa: F401  (re-exported)
 
 # 16 slots (12 bodies + the 4 arena geoms) with the bench's capacities as
 # bench._bucket_caps(16) and max_contacts=32 give them: throughput policy,
@@ -37,20 +38,6 @@ SMALL = dict(
     pallas_compaction=True,
 )
 SMALL_BODIES = 12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def single_cpu_thread():
-    """One CPU thread for torch and the BLAS/OpenMP pools (JAX's LAPACK
-    calls among them) while a module that imports this fixture runs. The
-    test workers share the cores, and a pool of a thread a core then
-    spins: a small dense solve or einsum ran 8-100x slower with every
-    core busy. One thread a worker keeps them at their solo speed."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(limits=1):
-        yield
-    torch.set_num_threads(threads)
 
 
 # the JAX side's subprocesses: XLA and LAPACK on one thread, for the same

@@ -833,6 +833,23 @@ def test_lcp_pivot_kernel_matches_plain_on_card(case, dtype):
 
 
 @pytest.mark.cuda
+def test_lcp_pivot_kernel_ends_block_cycles_on_card():
+    """A world in each tier on which flipping every violating row at once
+    cycles to the cap (``lcp_systems.block_cycle_lcp``): the kernel's
+    safeguard ends each in the plain version's rounds, at its λ, in
+    float64 (in float32 these near-degenerate systems' pivot paths follow
+    the roundoff of each side's sums)."""
+    _require_card()
+    from rl_ode_physics_tpu_torch.testing.lcp_systems import (
+        block_cycle_lcp)
+    system = tuple(torch.from_numpy(x).to("cuda")
+                   for x in block_cycle_lcp()) + (None,)
+    rounds, _ = _lcp_kernel_against_plain(system, True, "float64",
+                                          "block_cycles")
+    assert int(rounds.max()) < 32
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_lcp_pivot_register_tiers_fit_the_sm_on_card(dtype):
     """What the card reports of the register tiers' built kernels: the

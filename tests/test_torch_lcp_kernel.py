@@ -14,7 +14,8 @@
   the tier chosen from the valid count, the valid rows gathered, each
   round's active block eliminated with partial pivoting and a reciprocal a
   pivot, blocked past the large tier's shared rows, back substitution in
-  blocks of 32, the pivots and the fixed-point test on local rows), against
+  blocks of 32, the pivots with the single-pivot safeguard and the
+  fixed-point test on local rows), against
   the plain ``_pivot_solve`` in float64: λ within 1e-10 of max |λ| and each
   world's rounds equal, at μ = ∞, a finite μ and per-contact μ, at every
   tier boundary (the large tier's shared rows − 1 eliminated whole, + 1
@@ -42,8 +43,9 @@ import torch
 from rl_ode_physics_tpu.core.config import EngineConfig as JaxConfig
 from rl_ode_physics_tpu.ops import lcp as jax_lcp
 from rl_ode_physics_tpu_torch.ops import lcp, lcp_kernel
+from rl_ode_physics_tpu_torch.testing import dantzig_reference
 from rl_ode_physics_tpu_torch.testing.lcp_systems import (
-    random_contact_lcp, tier_boundary_lcp)
+    block_cycle_lcp, random_contact_lcp, tier_boundary_lcp)
 
 from _torch_port import single_cpu_thread  # noqa: F401  (autouse)
 
@@ -267,6 +269,7 @@ def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None,
             return out
 
         done, rnd = False, 0
+        best, stall = v + 1, 0
         while not done and rnd < lcp.MAX_PIVOT_ROUNDS:
             hi = bounds(lam)
             tiny = box & (hi < tol)
@@ -285,7 +288,18 @@ def _kernel_model(a_mat, b, valid, is_normal, friction, mu_row=None,
             nside = np.where(rel_lo | rel_hi | rel_mid, 0, nside)
             nside = np.where(tiny, 1, nside)
             nside = np.where(box, nside, 0)
-            moved = bool(((nact != act) | (nside != side)).any())
+            moving = (nact != act) | (nside != side)
+            count = int(moving.sum())
+            moved = count > 0
+            # the safeguard (no boxed row): block flips while the count
+            # falls below its least, else the first moving row alone
+            stall = 0 if count < best else stall + 1
+            best = min(best, count)
+            if not box.any() and stall >= lcp.STALL_ROUNDS and moved:
+                first = int(np.argmax(moving))
+                keep = np.arange(v) != first
+                nact = np.where(keep, act, nact)
+                nside = np.where(keep, side, nside)
             chg = np.abs(new - lam).max(initial=0.0)
             scale = 1.0 + np.abs(new).max(initial=0.0)
             done = not moved and chg <= fp_tol * scale
@@ -330,6 +344,51 @@ def test_kernel_model_matches_the_plain_pivot_solve(seed, mu):
     assert err <= MODEL_RTOL * scale, (err, scale)
     print(f"[lcp-kernel] model against plain ({mu}): rounds "
           f"{want_rounds.tolist()}, err {err / scale:.3e} of max|λ|")
+
+
+def test_safeguard_ends_block_cycles(monkeypatch):
+    """On ``block_cycle_lcp``'s worlds (one in each tier) flipping every
+    violating row at once cycles to the cap; with the safeguard the plain
+    loop and the kernel's model end each in the same rounds, at the plain
+    Dantzig reference's λ."""
+    a_mat, b, valid, is_normal = block_cycle_lcp()
+    want_lam, want_rounds = lcp._pivot_solve(
+        *_torch(a_mat, b, valid, is_normal), True)
+    got_lam, got_rounds, tiers, _, _ = _kernel_model(a_mat, b, valid,
+                                                     is_normal, True)
+    assert tiers == ["staged", "medium", "large"]
+    assert got_rounds.tolist() == want_rounds.tolist()
+    assert int(want_rounds.max()) < 32
+    for w in range(3):
+        rows = np.nonzero(valid[w])[0]
+        ref = dantzig_reference.solve_lcp(
+            *_torch(a_mat[w][np.ix_(rows, rows)], b[w][rows]),
+            ~torch.from_numpy(is_normal[w][rows])).numpy()
+        scale = np.abs(ref).max()
+        assert np.abs(want_lam[w].numpy()[rows] - ref).max() <= 1e-12 * scale
+        assert np.abs(got_lam[w][rows] - ref).max() <= MODEL_RTOL * scale
+    monkeypatch.setattr(lcp, "STALL_ROUNDS", 10 ** 6)
+    _, rounds = lcp._pivot_solve(*_torch(a_mat, b, valid, is_normal), True)
+    assert rounds.tolist() == [lcp.MAX_PIVOT_ROUNDS] * 3
+
+
+@pytest.mark.parametrize("mu", [0.4, "mixed"], ids=["mu_finite",
+                                                    "mu_per_contact"])
+def test_safeguard_spares_worlds_with_boxed_rows(mu, monkeypatch):
+    """A world with a boxed friction row (a finite μ) pivots as block
+    flips alone do: the same λ and rounds with the safeguard off, capped
+    worlds among them (the bounds move with λ_n, and the least-index
+    rule, which cured some of them and capped others, has no finiteness
+    there). 48 contacts a world, where the rule took single pivots."""
+    a_mat, b, valid, is_normal, mu_row = random_contact_lcp(
+        8, worlds=6, contacts=48, bodies=24, mu=mu)
+    system = _torch(a_mat, b, valid, is_normal)
+    lam, rounds = lcp._pivot_solve(*system, True, *_torch(mu_row))
+    monkeypatch.setattr(lcp, "STALL_ROUNDS", 10 ** 6)
+    want_lam, want_rounds = lcp._pivot_solve(*system, True, *_torch(mu_row))
+    assert rounds.tolist() == want_rounds.tolist()
+    assert int(rounds.max()) == lcp.MAX_PIVOT_ROUNDS
+    assert torch.equal(lam, want_lam)
 
 
 def test_kernel_model_without_friction():
@@ -649,16 +708,21 @@ def test_chain_floor_of_the_pivot_kernel():
 
 @pytest.mark.parametrize("mu", [None, 0.4, "mixed"],
                          ids=["mu_inf", "mu_finite", "mu_per_contact"])
-def test_active_rows_of_the_last_solve(mu):
+def test_active_rows_of_the_last_solve(mu, monkeypatch):
     """``bounds.lcp_active_rows`` reads each world's active rows in its
     last solve from λ alone: the model's own count of them, on random
-    contact LCPs."""
+    contact LCPs. Each world takes the rounds that block flips alone take
+    (the safeguard off), a capped one among them."""
     from rl_ode_physics_tpu_torch.utils import bounds
     a_mat, b, valid, is_normal, mu_row = random_contact_lcp(
         21, worlds=6, bodies=24, mu=mu)
-    lam, _, _, _, active = _kernel_model(a_mat, b, valid, is_normal, True,
-                                         mu_row)
+    lam, rounds, _, _, active = _kernel_model(a_mat, b, valid, is_normal,
+                                              True, mu_row)
     got = bounds.lcp_active_rows(*_torch(lam, valid, is_normal), True,
                                  *_torch(mu_row))
     assert got.tolist() == active.tolist()
     assert int(active.min()) < int(valid.sum(1).max())
+    monkeypatch.setattr(lcp, "STALL_ROUNDS", 10 ** 6)
+    _, block_rounds = lcp._pivot_solve(
+        *_torch(a_mat, b, valid, is_normal), True, *_torch(mu_row))
+    assert rounds.tolist() == block_rounds.tolist()

@@ -123,7 +123,8 @@ class OpLog(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("name", ["typed-cm", "classic", "pgs", "dense"])
+@pytest.mark.parametrize("name", ["typed-cm", "classic", "pgs", "dantzig",
+                                  "dense"])
 def test_tracing_off_adds_no_op(name):
     """One eager substep dispatches the same ops with tracing off as with
     tracing on, less the counters' own sums: the stamps and the spans add
@@ -341,6 +342,48 @@ def test_reader_reads_the_program_record(name):
     assert read({}) is None
     assert read({"program": None}) is None
     assert read({"cell": "arena64-hb8.settled-8192", "kernels": []}) is None
+
+
+def _pivot_context(counters):
+    """A traced run's context of the DANTZIG cell: 4 traced substeps whose
+    ``lcp_pivot`` kernels took 1 ms a substep, and a record of 8
+    world-substeps with ``counters``."""
+    rec = _record()
+    rec["counters"] = dict(rec["counters"], world_substeps=8, **counters)
+    return {"program": rec, "cell": "dantzig-f64.stack-1024",
+            "traced_substeps": 4,
+            "kernels": [("void lcp_pivot_large<double>", 0.0, 3000.0),
+                        ("void lcp_pivot_warp<double>", 5000.0, 6000.0),
+                        ("Memset (Device)", 6000.0, 9000.0),
+                        ("pgs_solve_kernel", 9000.0, 19000.0)]}
+
+
+PIVOT = {"lcp_valid_rows": 8 * 300, "lcp_valid_rows_sq": 8 * 300 ** 2,
+         "lcp_valid_rows_cube": 8 * 300 ** 3, "lcp_active_rows": 8 * 250,
+         "pivot_rounds": 8 * 5, "pivot_capped": 0}
+# 1,024 worlds of V = 300: ⅔·V³ + 4·V² operations a world at 67 TFLOP/s
+# (the bound: more than 8·V² + 17·V bytes at 3.35 TB/s), over 1 ms
+PIVOT_READINGS = {
+    "pivot_rounds_per_world": 5.0,
+    "lcp_active_rows_per_world": 250.0,
+    "lcp_pivot_roofline_pct": 100.0 * 1e3 * 1024
+    * (2 / 3 * 300 ** 3 + 4 * 300 ** 2) / 67e12,
+}
+
+
+@pytest.mark.parametrize("name", list(PIVOT_READINGS))
+def test_pivot_reader_reads_the_program_record(name):
+    from benchlib import manifest
+    read = manifest.reader(name)
+    assert read(_pivot_context(PIVOT)) == pytest.approx(
+        PIVOT_READINGS[name])
+    # a program from before the pivot counters, and no record
+    assert read(_pivot_context({})) is None
+    assert read({}) is None
+    bench = manifest.load()
+    metric = next(m for m in bench["per_layer"] if m["name"] == name)
+    assert metric["workloads"] == ["dantzig-f64.stack-1024"]
+    assert metric["moves"] == "body_steps_per_s"
 
 
 def test_manifest_lists_the_program_metrics():
